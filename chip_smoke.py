@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: build its CUDA kernel from the
-sources in this checkout, hold the kernel against its plain PyTorch version
-at every serving shape, drill ABFT detection and correction on the card,
-and serve Qwen2-0.5B at its published width through the port's serving
-entry point.
+"""Drive the PyTorch port on one NVIDIA GPU: build its CUDA kernels from the
+sources in this checkout, hold each kernel against its plain PyTorch version
+at the shapes its path gives it, drill ABFT detection and correction on the
+card, serve Qwen2-0.5B at its published width through the port's serving
+entry point, and run the paper's fault-tolerant SUMMA at the paper's size.
 
     python3 chip_smoke.py
 
 Phases (one line or more each; any failed check raises, and the script
 exits non-zero without printing a result):
   1. device   — a CUDA card, and its name and power limit from nvidia-smi;
-  2. build    — nvcc builds kernels/csrc/abft_matmul.cu (sm_90a);
+  2. build    — nvcc builds kernels/csrc/abft_matmul.cu and
+                abft_matmul_acc.cu (sm_90a), one process each, at once;
   3. kernel   — the kernel against its plain version at the serving shapes
                 (m = 4 decode, m = 1024 prefill bucket; fp32 and bf16, one
                 int8 shape), with kernel, plain and torch.matmul times;
@@ -22,7 +23,21 @@ exits non-zero without printing a result):
                 requests, launch count 168 x (prefills + decode steps), no
                 plain-version call; each prefill's logits against the
                 plain path within a tolerance measured from fp32
-                activations, and every first token equal to its argmax.
+                activations, and every first token equal to its argmax;
+  6. acc      — the accumulate kernel against its plain version at the
+                SUMMA step shape (3072^3: fp32, bf16 and int8 operands) and
+                a ragged shape, with kernel, plain, torch.addmm and bound
+                times; a clean two-call chain re-verifies with residual
+                exactly 0; flip drills: five single flips located and
+                repaired, two flips in two tiles, an int8 data flip repaired
+                bit-exactly, a carried-ccol flip detected and not repaired;
+  7. summa    — repro_torch.core.abft_summa on an 8 x 8 grid of 3072 blocks
+                (the paper's p = 64, f = 1): clean, a failure, a double
+                failure, a mid-loop flip and a last-step flip, each passing
+                the paper's residual check and verify() with 512 kernel
+                launches and no plain call; the plain-SUMMA walls (kernel
+                with verify off, and torch.matmul) on 24576^2 operands; the
+                stress CLI for 8 iterations.
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -337,6 +352,370 @@ def phase_serve(torch, record, name):
     return launches
 
 
+KERNEL_SOURCES = ("abft_matmul", "abft_matmul_acc")
+
+
+def phase_build(torch, record):
+    """nvcc on every kernel source of the path, one process each, at once."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.compile_all(KERNEL_SOURCES)
+    secs = time.perf_counter() - t0
+    record["build"] = {"seconds": secs}
+    for src in KERNEL_SOURCES:
+        build.load(src)
+        entry = build.BUILD_LOG[src]
+        regs = [ln.strip() for ln in entry["log"].splitlines()
+                if "registers" in ln]
+        log("build", f"{src}.cu built in {entry['seconds']:.1f} s "
+                     f"({len(regs)} kernels; {regs[-1] if regs else 'reused'})")
+        record["build"][src] = entry
+    log("build", f"both sources built in {secs:.1f} s (in parallel)")
+
+
+ACC_CASES = [                   # (m, k, n, operand dtype, pinned tile)
+    (3072, 3072, 3072, "float32", None),     # the SUMMA step
+    (3072, 3072, 3072, "bfloat16", None),
+    (3072, 3072, 3072, "int8", None),
+    (200, 136, 328, "float32", (64, 64)),    # ragged edges in every direction
+]
+
+
+def acc_bound(m, k, n, f, in_dtype, out_bytes, bm, bn):
+    """Least time of one accumulate step: A, B, C_in, both weight matrices
+    and the carried state read once, C_out, the new state and the stats
+    written once; 2mkn + 4fmn (epilogue checksums) + 4mn (the prologue's
+    plain-sum residuals on clean data) operations at the operand type's
+    peak."""
+    in_b = {"float32": 4, "bfloat16": 2, "int8": 1}[in_dtype]
+    mt, nt = -(-m // bm), -(-n // bn)
+    state = (mt * f * n + nt * m * f) * 4
+    nbytes = ((m * k + k * n) * in_b + 2 * m * n * out_bytes
+              + (f * m + n * f) * 4 + 2 * state + mt * nt * 8 * 4)
+    ops = 2 * m * k * n + 4 * f * m * n + 4 * m * n
+    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS[in_dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def acc_zero_state(torch, m, n, bm, bn, f=2):
+    """The carried state of C = 0 under a (bm, bn) tiling."""
+    return (torch.zeros((-(-m // bm), f, n), device="cuda"),
+            torch.zeros((-(-n // bn), m, f), device="cuda"))
+
+
+def _acc_inputs(torch, g, m, k, n, dt):
+    if dt == torch.int8:
+        a = torch.randint(-8, 9, (m, k), generator=g, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-8, 9, (k, n), generator=g, device="cuda",
+                          dtype=torch.int8)
+        return a, b, torch.int32
+    a = torch.randn((m, k), generator=g, device="cuda").to(dt)
+    b = torch.randn((k, n), generator=g, device="cuda").to(dt)
+    return a, b, torch.float32
+
+
+def phase_acc(torch, record):
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for m, k, n, name, tile in ACC_CASES:
+        dt = getattr(torch, name)
+        if tile is None:
+            plan = ops.pick_blocks(m, k, n, in_dtype=dt, out_bytes=4,
+                                   carry=True, require_exact=True)
+            tile = (plan.bm, plan.bn)
+        bm, bn = tile
+        wm = ops.kernel_weights(m, device="cuda")
+        wn = ops.kernel_weights(n, device="cuda").T.contiguous()
+        a0, b0, out = _acc_inputs(torch, g, m, k, n, dt)
+        a, b, _ = _acc_inputs(torch, g, m, k, n, dt)
+        c0 = torch.zeros((m, n), dtype=out, device="cuda")
+        st0 = acc_zero_state(torch, m, n, bm, bn)
+        kw = dict(bm=bm, bn=bn, verify=True,
+                  eps_c=ops.detection_eps(out))
+        # a clean two-call chain on the kernel: the second call verifies the
+        # state the first one wrote
+        c1, ccol1, crow1, _ = kmm.abft_matmul_acc_cuda(a0, b0, c0, *st0, wm,
+                                                       wn, **kw)
+        got = kmm.abft_matmul_acc_cuda(a, b, c1, ccol1, crow1, wm, wn, **kw)
+        want = kmm.abft_matmul_acc_plain(a, b, c1, ccol1, crow1, wm, wn, **kw)
+        torch.cuda.synchronize()
+        stats = got[3]
+        if float(stats[..., 4:6].abs().max()) != 0.0:
+            raise AssertionError(f"clean chain re-verified with residual "
+                                 f"{float(stats[..., 4:6].abs().max())} at "
+                                 f"{(m, k, n, name)}: not exactly 0")
+        if float(stats[..., :2].abs().max()) != 0.0 \
+                or float(want[3][..., :2].abs().max()) != 0.0:
+            raise AssertionError(f"clean chain flagged at {(m, k, n, name)}")
+        if not torch.equal(stats[..., 2:4], want[3][..., 2:4]):
+            raise AssertionError("stats sentinels differ from the plain "
+                                 "version")
+        cg, cp = got[0].double(), want[0].double()
+        err = float((cg - cp).abs().max())
+        if out == torch.int32:
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"int8 c not bit-exact at {(m, k, n)}")
+        elif not within(cg, cp, float(cp.abs().max())):
+            raise AssertionError(f"c differs at {(m, k, n, name)}: {err}")
+        terms = float((wm.abs().double() @ cp.abs()).max())
+        for x, y in zip(got[1:3], want[1:3]):
+            if not within(x.double(), y.double(), terms):
+                raise AssertionError(f"state differs at {(m, k, n, name)}: "
+                                     f"{float((x - y).abs().max())}")
+        lib = None
+        if dt == torch.float32:
+            lib = lambda: torch.addmm(c1, a, b)          # noqa: E731
+        elif dt == torch.bfloat16:
+            c1b = c1.to(dt)
+            lib = lambda: torch.addmm(c1b, a, b)         # noqa: E731
+        reps = 5 if m * n * k > 1e9 else 20
+        ms = time_ms(torch, lambda: kmm.abft_matmul_acc_cuda(
+            a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
+        plain_ms = time_ms(torch, lambda: kmm.abft_matmul_acc_plain(
+            a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
+        lib_ms = time_ms(torch, lib, reps, flush) if lib else None
+        b_ms, b_by = acc_bound(m, k, n, 2, name, 4, bm, bn)
+        row = dict(m=m, k=k, n=n, dtype=name, tile=[bm, bn],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   clean_residual=0.0)
+        rows.append(row)
+        log("acc", json.dumps(row))
+    record["acc_cases"] = rows
+    record["acc_drills"] = _acc_drills(torch, g)
+    return rows
+
+
+def _acc_drills(torch, g):
+    """The flip drills of the reference's kernel tests and chaos campaign,
+    on the kernel, each held against the plain version."""
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.kernels import ops
+
+    def chain(a, b, c, st, wm, wn, bm=128, bn=128, **kw):
+        got = kmm.abft_matmul_acc_cuda(a, b, c, *st, wm, wn, bm=bm, bn=bn,
+                                       **kw)
+        want = kmm.abft_matmul_acc_plain(a, b, c, *st, wm, wn, bm=bm, bn=bn,
+                                         **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[3][..., :4], want[3][..., :4]):
+            raise AssertionError("kernel and plain version disagree on "
+                                 "detection or location")
+        return got
+
+    def setup(m, k, n, dt=torch.float32, lo=None):
+        if lo is None:
+            a = torch.randn((m, k), generator=g, device="cuda").to(dt)
+            b = torch.randn((k, n), generator=g, device="cuda").to(dt)
+        else:
+            a = torch.randint(lo, -lo + 1, (m, k), generator=g, device="cuda",
+                              dtype=dt)
+            b = torch.randint(lo, -lo + 1, (k, n), generator=g, device="cuda",
+                              dtype=dt)
+        wm = ops.kernel_weights(m, device="cuda")
+        wn = ops.kernel_weights(n, device="cuda").T.contiguous()
+        out = torch.int32 if dt == torch.int8 else torch.float32
+        c0 = torch.zeros((m, n), dtype=out, device="cuda")
+        return a, b, wm, wn, c0, acc_zero_state(torch, m, n, 128, 128)
+
+    drills = {}
+    # five single flips at 384 x 256 x 512 (tests/test_kernels.py)
+    a, b, wm, wn, c0, st0 = setup(384, 256, 512)
+    clean, ccol1, crow1, _ = chain(a, b, c0, st0, wm, wn)
+    za, zb = torch.zeros_like(a), torch.zeros_like(b)
+    scale = float(clean.abs().max())
+    for r, c, delta in [(0, 0, 1e4), (383, 511, -3e3), (200, 300, 1e6),
+                        (130, 40, 2.5e3), (37, 201, 1e30)]:
+        bad = clean.clone()
+        bad[r, c] += delta
+        fixed, _, _, stats = chain(za, zb, bad, (ccol1, crow1), wm, wn)
+        got = (float(stats[..., 0].max()), float(stats[..., 1].max()),
+               float(stats[..., 2].max()), float(stats[..., 3].max()))
+        err = float((fixed - clean).abs().max())
+        ok = ((fixed - clean).abs()
+              <= 1e-5 * clean.abs() + 1e-4 * scale).all()
+        if got != (1.0, 1.0, float(r), float(c)) or not bool(ok):
+            raise AssertionError(f"flip {(r, c, delta)}: stats {got}, "
+                                 f"max err {err}")
+        drills[f"flip_{r}_{c}"] = err
+        log("acc", f"flip {delta:g} at ({r},{c}): detected, located at "
+                   f"({int(got[2])},{int(got[3])}), repaired, max |fixed - "
+                   f"clean| = {err:.3g}")
+    # verify off: no scrub, sentinel stats
+    out, _, _, stats = chain(za, zb, bad, (ccol1, crow1), wm, wn,
+                             verify=False)
+    if float(stats[..., :2].abs().max()) != 0.0 \
+            or float(stats[..., 2:4].max()) != -1.0 \
+            or not torch.equal(out, bad):
+        raise AssertionError("verify=False scrubbed or left no sentinels")
+    # two flips in two tiles, both repaired
+    a, b, wm, wn, c0, st0 = setup(256, 256, 256)
+    clean, ccol1, crow1, _ = chain(a, b, c0, st0, wm, wn)
+    bad = clean.clone()
+    bad[10, 20] += 5e3
+    bad[200, 200] -= 4e3
+    fixed, _, _, stats = chain(torch.zeros_like(a), torch.zeros_like(b), bad,
+                               (ccol1, crow1), wm, wn)
+    locs = {(int(r), int(c)) for r, c in stats[..., 2:4].reshape(-1, 2)
+            .tolist() if r >= 0}
+    err = float((fixed - clean).abs().max())
+    if float(stats[..., 1].sum()) != 2.0 or locs != {(10, 20), (200, 200)} \
+            or err > 1e-3:
+        raise AssertionError(f"two flips: located {locs}, max err {err}")
+    drills["two_tiles"] = err
+    log("acc", f"two flips in two tiles: both located {sorted(locs)} and "
+               f"repaired, max err {err:.3g}")
+    # an int8 data flip, repaired bit-exactly
+    a1, b1, wm, wn, c0, st0 = setup(256, 256, 256, torch.int8, -4)
+    a2, b2, *_ = setup(256, 256, 256, torch.int8, -4)
+    c1, ccol1, crow1, _ = chain(a1, b1, c0, st0, wm, wn)
+    c2, _, _, _ = chain(a2, b2, c1, (ccol1, crow1), wm, wn)
+    bad = c1.clone()
+    bad[7, 9] ^= 1 << 20
+    c2f, _, _, stats = chain(a2, b2, bad, (ccol1, crow1), wm, wn)
+    if not (bool(stats[..., 1].any()) and torch.equal(c2f, c2)):
+        raise AssertionError("int8 data flip not repaired bit-exactly")
+    drills["int8_data_flip"] = "repaired bit-exactly"
+    log("acc", "int8 data flip (bit 20 of C[7, 9]): repaired bit-exactly")
+    # a flip in the carried ccol: detected, not repaired, data untouched
+    a1, b1, wm, wn, c0, st0 = setup(256, 256, 256)
+    a2, b2, *_ = setup(256, 256, 256)
+    c1, ccol1, crow1, _ = chain(a1, b1, c0, st0, wm, wn)
+    c2, _, _, _ = chain(a2, b2, c1, (ccol1, crow1), wm, wn)
+    ccol_bad = ccol1.clone()
+    ccol_bad.view(torch.int32)[1, 0, 77] ^= 1 << 27
+    c2f, _, _, stats = chain(a2, b2, c1, (ccol_bad, crow1), wm, wn)
+    if not bool(stats[..., 0].any()) or bool(stats[..., 1].any()) \
+            or not torch.equal(c2f, c2):
+        raise AssertionError("carried-ccol flip: not detect-only")
+    drills["ccol_flip"] = "detected, not repaired"
+    log("acc", "carried-ccol flip (bit 27 of ccol[1, 0, 77]): detected, not "
+               "repaired, data passed through bit-identical")
+    return drills
+
+
+SUMMA_G = 8          # the paper's smallest Table 2 grid: p = 64
+SUMMA_NB = 3072      # its n_loc = 3000, rounded up to a multiple of 128
+
+
+def phase_summa(torch, record, card):
+    """abft_summa at the paper's size on the kernel; returns the kernel
+    launches of the five ABFT runs (the main path)."""
+    import repro_torch.core as core
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.launch import stress
+
+    G, nb = SUMMA_G, SUMMA_NB
+    pr = G - 1
+    per_run = G ** 3
+    g = torch.Generator(device="cuda").manual_seed(3)
+    spec = core.make_spec(1, pr, pr, device="cuda")
+    a = torch.randn((pr * nb, G * nb), generator=g, device="cuda")
+    b = torch.randn((G * nb, pr * nb), generator=g, device="cuda")
+    x = torch.randn((pr * nb,), generator=g, device="cuda")
+    a_enc, b_enc = core.encode_operands(a, b, spec)
+    runs = [
+        ("clean", {}),
+        ("failure (2,5) after step 3",
+         dict(failure=core.FailureEvent(step=3, row=2, col=5))),
+        ("double failure (0,1)+(6,4) after step 5",
+         dict(failure=core.MultiFailureEvent(step=5,
+                                             devices=((0, 1), (6, 4))))),
+        ("flip 1e4 in block (1,3) after step 4",
+         dict(bitflip=core.BitflipEvent(step=4, row=1, col=3, delta=1e4))),
+        ("flip -3e3 in block (6,0) after step 8",
+         dict(bitflip=core.BitflipEvent(step=8, row=6, col=0,
+                                        delta=-3e3))),
+    ]
+    out = []
+    torch.cuda.synchronize()
+    kmm.reset_counts()                      # the main path starts here
+    for name, kw in runs:
+        l0, p0 = kmm.acc_launches, kmm.acc_plain_calls
+        seen = []
+        t0 = time.perf_counter()
+        c_enc = core.abft_summa(
+            a_enc, b_enc, G, spec=spec, local_update="auto",
+            on_stats=lambda k, r, c, s: seen.append(((k, r, c), s)), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = kmm.acc_launches - l0, kmm.acc_plain_calls - p0
+        resid = stress.residual_check(core.strip(c_enc, nb, nb), a, b, x)
+        consistent = bool(core.verify(c_enc, spec).consistent)
+        hits = {key: s for key, s in seen if bool(s[..., 0].any())}
+        row = dict(run=name, wall_s=wall, launches=launches,
+                   plain_calls=plain, residual=resid, consistent=consistent,
+                   detected_launches=sorted(hits))
+        log("summa", json.dumps(row))
+        out.append(row)
+        if launches != per_run or plain != 0:
+            raise AssertionError(f"{name}: {launches} kernel launches, {plain}"
+                                 f" plain calls (want {per_run}, 0)")
+        if not resid < stress.THRESHOLD or not consistent:
+            raise AssertionError(f"{name}: residual {resid}, consistent "
+                                 f"{consistent}")
+        if "bitflip" in kw and kw["bitflip"].step < G:
+            want = (kw["bitflip"].step, kw["bitflip"].row, kw["bitflip"].col)
+            s = hits.get(want)
+            if list(hits) != [want] or s is None \
+                    or s[0, 0, :4].tolist() != [1.0, 1.0, 0.0, 0.0] \
+                    or int(s[..., 0].sum()) != 1:
+                raise AssertionError(f"{name}: launches that detected "
+                                     f"{sorted(hits)}; want only {want} with "
+                                     "detected = corrected = 1 at (0, 0)")
+        elif "failure" not in kw and hits:
+            raise AssertionError(f"{name}: launches {sorted(hits)} detected "
+                                 "a fault that was not there")
+        del c_enc, seen, hits
+    main_launches = kmm.acc_launches          # the main path ends here
+    del a_enc, b_enc, a, b
+    torch.cuda.empty_cache()
+
+    # the paper's PBLAS comparison: plain SUMMA on the same grid and blocks,
+    # G * nb of data against (G - 1) * nb under ABFT
+    a = torch.randn((G * nb, G * nb), generator=g, device="cuda")
+    b = torch.randn((G * nb, G * nb), generator=g, device="cuda")
+    x = torch.randn((G * nb,), generator=g, device="cuda")
+    for lu in ("auto", "torch"):
+        l0 = kmm.acc_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = core.summa(a, b, G, local_update=lu)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        resid = stress.residual_check(c, a, b, x)
+        row = dict(run=f"plain summa, local_update={lu}", wall_s=wall,
+                   launches=kmm.acc_launches - l0, residual=resid)
+        log("summa", json.dumps(row))
+        out.append(row)
+        if not resid < stress.THRESHOLD:
+            raise AssertionError(f"plain summa ({lu}): residual {resid}")
+        del c
+    del a, b
+    torch.cuda.empty_cache()
+
+    l0, p0 = kmm.acc_launches, kmm.acc_plain_calls
+    res = stress.run(grid=4, block=512, iters=8, device="cuda",
+                     verbose=False)
+    launches = kmm.acc_launches - l0
+    log("summa", f"stress CLI, G = 4, NB = 512, 8 iterations: "
+                 f"{res['failures']} process kills, {res['flips']} flips, "
+                 f"max residual {max(res['residuals']):.4g}, {launches} "
+                 f"kernel launches")
+    if launches != 8 * 4 ** 3 or kmm.acc_plain_calls != p0:
+        raise AssertionError(f"stress: {launches} kernel launches")
+    record["summa"] = dict(runs=out, grid=G, nb=nb, card=card,
+                           stress=res, main_path_launches=main_launches)
+    return main_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -355,19 +734,12 @@ def main():
     print(smi, flush=True)
     record["nvidia_smi"] = smi
 
-    t0 = time.perf_counter()
-    build.load("abft_matmul")
-    secs = time.perf_counter() - t0
-    regs = [ln.strip() for ln in build.BUILD_LOG["abft_matmul"]["log"]
-            .splitlines() if "registers" in ln]
-    log("build", f"abft_matmul.cu built in {secs:.1f} s "
-                 f"({len(regs)} kernels; {regs[-1] if regs else 'reused'})")
-    record["build"] = {"seconds": secs,
-                       "log": build.BUILD_LOG["abft_matmul"]["log"]}
-
+    phase_build(torch, record)
     rows = phase_kernel(torch, record)
     phase_drill(torch, record)
     launches = phase_serve(torch, record, f"{name} ({smi})")
+    acc_rows = phase_acc(torch, record)
+    acc_launches = phase_summa(torch, record, f"{name} ({smi})")
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -376,6 +748,8 @@ def main():
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     by_ops = sum(r["bound_ms"] * r["per_layer"] for r in served
                  if r["bound_by"] == "operations")
+    # the accumulate kernel at the SUMMA step shape, fp32 as the SUMMA runs
+    step = acc_rows[0]
     kernels = {"kernels": [{
         "name": "abft_matmul",
         "route": "cuda",
@@ -389,6 +763,18 @@ def main():
         "bound_by": "operations" if by_ops >= tot["bound_ms"] / 2
                     else "bytes",
         "library_ms": tot["library_ms"],
+    }, {
+        "name": "abft_matmul_acc",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/abft_matmul_acc.cu",
+        "replaces": "src/repro/kernels/abft_matmul.py:350",
+        "launches": acc_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in acc_rows),
+        "ms": step["ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"],
+        "library_ms": step["library_ms"],
     }]}
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

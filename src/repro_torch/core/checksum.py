@@ -1,17 +1,23 @@
 """Weighted-checksum algebra for f-failure encoding (paper §2.1).
 
-Only the checkpoint matrix is ported so far.  It is built with numpy's
-``RandomState``, so it is bit-identical to the reference package's
+A vector x is spread over p shards x_1..x_p.  To survive f failures we store
+f weighted checksums  y_j = sum_i A[j,i] * x_i.  Any f-failure set is
+recoverable iff the f-by-f submatrix A[:, failed] is nonsingular.
+
+The checkpoint matrix is built with numpy's ``RandomState``, so it is
+bit-identical to the reference package's
 ``repro/core/checksum.py::checkpoint_matrix`` for the same ``(f, p, seed)``.
+The pytree variants of the reference come with the diskless slice.
 """
 from __future__ import annotations
 
 import functools
+from typing import Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["checkpoint_matrix"]
+__all__ = ["checkpoint_matrix", "encode", "recover"]
 
 
 @functools.lru_cache(maxsize=256)
@@ -41,3 +47,42 @@ def checkpoint_matrix(f: int, p: int, seed: int = 0, dtype=torch.float32,
     """
     return torch.tensor(_checkpoint_np(f, p, seed), dtype=dtype,
                         device=device)
+
+
+def encode(shards: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Encode stacked shards [p, ...] into checksums [f, ...]: y = A @ x."""
+    p = shards.shape[0]
+    if a.shape[1] != p:
+        raise ValueError(f"checkpoint matrix is {tuple(a.shape)}, shards have "
+                         f"p={p}")
+    flat = shards.reshape(p, -1)
+    y = torch.einsum("fp,pn->fn", a.float(), flat.float())
+    return y.reshape((a.shape[0],) + tuple(shards.shape[1:])).to(shards.dtype)
+
+
+def recover(shards: torch.Tensor, checksums: torch.Tensor, a: torch.Tensor,
+            failed: Sequence[int]) -> torch.Tensor:
+    """Rebuild failed shards from survivors + checksums (paper §2.1).
+
+    Solves  A[:, failed] @ x_failed = y - A[:, ok] @ x_ok  for the lost
+    shards.  ``shards`` may hold anything at failed indices (it is ignored).
+    Returns the full [p, ...] stack with failed entries restored.
+    """
+    failed = list(failed)
+    f_used = len(failed)
+    p = shards.shape[0]
+    if f_used == 0:
+        return shards
+    if f_used > a.shape[0]:
+        raise ValueError(f"{f_used} failures but only {a.shape[0]} checksums "
+                         "available")
+    ok = [i for i in range(p) if i not in failed]
+    flat = shards.reshape(p, -1).float()
+    y = checksums.reshape(checksums.shape[0], -1).float()
+    a32 = a.float()
+    # the first f_used checksums (any f_used-subset works; these exist)
+    rhs = y[:f_used] - a32[:f_used][:, ok] @ flat[ok]
+    sub = a32[:f_used][:, failed]                    # f_used x f_used
+    restored = flat.clone()
+    restored[failed] = torch.linalg.solve(sub, rhs)
+    return restored.reshape(shards.shape).to(shards.dtype)

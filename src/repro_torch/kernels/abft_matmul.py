@@ -1,5 +1,5 @@
-"""Fused dual-checksum ABFT matmul: the Hopper CUDA kernel, its wrapper and
-its plain PyTorch version.
+"""Fused dual-checksum ABFT matmul: the Hopper CUDA kernels, their wrappers
+and their plain PyTorch versions.
 
 ``abft_matmul_cuda`` computes the one-shot ``C = A @ B`` together with the
 per-tile partials of both Huang-Abraham checksum directions, taken of the
@@ -14,38 +14,55 @@ shapes that divide the tile this is the layout of the reference kernel
 masked in the kernel rather than zero-padded in memory, which gives the
 same numbers (zero rows and columns checksum to zero).
 
-The kernel lives in ``csrc/abft_matmul.cu`` (see its header for what bounds
-it and what the simple design leaves out).  On a CUDA tensor the wrapper
-launches it or raises; on a CPU tensor, and only there, it runs
-``abft_matmul_plain``, the same function in plain PyTorch.  ``launches``
-counts kernel launches and ``plain_calls`` counts plain-version calls.
+``abft_matmul_acc_cuda`` is the accumulate step ``C_out = C_in + A @ B``
+with the carried per-tile state ``(ccol, crow)`` in the same layout, a fused
+verify/correct prologue that repairs a single corrupted element of each C_in
+tile before accumulating, and per-tile ``stats [ceil(m/bm), ceil(n/bn),
+STATS_WIDTH]``; the counterpart of ``abft_matmul_acc_pallas``.
+
+The kernels live in ``csrc/abft_matmul.cu`` and ``csrc/abft_matmul_acc.cu``
+(see their headers for what bounds them and what the simple design leaves
+out).  On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
+tensor, and only there, it runs its plain version (``abft_matmul_plain``,
+``abft_matmul_acc_plain``).  ``launches`` / ``acc_launches`` count kernel
+launches and ``plain_calls`` / ``acc_plain_calls`` plain-version calls.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["abft_matmul_cuda", "abft_matmul_plain", "reset_counts",
-           "TILES_M", "TILES_N", "KT", "F_MAX"]
+__all__ = ["abft_matmul_cuda", "abft_matmul_plain", "abft_matmul_acc_cuda",
+           "abft_matmul_acc_plain", "reset_counts", "TILES_M", "TILES_N",
+           "KT", "F_MAX", "STATS_WIDTH"]
 
 TILES_M = (16, 32, 64, 128)      # CTA tile rows the kernel is built for
 TILES_N = (32, 64, 128)          # CTA tile columns the kernel is built for
 KT = 16                          # k columns staged per shared-memory slab
 F_MAX = 4                        # most checksum rows per direction
 
+# stats vector per C tile (accumulate kernel):
+#   0: detected (residual over threshold)      1: corrected (single-elt fix)
+#   2: global row of the fix                   3: global col of the fix
+#   4: residual magnitude (col direction)      5: residual magnitude (row dir)
+#   6: detection threshold (col direction)     7: |C_in| scale used for tol
+STATS_WIDTH = 8
+
 _IN_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 launches = 0                     # kernel launches by abft_matmul_cuda
 plain_calls = 0                  # calls of abft_matmul_plain
+acc_launches = 0                 # kernel launches by abft_matmul_acc_cuda
+acc_plain_calls = 0              # calls of abft_matmul_acc_plain
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
-    launches = 0
-    plain_calls = 0
+    global launches, plain_calls, acc_launches, acc_plain_calls
+    launches = plain_calls = acc_launches = acc_plain_calls = 0
 
 
 def _cdiv(x: int, y: int) -> int:
@@ -171,3 +188,135 @@ def abft_matmul_cuda(a, b, wm, wn, *, bm: int = 128, bn: int = 128,
                            f"{a.dtype} -> {out_dtype})")
     launches += 1
     return c, ccol, crow
+
+
+# ---------------------------------------------------------------------------
+# Accumulate step with the carried checksum state
+# ---------------------------------------------------------------------------
+
+
+def _check_acc(a, b, c_in, ccol_in, crow_in, wm, wn, bm, bn, bk, out_dtype):
+    """Validate one accumulate call; returns the output dtype, which is
+    C_in's (the kernel reads C_in in the type it writes C_out)."""
+    out_dtype = c_in.dtype if out_dtype is None else out_dtype
+    _check(a, b, wm, wn, bm, bn, bk, out_dtype)
+    m, n, f = a.shape[0], b.shape[1], wm.shape[0]
+    if tuple(c_in.shape) != (m, n) or c_in.dtype != out_dtype:
+        raise ValueError(f"c_in {tuple(c_in.shape)} {c_in.dtype} must be "
+                         f"({m}, {n}) {out_dtype}")
+    want = ((_cdiv(m, bm), f, n), (_cdiv(n, bn), m, f))
+    for name, t, shape in (("ccol_in", ccol_in, want[0]),
+                           ("crow_in", crow_in, want[1])):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must be "
+                             f"{shape} float32 (the state of a ({bm}, {bn}) "
+                             "tiling)")
+    return out_dtype
+
+
+def abft_matmul_acc_plain(a, b, c_in, ccol_in, crow_in, wm, wn, *,
+                          bm: int = 128, bn: int = 128, bk: int = KT,
+                          verify: bool = True, tol_factor: float = 64.0,
+                          eps_c: Optional[float] = None, out_dtype=None):
+    """Plain PyTorch version of the accumulate kernel: same arguments, same
+    outputs, always new tensors.  The verify/correct math is
+    ``ops._tile_verify_correct``, then the product is added (int8 operands
+    exactly, in int32), the tile rounded to the output type and its state
+    taken with ``ops.tile_checksums``."""
+    global acc_plain_calls
+    out_dtype = _check_acc(a, b, c_in, ccol_in, crow_in, wm, wn, bm, bn, bk,
+                           out_dtype)
+    acc_plain_calls += 1
+    from repro_torch.kernels import ops   # ops imports this module
+    return ops._acc_twin(a, b, c_in, (ccol_in, crow_in), wm, wn, bm, bn,
+                         verify=verify, tol_factor=tol_factor, eps_c=eps_c,
+                         out_dtype=out_dtype)
+
+
+_ACC_FN = None
+
+
+def _acc_launcher():
+    global _ACC_FN
+    if _ACC_FN is None:
+        from repro_torch.kernels import build
+        fn = build.load("abft_matmul_acc").abft_matmul_acc_launch
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ACC_FN = fn
+    return _ACC_FN
+
+
+def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
+                         bm: int = 128, bn: int = 128, bk: int = KT,
+                         verify: bool = True, tol_factor: float = 64.0,
+                         eps_c: Optional[float] = None, out_dtype=None,
+                         out=None):
+    """Accumulate step C_out = C_in + A @ B with the carried state.
+
+    a: [m, k], b: [k, n] (fp32, bf16 or int8); c_in: [m, n] in the output
+    type (fp32 or bf16, int32 for int8); ccol_in [ceil(m/bm), f, n] and
+    crow_in [ceil(n/bn), m, f] fp32, the state a previous call (or kernel
+    #1) wrote under the same tiling.  With ``verify`` each C_in tile is
+    checked against its state and a single corrupted element repaired
+    before the accumulation, at ``tol = tol_factor * b * eps_c * mean|tile|``
+    (``eps_c`` defaults to fp32's).  ``out = (c_out, ccol_out, crow_out)``
+    names the tensors to write, which may be the inputs themselves (each
+    CTA reads its tiles before it writes them); by default they are new.
+    Returns (c_out, ccol_out, crow_out, stats [ceil(m/bm), ceil(n/bn),
+    STATS_WIDTH] fp32).  CUDA tensors launch the kernel on the current
+    stream; CPU tensors run ``abft_matmul_acc_plain`` (which returns new
+    tensors and copies them into ``out`` when given).
+    """
+    global acc_launches
+    if a.device.type == "cpu":
+        res = abft_matmul_acc_plain(
+            a, b, c_in, ccol_in, crow_in, wm, wn, bm=bm, bn=bn, bk=bk,
+            verify=verify, tol_factor=tol_factor, eps_c=eps_c,
+            out_dtype=out_dtype)
+        if out is None:
+            return res
+        for dst, src in zip(out, res[:3]):
+            dst.copy_(src)
+        return (*out, res[3])
+    out_dtype = _check_acc(a, b, c_in, ccol_in, crow_in, wm, wn, bm, bn, bk,
+                           out_dtype)
+    if a.device.type != "cuda":
+        raise RuntimeError(f"abft_matmul_acc_cuda runs on CUDA (or the plain "
+                           f"version on CPU), got {a.device}")
+    m, k = a.shape
+    n, f = b.shape[1], wm.shape[0]
+    dev = a.device
+    if out is None:
+        out = (torch.empty_like(c_in), torch.empty_like(ccol_in),
+               torch.empty_like(crow_in))
+    for src, dst in zip((c_in, ccol_in, crow_in), out):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"out tensor {tuple(dst.shape)} {dst.dtype} does "
+                             f"not match {tuple(src.shape)} {src.dtype}")
+    named = (("a", a), ("b", b), ("wm", wm), ("wn", wn), ("c_in", c_in),
+             ("ccol_in", ccol_in), ("crow_in", crow_in), ("c_out", out[0]),
+             ("ccol_out", out[1]), ("crow_out", out[2]))
+    for name, t in named:
+        if t.device != dev:
+            raise RuntimeError(f"{name} is on {t.device}, a on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    stats = torch.empty((_cdiv(m, bm), _cdiv(n, bn), STATS_WIDTH),
+                        dtype=torch.float32, device=dev)
+    eps = float(torch.finfo(torch.float32).eps) if eps_c is None else eps_c
+    fn = _acc_launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(a.data_ptr(), b.data_ptr(), wm.data_ptr(), wn.data_ptr(),
+            c_in.data_ptr(), ccol_in.data_ptr(), crow_in.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            stats.data_ptr(), m, k, n, f, bm, bn, _IN_KIND[a.dtype],
+            _OUT_KIND[out_dtype], int(bool(verify)),
+            tol_factor * bm * eps, tol_factor * bn * eps, stream)
+    if rc != 0:
+        raise RuntimeError(f"abft_matmul_acc kernel launch failed: code {rc} "
+                           f"(m={m}, k={k}, n={n}, f={f}, tile=({bm}, {bn}), "
+                           f"{a.dtype} -> {out_dtype})")
+    acc_launches += 1
+    return (*out, stats)

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``kernels/csrc/`` is compiled by ``nvcc`` into a shared
-library with a plain C interface, for ``sm_90a``, at first use, and loaded
-with ``ctypes``.  Libraries go to ``<repo>/build/kernels/``, named by a
-hash of the source and the flags, so an edited source is rebuilt and an unchanged one is reused within
-a checkout.  Nothing here falls back: a missing ``nvcc`` or a failed
-compile raises.
+Each ``.cu`` source under ``kernels/csrc/`` is compiled by ``nvcc`` into a
+shared library with a plain C interface, for ``sm_90a``, at first use, and
+loaded with ``ctypes``.  Libraries go to ``<repo>/build/kernels/``, named by
+a hash of the source, of every ``csrc/`` header it includes, and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused within a checkout.  ``compile_all`` runs one ``nvcc`` per source, all
+at once.  Nothing here falls back: a missing ``nvcc`` or a failed compile
+raises.
 """
 from __future__ import annotations
 
@@ -13,12 +15,15 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["build_dir", "nvcc_path", "compile_source", "load", "BUILD_LOG"]
+__all__ = ["build_dir", "nvcc_path", "compile_source", "compile_all", "load",
+           "source_digest", "BUILD_LOG"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -28,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BUILD_LOG: dict = {}
 _LOADED: dict = {}
 _LOCK = threading.Lock()
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 def build_dir() -> pathlib.Path:
@@ -45,16 +51,42 @@ def nvcc_path() -> str:
                        "source with the CUDA toolkit's nvcc")
 
 
+def _local_includes(path: pathlib.Path, seen: set) -> None:
+    """Add ``path`` and every file it reaches by ``#include "..."``,
+    resolved beside the including file, to ``seen`` (system headers in
+    <...> are not followed)."""
+    if path in seen:
+        return
+    seen.add(path)
+    for inc in _INCLUDE.findall(path.read_text()):
+        dep = (path.parent / inc).resolve()
+        if dep.is_file():
+            _local_includes(dep, seen)
+
+
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, the local headers it includes (by name
+    and content, in a fixed order) and the nvcc flags."""
+    seen: set = set()
+    _local_includes((CSRC / f"{name}.cu").resolve(), seen)
+    h = hashlib.sha256()
+    for path in sorted(seen):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def compile_source(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     returns the library path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(name)
     out_dir = build_dir()
     lib = out_dir / f"lib{name}-{digest}.so"
     if lib.exists():
-        BUILD_LOG[name] = {"seconds": 0.0, "log": "reused " + str(lib)}
+        # keep the entry of a build made earlier in this process
+        BUILD_LOG.setdefault(name, {"seconds": 0.0,
+                                    "log": "reused " + str(lib)})
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{name}-{digest}.{os.getpid()}.so"
@@ -68,6 +100,14 @@ def compile_source(name: str) -> pathlib.Path:
     os.replace(tmp, lib)
     BUILD_LOG[name] = {"seconds": seconds, "log": log}
     return lib
+
+
+def compile_all(names) -> dict:
+    """Compile several sources at once, one ``nvcc`` each; returns
+    {name: library path}.  Raises the first failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(compile_source, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -30,52 +30,14 @@
 // tensor cores (wgmma for bf16 / int8; fp32 must stay IEEE, so at most a
 // 3xTF32 split), TMA or cp.async double buffering of the k slabs, 16-byte
 // vector loads, and, at decode, a split over k to put more CTAs on the 132
-// SMs.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// SMs.  The k loop and the epilogue live in abft_tile.cuh, shared with the
+// accumulate kernel (abft_matmul_acc.cu), whose verify prologue recomputes
+// the checksums this epilogue writes.
+#include "abft_tile.cuh"
+
+using namespace abft;
 
 namespace {
-
-constexpr int KT = 16;        // k columns staged in shared memory per step
-constexpr int THREADS = 256;  // a 16 x 16 thread grid
-constexpr int FMAX = 4;       // most checksum rows per direction
-
-enum InKind { IN_F32 = 0, IN_BF16 = 1, IN_I8 = 2 };
-enum OutKind { OUT_F32 = 0, OUT_BF16 = 1, OUT_I32 = 2 };
-
-template <typename T> struct Compute;
-template <> struct Compute<float> { using type = float; };
-template <> struct Compute<__nv_bfloat16> { using type = float; };
-template <> struct Compute<int8_t> { using type = int; };
-
-__device__ __forceinline__ float to_compute(float x) { return x; }
-__device__ __forceinline__ float to_compute(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ int to_compute(int8_t x) { return static_cast<int>(x); }
-
-__device__ __forceinline__ float mac(float acc, float a, float b) {
-  return fmaf(a, b, acc);
-}
-__device__ __forceinline__ int mac(int acc, int a, int b) { return acc + a * b; }
-
-// Store one output element and return the stored value read back as fp32.
-__device__ __forceinline__ float store_rounded(void* c, long long idx, float v,
-                                               int out_kind) {
-  if (out_kind == OUT_BF16) {
-    const __nv_bfloat16 r = __float2bfloat16(v);  // round to nearest even
-    static_cast<__nv_bfloat16*>(c)[idx] = r;
-    return __bfloat162float(r);
-  }
-  static_cast<float*>(c)[idx] = v;
-  return v;
-}
-__device__ __forceinline__ float store_rounded(void* c, long long idx, int v,
-                                               int /*out_kind*/) {
-  static_cast<int*>(c)[idx] = v;
-  return static_cast<float>(v);
-}
 
 template <typename TIn, int BM, int BN>
 __global__ void __launch_bounds__(THREADS)
@@ -85,120 +47,16 @@ abft_matmul_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
                    float* __restrict__ crow, int m, int k, int n, int f,
                    int out_kind) {
   using TC = typename Compute<TIn>::type;
-  constexpr int TM = BM / 16;
-  constexpr int TN = BN / 16;
-  constexpr int AS = BM + 1;  // padded row: the transposed A store spreads banks
-  constexpr int LOOP_BYTES = KT * (AS + BN) * static_cast<int>(sizeof(TC));
-  constexpr int EPI_BYTES = 16 * FMAX * (BM > BN ? BM : BN) * 4;
-  constexpr int SMEM = LOOP_BYTES > EPI_BYTES ? LOOP_BYTES : EPI_BYTES;
-  __shared__ __align__(16) unsigned char smem[SMEM];
-  TC* As = reinterpret_cast<TC*>(smem);     // [KT][AS]
-  TC* Bs = As + KT * AS;                    // [KT][BN]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int ti = blockIdx.y;
-  const int tj = blockIdx.x;
-  const int m0 = ti * BM;
-  const int n0 = tj * BN;
-
-  TC acc[TM][TN];
+  __shared__ __align__(16) unsigned char smem[Smem<TC, BM, BN>::BYTES];
+  TC acc[BM / 16][BN / 16];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < BM / 16; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = TC(0);
-
-  for (int k0 = 0; k0 < k; k0 += KT) {
-    for (int e = tid; e < BM * KT; e += THREADS) {
-      const int r = e / KT, kk = e % KT;
-      const int gr = m0 + r, gk = k0 + kk;
-      As[kk * AS + r] = (gr < m && gk < k)
-          ? to_compute(a[static_cast<long long>(gr) * k + gk]) : TC(0);
-    }
-    for (int e = tid; e < KT * BN; e += THREADS) {
-      const int kk = e / BN, cc = e % BN;
-      const int gk = k0 + kk, gc = n0 + cc;
-      Bs[kk * BN + cc] = (gk < k && gc < n)
-          ? to_compute(b[static_cast<long long>(gk) * n + gc]) : TC(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      TC av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk * AS + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk * BN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = mac(acc[i][j], av[i], bv[j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: store the tile, keep the rounded values for the checksums.
-  float v[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx + 16 * j;
-      v[i][j] = (row < m && col < n)
-          ? store_rounded(c, static_cast<long long>(row) * n + col, acc[i][j],
-                          out_kind)
-          : 0.0f;
-    }
-  }
-
-  float* red = reinterpret_cast<float*>(smem);
-  // Column partials: each thread sums its TM rows, then 16 rows of threads
-  // are summed in a fixed order.
-  for (int fi = 0; fi < f; ++fi) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int row = m0 + ty + 16 * i;
-        const float w = row < m ? wm[static_cast<long long>(fi) * m + row] : 0.0f;
-        s = fmaf(w, v[i][j], s);
-      }
-      red[(ty * f + fi) * BN + tx + 16 * j] = s;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < f * BN; e += THREADS) {
-    const int fi = e / BN, cc = e % BN, col = n0 + cc;
-    float s = 0.0f;
-    for (int t = 0; t < 16; ++t) s += red[(t * f + fi) * BN + cc];
-    if (col < n) ccol[(static_cast<long long>(ti) * f + fi) * n + col] = s;
-  }
-  __syncthreads();
-  // Row partials: each thread sums its TN columns, then 16 columns of
-  // threads are summed in a fixed order.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    for (int fi = 0; fi < f; ++fi) {
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = n0 + tx + 16 * j;
-        const float w = col < n ? wn[static_cast<long long>(col) * f + fi] : 0.0f;
-        s = fmaf(v[i][j], w, s);
-      }
-      red[(tx * BM + ty + 16 * i) * f + fi] = s;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < BM * f; e += THREADS) {
-    const int r = e / f, fi = e % f, row = m0 + r;
-    float s = 0.0f;
-    for (int t = 0; t < 16; ++t) s += red[(t * BM + r) * f + fi];
-    if (row < m) crow[(static_cast<long long>(tj) * m + row) * f + fi] = s;
-  }
+    for (int j = 0; j < BN / 16; ++j) acc[i][j] = TC(0);
+  mainloop<TIn, BM, BN>(a, b, m, k, n, blockIdx.y * BM, blockIdx.x * BN, acc,
+                        smem);
+  // Epilogue: store the tile, reduce the checksums of the stored values.
+  epilogue<TC, BM, BN>(acc, c, ccol, crow, wm, wn, m, n, f, out_kind, smem);
 }
 
 template <typename TIn>

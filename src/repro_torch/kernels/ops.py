@@ -5,12 +5,21 @@
 model over the H100's published memory and CUDA-core rates ranks the
 candidates.  ``abft_matmul`` runs the fused dual-checksum kernel (or, for a
 CPU tensor, its plain version) and reduces the per-tile partials.
+``abft_matmul_acc`` runs the accumulate step with its carried per-tile
+checksum state and fused verify/correct prologue: the kernel on a CUDA
+tensor, or the separate-op PyTorch twin (``backend="torch"``).
+``tile_checksums``, ``reduce_state``, ``correct_from_state`` and
+``_tile_verify_correct`` are the state's plain-PyTorch algebra.
 
-Counterpart of the reference package's ``repro/kernels/ops.py``.  The
-accumulate family (``abft_matmul_acc``, ``tile_checksums``,
-``correct_from_state``), ``checksum_encode`` and the measured autotuner
-come with later slices.  There is no custom VJP yet: the port serves, and
-training through the kernel comes with the protected-LM slice.
+The carried state has kernel #1's partial layout, ``ccol [ceil(m/bm), f,
+n]`` and ``crow [ceil(n/bn), m, f]``: the reference's zero-padded layout
+``[pm/bm, f, pn]`` / ``[pn/bn, pm, f]`` with the padding (always zero)
+sliced off, so the two agree wherever the tiling divides the shape.
+
+Counterpart of the reference package's ``repro/kernels/ops.py``.
+``checksum_encode`` and the measured autotuner come with later slices.
+There is no custom VJP yet: the port serves, and training through the
+kernel comes with the protected-LM slice.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.chaos.faults import register_surface
@@ -26,20 +36,28 @@ from repro_torch.kernels import abft_matmul as kmm
 from repro_torch.kernels import ref
 
 __all__ = [
-    "BlockPlan", "abft_matmul", "detection_eps", "kernel_weights",
-    "pick_blocks", "rank_blocks", "smem_bytes",
+    "BlockPlan", "abft_matmul", "abft_matmul_acc", "acc_state_zeros",
+    "correct_from_state", "detection_eps", "kernel_weights", "pick_blocks",
+    "rank_blocks", "reduce_state", "smem_bytes", "tile_checksums",
 ]
 
 KERNEL_F = 2  # checksums per direction: plain sum + one weighted row
 
-# The carried per-tile state of the accumulate kernel family is this
-# module's protection domain in the reference.  The port has not brought
-# that kernel up yet, so the surface sits on the uncovered ledger.
+# the protection domain this module owns: the carried (ccol, crow)
+# per-tile state of the accumulate kernel family
 register_surface(
-    "kernels.ops/acc_state", owner=__name__, protected=False,
+    "kernels.ops/acc_state", owner=__name__, protected=True,
+    promise="tolerance",
+    detector="fused verify/correct prologue of abft_matmul_acc: per-tile "
+             "residual of recomputed vs carried dual checksums; "
+             "concentration-gated single-element repair by masked "
+             "re-computation from the carried plain-sum column checksum",
     kinds=("sdc_collective", "checksum_state_flip"),
-    note="carried (ccol, crow) state of abft_matmul_acc: its verify/correct "
-         "kernel comes with the SUMMA slice")
+    note="a flip in the carried DATA is located and repaired (bit-exact on "
+         "integer data); a flip in the carried CHECKSUM state trips only "
+         "one residual family, so it is detected but deliberately NOT "
+         "repaired (repairing would corrupt healthy data) — refresh via "
+         "tile_checksums instead")
 
 
 def kernel_weights(m: int, f: int = KERNEL_F, dtype=torch.float32,
@@ -124,14 +142,20 @@ def smem_bytes(bm: int, bn: int, bk: int = kmm.KT) -> int:
     return max(loop, epi)
 
 
-def _plan_time(plan: BlockPlan, in_bytes: int, out_bytes: int, f: int):
-    """(modeled seconds, modeled bytes) of one launch under ``plan``."""
+def _plan_time(plan: BlockPlan, in_bytes: int, out_bytes: int, f: int,
+               carry: bool = False):
+    """(modeled seconds, modeled bytes) of one launch under ``plan``;
+    ``carry`` adds the accumulate kernel's reads of C_in and of the carried
+    state and its stats writes."""
     mt, nt, _ = plan.grid
     m, k, n = plan.m, plan.k, plan.n
+    cs_bytes = mt * f * n * 4 + nt * m * f * 4          # checksum partials
     total_bytes = (m * k * nt * in_bytes          # A once per column of tiles
                    + k * n * mt * in_bytes        # B once per row of tiles
                    + m * n * out_bytes            # C
-                   + mt * f * n * 4 + nt * m * f * 4)   # checksum partials
+                   + cs_bytes)
+    if carry:
+        total_bytes += m * n * out_bytes + cs_bytes + mt * nt * 8 * 4
     fill = min(1.0, mt * nt / N_SM)
     flops = 2 * plan.pm * plan.pk * plan.pn + 4 * f * plan.pm * plan.pn
     t = max(total_bytes / HBM_BW, flops / (CUDA_CORE_FLOPS * fill))
@@ -139,13 +163,18 @@ def _plan_time(plan: BlockPlan, in_bytes: int, out_bytes: int, f: int):
 
 
 def rank_blocks(m: int, k: int, n: int, *, in_dtype=torch.float32,
-                out_bytes: int = 4, f: int = KERNEL_F) -> list:
+                out_bytes: int = 4, f: int = KERNEL_F, carry: bool = False,
+                require_exact: bool = False) -> list:
     """All tilings for an (m, k, n) ABFT-GEMM, best-first.
 
-    Candidates are the CTA tiles the kernel is built for (k staged in
+    Candidates are the CTA tiles the kernels are built for (k staged in
     ``KT`` slabs); each is scored by the modeled time
     ``max(bytes / HBM_BW, FLOPs / (rate * SM fill))``, ties broken toward
-    fewer bytes, then bigger tiles.
+    fewer bytes, then bigger tiles.  ``carry`` prices the accumulate
+    kernel's extra traffic.  ``require_exact`` keeps only tilings that
+    divide (m, k, n) with no ragged edge, as the reference's SUMMA local
+    update asks for its long-lived carried state (the kernels mask ragged
+    edges, so a ragged plan is a choice, not a fault).
     """
     in_bytes = in_dtype.itemsize
     ranked = []
@@ -156,7 +185,9 @@ def rank_blocks(m: int, k: int, n: int, *, in_dtype=torch.float32,
             cand = BlockPlan(m=m, k=k, n=n, bm=bm, bn=bn, bk=kmm.KT,
                              pm=_round_up(m, bm), pk=_round_up(k, kmm.KT),
                              pn=_round_up(n, bn), cost_bytes=0)
-            t, cost = _plan_time(cand, in_bytes, out_bytes, f)
+            if require_exact and not cand.exact:
+                continue
+            t, cost = _plan_time(cand, in_bytes, out_bytes, f, carry)
             ranked.append(((t, cost, -(bm * bn)),
                            dataclasses.replace(cand, cost_bytes=cost)))
     ranked.sort(key=lambda kp: kp[0])
@@ -164,12 +195,14 @@ def rank_blocks(m: int, k: int, n: int, *, in_dtype=torch.float32,
 
 
 @functools.lru_cache(maxsize=4096)
-def pick_blocks(m: int, k: int, n: int, **kw) -> BlockPlan:
-    """Best tiling under the time model — ``rank_blocks(...)[0]``.
+def pick_blocks(m: int, k: int, n: int, **kw) -> Optional[BlockPlan]:
+    """Best tiling under the time model — ``rank_blocks(...)[0]``, or None
+    when no candidate qualifies (only possible with ``require_exact``).
     Memoized: every protected projection asks
     for its plan on every call, and ranking costs more host time than a
     decode-size launch."""
-    return rank_blocks(m, k, n, **kw)[0]
+    ranked = rank_blocks(m, k, n, **kw)
+    return ranked[0] if ranked else None
 
 
 # ---------------------------------------------------------------------------
@@ -196,14 +229,15 @@ def _run_oneshot(plan: BlockPlan, out_dtype, a, b, wm, wn):
 
 
 @functools.lru_cache(maxsize=4096)
-def _publish_dispatch(m: int, k: int, n: int, dtype: str, backend: str):
-    """Count and record the first dispatch of each (shape, dtype, backend):
-    the eager counterpart of the reference's trace, which happens once per
-    compiled program, not once per call."""
+def _publish_dispatch(op: str, m: int, k: int, n: int, dtype: str,
+                      backend: str):
+    """Count and record the first dispatch of each (op, shape, dtype,
+    backend): the eager counterpart of the reference's trace, which happens
+    once per compiled program, not once per call."""
     obs.counter("repro_kernel_traces_total",
-                "kernel dispatches of a new shape").inc(op="abft_matmul",
+                "kernel dispatches of a new shape").inc(op=op,
                                                         backend=backend)
-    obs.event("kernel/trace", op="abft_matmul", backend=backend,
+    obs.event("kernel/trace", op=op, backend=backend,
               m=m, k=k, n=n, dtype=dtype)
 
 
@@ -236,6 +270,309 @@ def abft_matmul(a: torch.Tensor, b: torch.Tensor, *, f: int = KERNEL_F,
     if plan is None:
         plan = pick_blocks(m, k, n, in_dtype=a.dtype,
                            out_bytes=out_dtype.itemsize, f=f)
-    _publish_dispatch(m, k, n, str(a.dtype).replace("torch.", ""),
+    _publish_dispatch("abft_matmul", m, k, n,
+                      str(a.dtype).replace("torch.", ""),
                       "cuda" if a.is_cuda else "plain")
     return _run_oneshot(plan, out_dtype, a, b, wm, wn)
+
+
+# ---------------------------------------------------------------------------
+# Accumulate variant + carried checksum state
+# ---------------------------------------------------------------------------
+
+
+def _pad2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    r, c = x.shape
+    if (r, c) == (rows, cols):
+        return x
+    return F.pad(x, (0, cols - c, 0, rows - r))
+
+
+def _pad_state(state, pm: int, pn: int):
+    """The port's state layout -> the reference's zero-padded one:
+    ccol [mt, f, n] -> [mt, f, pn], crow [nt, m, f] -> [nt, pm, f]."""
+    ccol, crow = state
+    return (F.pad(ccol, (0, pn - ccol.shape[2])),
+            F.pad(crow, (0, 0, 0, pm - crow.shape[1])))
+
+
+def _tiles(c32: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
+    """[pm, pn] -> [mt, nt, bm, bn]."""
+    pm, pn = c32.shape
+    return c32.reshape(pm // bm, bm, pn // bn, bn).permute(0, 2, 1, 3)
+
+
+def _tile_sums(t, wmt, wnt):
+    """Dual checksums of every tile: t [mt, nt, bm, bn], wmt [mt, f, bm],
+    wnt [nt, bn, f] -> (W_m @ tile [mt, nt, f, bn], tile @ W_n
+    [mt, nt, bm, f]).  The one routine for states and residuals, so a
+    clean state re-verifies with residual exactly 0."""
+    return (torch.einsum("xfb,xybn->xyfn", wmt, t),
+            torch.einsum("xybn,ynf->xybf", t, wnt))
+
+
+def _tile_weights(wm, wn, bm: int, bn: int):
+    """Padded [f, pm] / [pn, f] weights -> per-tile [mt, f, bm] /
+    [nt, bn, f]."""
+    f, pm = wm.shape
+    pn = wn.shape[0]
+    return (wm.float().reshape(f, pm // bm, bm).transpose(0, 1),
+            wn.float().reshape(pn // bn, bn, f))
+
+
+def acc_state_zeros(plan: BlockPlan, f: int = KERNEL_F, device=None):
+    """Carried checksum state for C = 0 under ``plan``."""
+    mt, nt, _ = plan.grid
+    return (torch.zeros((mt, f, plan.n), dtype=torch.float32, device=device),
+            torch.zeros((nt, plan.m, f), dtype=torch.float32, device=device))
+
+
+def tile_checksums(c: torch.Tensor, wm: torch.Tensor, wn: torch.Tensor,
+                   bm: int, bn: int):
+    """Per-tile dual checksums of an [m, n] array, ragged edges zero-padded.
+
+    wm: [f, m], wn: [n, f].  Returns (ccol [ceil(m/bm), f, n], crow
+    [ceil(n/bn), m, f]) — the carried-state layout of the accumulate kernel;
+    used to (re)derive a consistent state from data, e.g. after a SUMMA
+    failure recovery rebuilt C blocks.
+    """
+    m, n = c.shape
+    f = wm.shape[0]
+    pm, pn = _round_up(m, bm), _round_up(n, bn)
+    mt, nt = pm // bm, pn // bn
+    wmt, wnt = _tile_weights(_pad2(wm.float(), f, pm), _pad2(wn.float(), pn, f),
+                             bm, bn)
+    cc, cr = _tile_sums(_tiles(_pad2(c.float(), pm, pn), bm, bn), wmt, wnt)
+    ccol = cc.permute(0, 2, 1, 3).reshape(mt, f, pn)[:, :, :n]
+    crow = cr.permute(1, 0, 2, 3).reshape(nt, pm, f)[:, :m]
+    return ccol.contiguous(), crow.contiguous()
+
+
+def reduce_state(state, m: Optional[int] = None, n: Optional[int] = None):
+    """Reduce a per-tile state to full checksums (cs_col [f,n], cs_row [m,f])."""
+    ccol, crow = state
+    cs_col = ccol.sum(dim=0)
+    cs_row = crow.sum(dim=0)
+    if n is not None:
+        cs_col = cs_col[:, :n]
+    if m is not None:
+        cs_row = cs_row[:m, :]
+    return cs_col, cs_row
+
+
+def correct_from_state(c: torch.Tensor, state, wm: torch.Tensor,
+                       wn: torch.Tensor, bm: int, bn: int, *,
+                       tol_factor: float = 64.0):
+    """PyTorch twin of the kernel's verify/correct prologue, on a full C.
+
+    Locates a single corrupted element against the carried per-tile state
+    (row via the row-direction residual, column via the column-direction
+    residual) and repairs it by masked re-computation from the carried
+    plain-sum column checksum.  Used for the post-loop scrub of the fused
+    SUMMA path (a flip after the last accumulate has no next kernel call to
+    catch it) and as the semantic oracle in tests.  A ragged C is zero-padded
+    to the tiling, as the reference holds it.
+    Returns (fixed, detected: bool scalar, corrected: bool scalar,
+    row: int64 scalar, col: int64 scalar) — row/col are the located element
+    (-1 when nothing was corrected).
+    """
+    m, n = c.shape
+    f = wm.shape[0]
+    pm, pn = _round_up(m, bm), _round_up(n, bn)
+    ccol_c, crow_c = _pad_state(state, pm, pn)
+    wm_p, wn_p = _pad2(wm.float(), f, pm), _pad2(wn.float(), pn, f)
+    # dtype-aware eps: fp32 floor (carried checksums are fp32 functions of
+    # the rounded stored values), widened to the storage grid for bf16
+    eps_c = detection_eps(c.dtype)
+    c32 = _pad2(c.float(), pm, pn).clone()
+    scale = c32.abs().mean() + 1e-30
+    tol_c = tol_factor * bm * eps_c * scale
+    tol_r = tol_factor * bn * eps_c * scale
+    cols, rows = torch.arange(pn, device=c.device), torch.arange(pm,
+                                                                 device=c.device)
+    detected = corrected = None
+    loc_r = loc_c = None
+    for it in range(2):
+        ccol_now, crow_now = tile_checksums(c32, wm_p, wn_p, bm, bn)
+        acol = (ccol_now - ccol_c)[:, 0, :].abs().sum(dim=0)       # [pn]
+        arow = (crow_now - crow_c)[:, :, 0].abs().sum(dim=0)       # [pm]
+        cmax, cidx = acol.max(), acol.argmax()
+        rmax, ridx = arow.max(), arow.argmax()
+        c2nd = torch.where(cols == cidx, 0.0, acol).max()
+        r2nd = torch.where(rows == ridx, 0.0, arow).max()
+        single = ((cmax > tol_c) & (rmax > tol_r)
+                  & (c2nd <= torch.maximum(0.25 * cmax, tol_c))
+                  & (r2nd <= torch.maximum(0.25 * rmax, tol_r)))
+        if it == 0:
+            detected = (cmax > tol_c) | (rmax > tol_r)
+            corrected = single
+            loc_r = torch.where(single, ridx, -1)
+            loc_c = torch.where(single, cidx, -1)
+        # masked re-computation from the carried column checksum of the
+        # tile-row holding (ridx, cidx)
+        r, cc = int(ridx), int(cidx)
+        lo = (r // bm) * bm
+        seg = c32[lo:lo + bm, cc].clone()
+        seg[r - lo] = 0.0
+        carried = ccol_c[r // bm, 0, cc]
+        x_new = (carried - torch.dot(wm_p[0, lo:lo + bm], seg)) \
+            / (wm_p[0, r] + 1e-30)
+        c32[r, cc] = torch.where(single, x_new, c32[r, cc])
+    if not c.dtype.is_floating_point:
+        c32 = torch.round(c32)   # integer storage: snap the repair to grid
+    return (c32[:m, :n].to(c.dtype), detected, corrected, loc_r, loc_c)
+
+
+def _tile_verify_correct(c32, state, wm, wn, bm, bn, *, tol_factor,
+                         eps_c: Optional[float] = None):
+    """Vectorized-over-tiles twin of the kernel's verify/correct prologue.
+
+    Exactly the math of ``csrc/abft_matmul_acc.cu``'s prologue (and of the
+    reference's ``kernels.abft_matmul._verify_correct``), batched over the
+    [mt, nt] tile grid of a zero-padded c32 [pm, pn] with the padded state
+    ([mt, f, pn], [nt, pm, f]) and weights ([f, pm], [pn, f]): per-tile
+    residuals vs the carried state, one concentration-gated repair PER TILE
+    by masked re-computation from the carried plain-sum column checksum,
+    two passes (the second only after a repair: a pass that repairs nothing
+    leaves the tiles as they were).  Returns (fixed c32 [pm, pn], stats
+    [mt, nt, STATS_WIDTH]).
+    """
+    ccol, crow = state
+    pm, pn = c32.shape
+    mt, nt = pm // bm, pn // bn
+    f = wm.shape[0]
+    eps_c = detection_eps(torch.float32) if eps_c is None else eps_c
+    t = _tiles(c32, bm, bn)                                      # [mt,nt,bm,bn]
+    wmt, wnt = _tile_weights(wm, wn, bm, bn)
+    ccol_t = ccol.reshape(mt, f, nt, bn).permute(0, 2, 1, 3)     # [mt,nt,f,bn]
+    crow_t = crow.reshape(nt, mt, bm, f).permute(1, 0, 2, 3)     # [mt,nt,bm,f]
+    scale = t.abs().mean(dim=(2, 3)) + 1e-30                     # [mt,nt]
+    tol_c = tol_factor * bm * eps_c * scale
+    tol_r = tol_factor * bn * eps_c * scale
+    dev = c32.device
+    row_i = torch.arange(bm, device=dev)
+    col_i = torch.arange(bn, device=dev)
+
+    def take(arr, idx):
+        return torch.gather(arr, -1, idx[..., None])[..., 0]
+
+    stats = None
+    for it in range(2):
+        cc, cr = _tile_sums(t, wmt, wnt)
+        ac = (cc - ccol_t)[:, :, 0, :].abs()                     # [mt,nt,bn]
+        ar = (cr - crow_t)[:, :, :, 0].abs()                     # [mt,nt,bm]
+        cmax, cidx = ac.max(-1).values, ac.argmax(-1)            # [mt,nt]
+        rmax, ridx = ar.max(-1).values, ar.argmax(-1)
+        c2 = torch.where(col_i == cidx[..., None], 0.0, ac).max(-1).values
+        r2 = torch.where(row_i == ridx[..., None], 0.0, ar).max(-1).values
+        detected = (cmax > tol_c) | (rmax > tol_r)
+        single = ((cmax > tol_c) & (rmax > tol_r)
+                  & (c2 <= torch.maximum(0.25 * cmax, tol_c))
+                  & (r2 <= torch.maximum(0.25 * rmax, tol_r)))
+        if it == 0:
+            r_glob = torch.arange(mt, device=dev)[:, None] * bm + ridx
+            c_glob = torch.arange(nt, device=dev)[None, :] * bn + cidx
+            stats = torch.stack([
+                detected.float(), single.float(),
+                torch.where(single, r_glob.float(), -1.0),
+                torch.where(single, c_glob.float(), -1.0),
+                cmax, rmax, tol_c, scale,
+            ], dim=-1)
+        if not bool(single.any()):
+            break       # nothing repaired: a further pass finds the same
+        mask = ((row_i[:, None] == ridx[..., None, None])
+                & (col_i == cidx[..., None, None]))              # [mt,nt,bm,bn]
+        masked = torch.where(mask, 0.0, t)
+        s0 = torch.einsum("xb,xybn->xyn", wmt[:, 0, :], masked)  # [mt,nt,bn]
+        num = take(ccol_t[:, :, 0, :], cidx) - take(s0, cidx)
+        w0r = take(wmt[:, None, 0, :].expand(mt, nt, bm), ridx)
+        x_new = num / (w0r + 1e-30)
+        t = torch.where(single[..., None, None] & mask,
+                        x_new[..., None, None], t)
+    return t.permute(0, 2, 1, 3).reshape(pm, pn), stats
+
+
+def _acc_twin(a, b, c_in, state, wm, wn, bm: int, bn: int, *, verify: bool,
+              tol_factor: float, eps_c: Optional[float], out_dtype):
+    """The accumulate step in plain PyTorch, state in the port's layout:
+    the kernel's plain version and ``abft_matmul_acc(backend="torch")``.
+    Returns (c_out, ccol, crow, stats), all new tensors."""
+    m, n = c_in.shape
+    f = wm.shape[0]
+    pm, pn = _round_up(m, bm), _round_up(n, bn)
+    if verify:
+        c32, stats = _tile_verify_correct(
+            _pad2(c_in.float(), pm, pn), _pad_state(state, pm, pn),
+            _pad2(wm.float(), f, pm), _pad2(wn.float(), pn, f), bm, bn,
+            tol_factor=tol_factor, eps_c=eps_c)
+        c32 = c32[:m, :n]
+    else:
+        c32 = c_in.float()
+        stats = torch.zeros((pm // bm, pn // bn, kmm.STATS_WIDTH),
+                            dtype=torch.float32, device=c_in.device)
+        stats[..., 2:4] = -1.0
+    if a.dtype == torch.int8:
+        # the kernel's int32 accumulator: the repaired tile rounded half to
+        # even, plus the exact product (float64 holds every int8 dot)
+        prod = torch.matmul(a.double(), b.double()).to(torch.int32)
+        c_out = (torch.round(c32).to(torch.int32) + prod).to(out_dtype)
+    else:
+        c_out = torch.addmm(c32, a.float(), b.float()).to(out_dtype)
+    ccol, crow = tile_checksums(c_out.float(), wm, wn, bm, bn)
+    return c_out, ccol, crow, stats
+
+
+def abft_matmul_acc(a: torch.Tensor, b: torch.Tensor, c_in: torch.Tensor,
+                    state, *, plan: BlockPlan,
+                    wm: Optional[torch.Tensor] = None,
+                    wn: Optional[torch.Tensor] = None, verify: bool = True,
+                    tol_factor: float = 64.0, out_dtype=None,
+                    backend: str = "auto", out=None):
+    """C_out = C_in + A @ B with carried checksum state and fused scrub.
+
+    ``state`` is the (ccol, crow) pair from ``acc_state_zeros`` or a prior
+    call under the same ``plan``.  ``backend``: "cuda" runs the kernel (its
+    plain version on a CPU tensor), "torch" the PyTorch twin (same
+    semantics, separate ops), "auto" the kernel on a CUDA tensor and the
+    twin on a CPU one.  On a CUDA tensor "auto" and "cuda" launch the kernel
+    or raise.  A/B may be fp32, bf16 or int8 (int32 accumulation, integer
+    C; repairs snap to the integer grid, so the int8 path stays bit-exact);
+    the verify tolerance uses the dtype-aware ``detection_eps`` of the C
+    storage dtype.  ``out = (c_out, ccol_out, crow_out)`` names where to
+    write, and may be the inputs themselves (the kernel updates in place;
+    the other paths copy their result there).
+    Returns (c_out [m, n], new_state, stats [mt, nt, STATS_WIDTH]).
+    """
+    m, n = c_in.shape
+    k = a.shape[1]
+    out_dtype = out_dtype or c_in.dtype
+    eps_c = detection_eps(c_in.dtype)
+    f = KERNEL_F if wm is None else wm.shape[0]
+    wm = kernel_weights(m, f, device=a.device) if wm is None else wm
+    wn = kernel_weights(n, f, device=a.device).T if wn is None else wn
+    if tuple(wn.shape) != (n, f):
+        raise ValueError(f"wn shape {tuple(wn.shape)} != ({n}, {f})")
+    if backend not in ("auto", "cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}: auto, cuda or torch")
+    kernel = backend == "cuda" or (backend == "auto" and a.is_cuda)
+    _publish_dispatch("abft_matmul_acc", m, k, n,
+                      str(a.dtype).replace("torch.", ""),
+                      ("cuda" if a.is_cuda else "plain") if kernel
+                      else "torch")
+    ccol_in, crow_in = state
+    if kernel:
+        c, ccol, crow, stats = kmm.abft_matmul_acc_cuda(
+            a.contiguous(), b.contiguous(), c_in.contiguous(),
+            ccol_in.contiguous(), crow_in.contiguous(),
+            wm.float().contiguous(), wn.float().contiguous(), bm=plan.bm,
+            bn=plan.bn, bk=plan.bk, verify=verify, tol_factor=tol_factor,
+            eps_c=eps_c, out_dtype=out_dtype, out=out)
+        return c, (ccol, crow), stats
+    c, ccol, crow, stats = _acc_twin(
+        a, b, c_in, state, wm, wn, plan.bm, plan.bn, verify=verify,
+        tol_factor=tol_factor, eps_c=eps_c, out_dtype=out_dtype)
+    if out is not None:
+        for dst, src in zip(out, (c, ccol, crow)):
+            dst.copy_(src)
+        c, ccol, crow = out
+    return c, (ccol, crow), stats

@@ -25,10 +25,10 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 
 def resolve_device(device: str = "cuda") -> torch.device:
-    """The device to serve on; asking for CUDA without a GPU raises."""
+    """The device to run on; asking for CUDA without a GPU raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port serves on the GPU; "
+        raise RuntimeError("no CUDA device: the port runs on the GPU; "
                            "pass device='cpu' to run on the CPU")
     return dev
 

@@ -134,7 +134,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(k for k in sys.modules if k in ('jax', 'repro') or "
         "k.startswith(('jax.', 'repro.')))\n"
         "assert not bad, bad\n"
+        "need = {'repro_torch.core.' + m for m in ('encoding', 'detect', "
+        "'recovery', 'summa')} | {'repro_torch.launch.stress'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True)
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 25
