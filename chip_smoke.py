@@ -3,15 +3,18 @@
 sources in this checkout, hold each kernel against its plain PyTorch version
 at the shapes its path gives it, drill ABFT detection and correction on the
 card, serve Qwen2-0.5B at its published width through the port's serving
-entry point, and run the paper's fault-tolerant SUMMA at the paper's size.
+entry point, run the paper's fault-tolerant SUMMA at the paper's size, and
+train Qwen2-0.5B at its published width through the port's fault-tolerant
+training entry point, with diskless recoveries.
 
     python3 chip_smoke.py
 
 Phases (one line or more each; any failed check raises, and the script
 exits non-zero without printing a result):
   1. device   — a CUDA card, and its name and power limit from nvidia-smi;
-  2. build    — nvcc builds kernels/csrc/abft_matmul.cu and
-                abft_matmul_acc.cu (sm_90a), one process each, at once;
+  2. build    — nvcc builds kernels/csrc/abft_matmul.cu,
+                abft_matmul_acc.cu and checksum_encode.cu (sm_90a), one
+                process each, at once;
   3. kernel   — the kernel against its plain version at the serving shapes
                 (m = 4 decode, m = 1024 prefill bucket; fp32 and bf16, one
                 int8 shape), with kernel, plain and torch.matmul times;
@@ -37,13 +40,30 @@ exits non-zero without printing a result):
                 the paper's residual check and verify() with 512 kernel
                 launches and no plain call; the plain-SUMMA walls (kernel
                 with verify off, and torch.matmul) on 24576^2 operands; the
-                stress CLI for 8 iterations.
+                stress CLI for 8 iterations;
+  8. encode   — the diskless encode kernel against its plain version at the
+                full-width train state's own views (the embedding in bf16
+                and fp32, a 4-D layer-group view, a [4, 224] norm view) and a
+                ragged p = 16, f = 3 case, with kernel, plain, torch.matmul
+                and bound times, and the same sums over one encode of the
+                whole state (42 leaves);
+  9. train    — repro_torch.launch.train.run at full width in bf16, ABFT
+                verify: 30 steps with two injected shard losses and a
+                diskless encode every 5 steps; kernel #3 launched once per
+                floating leaf per encode and kernel #1 168 times per forward
+                pass (twice per step: remat recomputes the blocks), no
+                plain-version call; 2 diskless recoveries, each replayed step
+                close to its first pass, the loss falling; verify, a flip,
+                reshard and the bf16 recovery error on the held checkpoint;
+                a resume from the disk checkpoint, bit-identical.
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
 import dataclasses
 import json
+import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -352,18 +372,15 @@ def phase_serve(torch, record, name):
     return launches
 
 
-KERNEL_SOURCES = ("abft_matmul", "abft_matmul_acc")
-
-
 def phase_build(torch, record):
     """nvcc on every kernel source of the path, one process each, at once."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.compile_all(KERNEL_SOURCES)
+    build.compile_all(build.SOURCES)
     secs = time.perf_counter() - t0
     record["build"] = {"seconds": secs}
-    for src in KERNEL_SOURCES:
+    for src in build.SOURCES:
         build.load(src)
         entry = build.BUILD_LOG[src]
         regs = [ln.strip() for ln in entry["log"].splitlines()
@@ -371,7 +388,8 @@ def phase_build(torch, record):
         log("build", f"{src}.cu built in {entry['seconds']:.1f} s "
                      f"({len(regs)} kernels; {regs[-1] if regs else 'reused'})")
         record["build"][src] = entry
-    log("build", f"both sources built in {secs:.1f} s (in parallel)")
+    log("build", f"{len(build.SOURCES)} sources built in {secs:.1f} s (in "
+                 "parallel)")
 
 
 ACC_CASES = [                   # (m, k, n, operand dtype, pinned tile)
@@ -716,6 +734,320 @@ def phase_summa(torch, record, card):
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the diskless encode kernel and fault-tolerant training
+# ---------------------------------------------------------------------------
+
+ENC_CASES = [        # (what, p, f, m, n, dtype): views the encode takes
+    ("embedding view, bf16 params", 4, 1, 37984, 896, "bfloat16"),
+    ("embedding view, fp32 moments", 4, 1, 37984, 896, "float32"),
+    ("mlp.gate.w group view [4, 6, 896 x 4864]", 4, 1, 6, 896 * 4864,
+     "bfloat16"),
+    ("final_norm view [4, 224]", 4, 1, 1, 224, "bfloat16"),
+    ("ragged, p = 16, f = 3", 16, 3, 1000, 999, "float32"),
+]
+
+
+def enc_bound(p, f, m, n, itemsize):
+    """Least time of one encode: X read once, Y written once, A read once,
+    over HBM; 2 f p m n operations at the fp32 CUDA-core rate (the sums are
+    fp32 whatever the storage type)."""
+    nbytes = (p + f) * m * n * itemsize + f * p * 4
+    ops = 2 * f * p * m * n
+    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def enc_times(torch, x, a, flush, reps):
+    """(kernel, plain, torch.matmul) ms of one encode of the [p, m, n]
+    view x; the library call is the same function as one product of A by
+    X viewed as [p, m n], in X's type."""
+    from repro_torch.kernels import checksum_encode as kenc
+
+    a_x, xv = a.to(x.dtype), x.reshape(x.shape[0], -1)
+    return (time_ms(torch, lambda: kenc.checksum_encode_cuda(x, a), reps,
+                    flush),
+            time_ms(torch, lambda: kenc.checksum_encode_plain(x, a), reps,
+                    flush),
+            time_ms(torch, lambda: torch.matmul(a_x, xv), reps, flush))
+
+
+def phase_encode(torch, record):
+    """Kernel #3 against its plain version at the views of the full-width
+    train state and one ragged case, with its times."""
+    from repro_torch.core.checksum import checkpoint_matrix
+    from repro_torch.kernels import checksum_encode as kenc
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for what, p, f, m, n, name in ENC_CASES:
+        dt = getattr(torch, name)
+        x = torch.randn((p, m, n), generator=g, device="cuda").to(dt)
+        a = checkpoint_matrix(f, p, device="cuda")
+        got = kenc.checksum_encode_cuda(x, a)
+        want = kenc.checksum_encode_plain(x, a)
+        torch.cuda.synchronize()
+        # any order of the p fp32 sums lies within p eps32 of the sum of
+        # the terms' magnitudes; a bf16 checksum may then round one bf16 ulp
+        # (at most 2^-7 of its value) apart
+        terms = torch.matmul(a.abs(), x.reshape(p, -1).float().abs()) \
+            .reshape(want.shape)
+        tol = 4 * p * 2.0 ** -24 * terms
+        if dt == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * want.float().abs()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"encode {what}: kernel and plain differ by "
+                                 f"{err}, over the stated tolerance")
+        del got, want, terms, tol, diff
+        ms, plain_ms, lib_ms = enc_times(torch, x, a, flush, 10)
+        b_ms, b_by = enc_bound(p, f, m, n, x.element_size())
+        row = dict(case=what, p=p, f=f, m=m, n=n, dtype=name,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   gbps=(p + f) * m * n * x.element_size() / ms / 1e6)
+        rows.append(row)
+        log("encode", json.dumps(row))
+        del x
+    torch.cuda.empty_cache()
+    record["encode_cases"] = rows
+    return rows
+
+
+TRAIN_STEPS = 30
+REPLAY_RTOL = 1e-3
+
+
+def _bits(torch, x):
+    """x's raw bits, for a bit-for-bit comparison."""
+    if x.is_floating_point():
+        return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+    return x
+
+
+def _recovery_errors(torch, dc, snap, k):
+    """Recover shard k of the held checkpoint and measure each encoded
+    leaf's error against the snapshot: survivors must come back bit for
+    bit, and the lost shard within the bound of its arithmetic — a bf16
+    checksum is rounded to bf16 (half an ulp of y), the fp32 solve adds a
+    few fp32 ulps of the terms, and the result is rounded to the leaf's
+    type (half an ulp of it)."""
+    from repro_torch.tree import keystr, tree_leaves, tree_leaves_with_path
+
+    rec = dc.recover(snap, [k])
+    p = dc.p
+    worst = {"bfloat16": [0.0, 0.0, ""], "float32": [0.0, 0.0, ""]}
+    for (path, r), s, y in zip(tree_leaves_with_path(rec), tree_leaves(snap),
+                               tree_leaves(dc._enc)):
+        if not (s.is_floating_point() and s.dim() >= 1 and s.shape[0] == p):
+            continue
+        others = [i for i in range(p) if i != k]
+        if not torch.equal(_bits(torch, r[others]), _bits(torch, s[others])):
+            raise AssertionError(f"{keystr(path)}: a surviving shard did not "
+                                 "roll back bit for bit")
+        x, xr, y0 = s[k].float(), r[k].float(), y[0].float()
+        err = (xr - x).abs()
+        terms = s.float().abs().sum(0) + y0.abs()
+        bound = 8 * p * 2.0 ** -24 * terms
+        name = str(s.dtype).replace("torch.", "")
+        if name == "bfloat16":
+            def ulp(v):
+                return torch.exp2(torch.floor(torch.log2(
+                    v.abs().clamp_min(2.0 ** -126))) - 7)
+            bound = bound + 0.5 * ulp(y0) + 0.5 * ulp(torch.maximum(
+                x.abs(), xr.abs()))
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{keystr(path)}: recovered shard {k} off by "
+                                 f"{float(err.max())}, over its bound")
+        e, rel = float(err.max()), float(err.max() / (x.abs().max() + 1e-30))
+        if e > worst[name][0]:
+            worst[name] = [e, rel, keystr(path)]
+        del x, xr, y0, err, terms, bound
+    return rec, worst
+
+
+def phase_train(torch, record, card):
+    """repro_torch.launch.train.run at full width: the main path of this
+    slice; returns (kernel #3 launches, one-encode times) of it."""
+    from repro_torch.ckpt.disk import CheckpointManager
+    from repro_torch.ckpt.diskless import DisklessCheckpoint, encode_view
+    from repro_torch.configs.base import get_config
+    from repro_torch.ft.runtime import stack_view, unstack_view
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.kernels import checksum_encode as kenc
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(smoke=False, batch=16, seq=128, abft_mode="verify",
+              diskless_every=5, ckpt_dir=str(ckpt), log_every=5,
+              device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kmm.reset_counts()
+    kenc.reset_counts()                      # the main path starts here
+    t0 = time.perf_counter()
+    res = train.run("qwen2-0.5b", steps=TRAIN_STEPS, inject_failures=2, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    l1, p1 = kmm.launches, kmm.plain_calls
+    l3, p3 = kenc.launches, kenc.plain_calls  # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ft, dc = res.ft, res.ft.diskless
+    n_float = sum(1 for x in tree_leaves(dc._snapshot)
+                  if x.is_floating_point())
+    encodes = len(ft.timings["encode"])
+    passes = 2 * len(res.losses)      # remat runs every block again
+    per_pass = 7 * get_config("qwen2-0.5b").n_layers    # 168 projections
+    log("train", f"{len(res.losses)} steps run ({TRAIN_STEPS} + replays), "
+                 f"{encodes} encodes x {n_float} floating leaves = {l3} "
+                 f"kernel #3 launches, {per_pass} x {passes} forward passes = "
+                 f"{l1} "
+                 f"kernel #1 launches, plain calls {p3} / {p1}, "
+                 f"recoveries {ft.recoveries}")
+    if l3 != encodes * n_float or p3 != 0:
+        raise AssertionError(f"kernel #3: {l3} launches, {p3} plain calls "
+                             f"(want {encodes} x {n_float}, 0)")
+    if l1 != per_pass * passes or p1 != 0:
+        raise AssertionError(f"kernel #1: {l1} launches, {p1} plain calls "
+                             f"(want {per_pass} x {passes}, 0)")
+    if ft.recoveries["diskless"] != 2:
+        raise AssertionError(f"recoveries {ft.recoveries}: want 2 diskless")
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"non-finite loss: {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"loss did not fall: {res.losses[0]} -> "
+                             f"{res.losses[-1]}")
+    first, replays = {}, []
+    for s, v in zip(res.steps, res.losses):
+        if s in first:
+            replays.append(dict(step=s, first=first[s], replay=v,
+                                rel=abs(v - first[s]) / abs(first[s])))
+        else:
+            first[s] = v
+    if not replays or any(r["rel"] > REPLAY_RTOL for r in replays):
+        raise AssertionError(f"replayed steps against their first pass: "
+                             f"{replays} (tolerance {REPLAY_RTOL})")
+    log("train", f"replayed steps {[r['step'] for r in replays]}: max "
+                 f"|loss - first pass| / loss = "
+                 f"{max(r['rel'] for r in replays):.3g} (tolerance "
+                 f"{REPLAY_RTOL}); loss {res.losses[0]:.4f} -> "
+                 f"{res.losses[-1]:.4f}")
+    steady = sorted(res.step_walls[1:])
+    walls = dict(first_step_s=res.step_walls[0],
+                 median_step_s=steady[len(steady) // 2],
+                 encode_s=ft.timings["encode"], recover_s=ft.timings["recover"],
+                 save_host_copy_s=ft.timings["save"], run_s=wall,
+                 peak_gb=peak_gb)
+    log("train", "walls " + json.dumps(walls))
+
+    # the held checkpoint: verify, a flip, the recovery error, reshard
+    snap = dc.snapshot()
+    ok, bad, worst = dc.verify(snap)
+    if not ok or worst != 0.0:
+        raise AssertionError(f"verify of the held snapshot: {ok} {bad} "
+                             f"{worst}")
+    table = snap["params"]["embed"]["table"]
+    old = table[1, 2, 3].clone()
+    table[1, 2, 3] += 1e4
+    ok_f, bad_f, worst_f = dc.verify(snap)
+    table[1, 2, 3] = old
+    if ok_f or bad_f != "['params']['embed']['table']":
+        raise AssertionError(f"a 1e4 flip was not caught: {ok_f} {bad_f}")
+    log("train", f"verify of the held snapshot (step {dc.step}): residual "
+                 f"{worst}; a 1e4 flip in {bad_f}: residual {worst_f:.4g}, "
+                 "tripped")
+    rec, rec_err = _recovery_errors(torch, dc, snap, 1)
+    log("train", f"shard 1 recovered from the held checkpoint: survivors bit "
+                 f"for bit; max error bf16 {rec_err['bfloat16']}, fp32 "
+                 f"{rec_err['float32']} (abs, relative to max |leaf|, leaf)")
+    dc2 = dc.reshard(2, failed=[1])
+    want = stack_view(unstack_view(rec, res.state), 2)
+    del rec, snap
+    fresh = DisklessCheckpoint(2, dc.f)
+    fresh.encode(want, dc.step, owned=True)
+    for (path, a), b in zip(tree_leaves_with_path(dc2._snapshot),
+                            tree_leaves(fresh._snapshot)):
+        if not torch.equal(_bits(torch, a), _bits(torch, b)):
+            raise AssertionError(f"reshard snapshot differs at {path}")
+    for (path, a), b in zip(tree_leaves_with_path(dc2._enc),
+                            tree_leaves(fresh._enc)):
+        if not torch.equal(_bits(torch, a), _bits(torch, b)):
+            raise AssertionError(f"reshard checksums differ at {path}")
+    ok2, _, worst2 = dc2.verify(dc2.snapshot())
+    if not ok2 or worst2 != 0.0:
+        raise AssertionError("the re-keyed checkpoint does not verify")
+    log("train", "reshard(2, failed=[1]): snapshot and checksums bit for bit "
+                 "those of a fresh encode of the recovered state re-split "
+                 "over 2 shards; verifies at residual 0")
+    del dc2, fresh, want
+    torch.cuda.empty_cache()
+
+    # one diskless encode of the whole state, leaf by leaf, on its own data
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    a = dc._matrix(dc._snapshot["params"]["embed"]["table"].device)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               gbytes=0.0, bound_by="bytes")
+    for x in tree_leaves(dc._snapshot):
+        if not x.is_floating_point():
+            continue
+        v = encode_view(x, dc.p)
+        ms, plain_ms, lib_ms = enc_times(torch, v, a, flush, 5)
+        p_, m_, n_ = v.shape
+        b_ms, b_by = enc_bound(p_, dc.f, m_, n_, x.element_size())
+        if b_by != "bytes":
+            tot["bound_by"] = "bytes and operations"
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", b_ms)):
+            tot[key] += val
+        tot["gbytes"] += (p_ + dc.f) * m_ * n_ * x.element_size() / 1e9
+    log("train", f"one encode of the full-width state ({n_float} leaves, "
+                 f"{tot['gbytes']:.3f} GB moved), summed over its launches: "
+                 f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+                 f"torch.matmul {tot['library_ms']:.3f} ms, bound "
+                 f"{tot['bound_ms']:.3f} ms")
+
+    # resume from the disk checkpoint of the last step
+    mgr = CheckpointManager(ckpt)
+    t0 = time.perf_counter()
+    restored = mgr.restore(TRAIN_STEPS, res.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for a_, b_ in zip(tree_leaves(restored), tree_leaves(res.state)):
+        if a_.dtype != b_.dtype or not torch.equal(_bits(torch, a_),
+                                                   _bits(torch, b_)):
+            raise AssertionError("the disk checkpoint did not restore the "
+                                 "state bit for bit")
+    del restored
+    final = res.losses[-1]
+    del res, ft, dc
+    torch.cuda.empty_cache()
+    res2 = train.run("qwen2-0.5b", steps=TRAIN_STEPS + 3, resume=True,
+                     total_steps=TRAIN_STEPS, **kw)
+    if res2.resumed_from != TRAIN_STEPS \
+            or res2.steps != list(range(TRAIN_STEPS, TRAIN_STEPS + 3)) \
+            or not all(math.isfinite(v) for v in res2.losses):
+        raise AssertionError(f"resume: from {res2.resumed_from}, steps "
+                             f"{res2.steps}, losses {res2.losses}")
+    log("train", f"disk checkpoint of step {TRAIN_STEPS} restored bit for "
+                 f"bit in {restore_s:.2f} s; --resume ran steps "
+                 f"{res2.steps} (loss {final:.4f} -> {res2.losses[-1]:.4f})")
+    del res2
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    record["train"] = dict(
+        steps=TRAIN_STEPS, launches_encode=l3, launches_matmul=l1,
+        encodes=encodes, float_leaves=n_float, forward_passes=passes,
+        recoveries=2, replays=replays, walls=walls,
+        recovery_error=rec_err, full_encode=tot, restore_s=restore_s,
+        card=card)
+    return l3, tot
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -740,6 +1072,8 @@ def main():
     launches = phase_serve(torch, record, f"{name} ({smi})")
     acc_rows = phase_acc(torch, record)
     acc_launches = phase_summa(torch, record, f"{name} ({smi})")
+    enc_rows = phase_encode(torch, record)
+    enc_launches, enc_tot = phase_train(torch, record, f"{name} ({smi})")
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -775,6 +1109,20 @@ def main():
         "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"],
         "library_ms": step["library_ms"],
+    }, {
+        # one diskless encode of the full-width train state: 42 launches,
+        # one per floating leaf, their times summed
+        "name": "checksum_encode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/checksum_encode.cu",
+        "replaces": "src/repro/kernels/checksum_encode.py:32",
+        "launches": enc_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in enc_rows),
+        "ms": enc_tot["ms"],
+        "plain_ms": enc_tot["plain_ms"],
+        "bound_ms": enc_tot["bound_ms"],
+        "bound_by": enc_tot["bound_by"],
+        "library_ms": enc_tot["library_ms"],
     }]}
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

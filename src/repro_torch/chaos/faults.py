@@ -8,18 +8,26 @@ whose protection the port has not brought up yet is registered
 unprotected, with a note naming what it waits for.
 
 This is the registry part of the reference package's
-``repro/chaos/faults.py``; the fault taxonomy and the injectors come with
-the chaos slice.  Stdlib only, so every protection-domain module can
-import it at module scope without cycles.
+``repro/chaos/faults.py`` plus its shard-erasure injection
+(``FailurePlan``, ``FailureInjector``); the fault taxonomy and the SDC
+injectors come with later slices.  It imports no other module of the port
+but ``repro_torch.tree``, so every protection-domain module can import it
+at module scope without cycles.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
 
 __all__ = [
     "Surface", "register_surface", "get_surface", "surfaces",
-    "uncovered_surfaces", "ensure_registered",
+    "uncovered_surfaces", "ensure_registered", "FailurePlan",
+    "FailureInjector",
 ]
 
 
@@ -127,7 +135,7 @@ def ensure_registered() -> Dict[str, Surface]:
     before it imports will show a stale registry."""
     import importlib
     for mod in ("repro_torch.kernels.ops", "repro_torch.serve.engine",
-                "repro_torch.models.layers"):
+                "repro_torch.models.layers", "repro_torch.ckpt.diskless"):
         importlib.import_module(mod)
     return dict(_REGISTRY)
 
@@ -144,5 +152,73 @@ register_surface(
 register_surface(
     "state.opt_state_at_rest", owner="repro_torch.chaos.faults",
     protected=False,
-    note="optimizer moments between steps; training comes with the "
-         "protected-LM slice")
+    note="optimizer moments between steps; the at-rest scrub comes with "
+         "the elastic slice")
+
+
+# ---------------------------------------------------------------------------
+# shard-erasure injection — the paper's §4.3 "process killer"
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FailurePlan:
+    """Deterministic plan: at step s, lose DP shard i (the paper's fixed
+    EXIT-point mode).  Exact-duplicate events are dropped at construction,
+    since the injector delivers each event once."""
+    events: Tuple[Tuple[int, int], ...]   # (step, shard_index)
+
+    def __post_init__(self):
+        seen, out = set(), []
+        for e in self.events:
+            if e not in seen:
+                seen.add(e)
+                out.append(e)
+        object.__setattr__(self, "events", tuple(out))
+
+    @classmethod
+    def random(cls, n_events: int, max_step: int, p: int, seed: int = 0):
+        """The stress-test mode: random in time and location (§4.3), drawn
+        exactly as the reference draws them (steps without replacement, at
+        most one loss per step; ``n_events`` clamped to the drillable
+        steps)."""
+        rng = np.random.RandomState(seed)
+        n_events = min(n_events, max_step - 1)
+        steps = rng.choice(np.arange(1, max_step), size=n_events,
+                           replace=False)
+        ev = tuple(sorted(
+            (int(s), int(rng.randint(0, p))) for s in steps))
+        return cls(ev)
+
+
+class FailureInjector:
+    """Drives a `FailurePlan` through a training loop: `check(step)` fires
+    each planned event once and returns the lost DP shard's index, and
+    `damage(state, shard, leading)` applies the consequence: the shard's
+    slice of every ``[p, ...]``-stacked floating leaf is NaN-poisoned, which
+    a recovery path must repair without reading it."""
+
+    def __init__(self, plan: FailurePlan):
+        self.plan = plan
+        self._fired: List[Tuple[int, int]] = []
+
+    def check(self, step: int) -> Optional[int]:
+        """The failed shard index if a failure fires at `step`, else None."""
+        for (s, i) in self.plan.events:
+            if s == step and (s, i) not in self._fired:
+                self._fired.append((s, i))
+                return i
+        return None
+
+    @staticmethod
+    def damage(state, shard: int, leading: int):
+        """NaN-poison shard `shard` of every [p, ...] stacked floating leaf.
+        Returns a new tree; a poisoned leaf is a copy, the others are the
+        input's own tensors."""
+        def hit(x):
+            if isinstance(x, torch.Tensor) and x.dim() >= 1 \
+                    and x.shape[0] == leading and x.is_floating_point():
+                x = x.clone()
+                x[shard] = float("nan")
+            return x
+        return tree_map(hit, state)

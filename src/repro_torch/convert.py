@@ -1,4 +1,5 @@
-"""Carry params from the reference package's layout to the port's.
+"""Carry params, and the whole train state, from the reference package's
+layout to the port's.
 
 The reference stacks each layout group's layers on axis 0 under
 ``groups[gi]["b{bi}"]``; the port keeps ``groups[gi]`` as a list of
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["params_from_jax", "to_tensor"]
+__all__ = ["params_from_jax", "state_from_jax", "to_tensor"]
 
 
 def to_tensor(x, device=None) -> torch.Tensor:
@@ -42,3 +43,17 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
             np.asarray(x)[r], device)) for r in range(repeats)])
     out["groups"] = groups
     return out
+
+
+def state_from_jax(tree, cfg: ModelConfig, device=None):
+    """The reference's train state ``{"params", "opt": {"m", "v", "count"},
+    "step"}`` -> the port's: params and both moments by the mapping of
+    `params_from_jax`, the counters as 0-d tensors."""
+    opt = tree["opt"]
+    return {
+        "params": params_from_jax(tree["params"], cfg, device),
+        "opt": {"m": params_from_jax(opt["m"], cfg, device),
+                "v": params_from_jax(opt["v"], cfg, device),
+                "count": to_tensor(opt["count"], device)},
+        "step": to_tensor(tree["step"], device),
+    }

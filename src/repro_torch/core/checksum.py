@@ -7,7 +7,8 @@ recoverable iff the f-by-f submatrix A[:, failed] is nonsingular.
 The checkpoint matrix is built with numpy's ``RandomState``, so it is
 bit-identical to the reference package's
 ``repro/core/checksum.py::checkpoint_matrix`` for the same ``(f, p, seed)``.
-The pytree variants of the reference come with the diskless slice.
+``encode_pytree`` / ``recover_pytree`` apply the algebra to every leaf of a
+tree (``repro_torch.tree``) whose leaves are stacked ``[p, ...]``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["checkpoint_matrix", "encode", "recover"]
+from repro_torch.tree import tree_map
+
+__all__ = ["checkpoint_matrix", "encode", "recover", "encode_pytree",
+           "recover_pytree"]
 
 
 @functools.lru_cache(maxsize=256)
@@ -56,7 +60,8 @@ def encode(shards: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"checkpoint matrix is {tuple(a.shape)}, shards have "
                          f"p={p}")
     flat = shards.reshape(p, -1)
-    y = torch.einsum("fp,pn->fn", a.float(), flat.float())
+    y = torch.einsum("fp,pn->fn", a.to(shards.device, torch.float32),
+                     flat.float())
     return y.reshape((a.shape[0],) + tuple(shards.shape[1:])).to(shards.dtype)
 
 
@@ -79,10 +84,27 @@ def recover(shards: torch.Tensor, checksums: torch.Tensor, a: torch.Tensor,
     ok = [i for i in range(p) if i not in failed]
     flat = shards.reshape(p, -1).float()
     y = checksums.reshape(checksums.shape[0], -1).float()
-    a32 = a.float()
+    a32 = a.to(shards.device, torch.float32)
     # the first f_used checksums (any f_used-subset works; these exist)
     rhs = y[:f_used] - a32[:f_used][:, ok] @ flat[ok]
     sub = a32[:f_used][:, failed]                    # f_used x f_used
     restored = flat.clone()
     restored[failed] = torch.linalg.solve(sub, rhs)
     return restored.reshape(shards.shape).to(shards.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Tree variants: the diskless checkpoint of a full train state (§2.1 applied
+# to every leaf).  The shard axis is leaf axis 0 (the data-parallel stack).
+# ----------------------------------------------------------------------------
+
+
+def encode_pytree(tree, a: torch.Tensor):
+    """Checksum-encode every leaf of a [p, ...]-stacked tree."""
+    return tree_map(lambda x: encode(x, a), tree)
+
+
+def recover_pytree(tree, checksums, a: torch.Tensor, failed: Sequence[int]):
+    """Recover the failed shard indices of every leaf from the checksum
+    tree."""
+    return tree_map(lambda x, y: recover(x, y, a, failed), tree, checksums)

@@ -1,0 +1,3 @@
+from repro_torch.data.pipeline import DataConfig, DataPipeline, synthetic_batch
+
+__all__ = ["DataConfig", "DataPipeline", "synthetic_batch"]

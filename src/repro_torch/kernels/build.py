@@ -23,9 +23,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["build_dir", "nvcc_path", "compile_source", "compile_all", "load",
-           "source_digest", "BUILD_LOG"]
+           "source_digest", "BUILD_LOG", "SOURCES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+# every kernel source of the port, by name (csrc/<name>.cu)
+SOURCES = ("abft_matmul", "abft_matmul_acc", "checksum_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,10 +16,14 @@ n]`` and ``crow [ceil(n/bn), m, f]``: the reference's zero-padded layout
 ``[pm/bm, f, pn]`` / ``[pn/bn, pm, f]`` with the padding (always zero)
 sliced off, so the two agree wherever the tiling divides the shape.
 
-Counterpart of the reference package's ``repro/kernels/ops.py``.
-``checksum_encode`` and the measured autotuner come with later slices.
-There is no custom VJP yet: the port serves, and training through the
-kernel comes with the protected-LM slice.
+``abft_matmul`` is differentiable: ``_FusedMM`` is the reference's custom
+VJP as a ``torch.autograd.Function`` (the kernel forward, the checksum
+cotangents folded into dC in the backward).  ``checksum_encode`` is the
+diskless-checkpoint encode: kernel #3 on a CUDA tensor, its plain version
+on a CPU one, at any [p, m, n].
+
+Counterpart of the reference package's ``repro/kernels/ops.py``.  The
+measured autotuner comes with a later slice.
 """
 from __future__ import annotations
 
@@ -33,12 +37,14 @@ import torch.nn.functional as F
 from repro_torch import obs
 from repro_torch.chaos.faults import register_surface
 from repro_torch.kernels import abft_matmul as kmm
+from repro_torch.kernels import checksum_encode as kenc
 from repro_torch.kernels import ref
 
 __all__ = [
     "BlockPlan", "abft_matmul", "abft_matmul_acc", "acc_state_zeros",
-    "correct_from_state", "detection_eps", "kernel_weights", "pick_blocks",
-    "rank_blocks", "reduce_state", "smem_bytes", "tile_checksums",
+    "checksum_encode", "correct_from_state", "detection_eps",
+    "kernel_weights", "pick_blocks", "rank_blocks", "reduce_state",
+    "smem_bytes", "tile_checksums",
 ]
 
 KERNEL_F = 2  # checksums per direction: plain sum + one weighted row
@@ -228,6 +234,34 @@ def _run_oneshot(plan: BlockPlan, out_dtype, a, b, wm, wn):
     return c[: plan.m, : plan.n], cs_col, cs_row
 
 
+class _FusedMM(torch.autograd.Function):
+    """The one-shot path with the reference's custom VJP
+    (``repro/kernels/ops.py::_fused_mm_bwd``): the forward is the kernel
+    (its plain version on a CPU tensor); the backward folds the checksum
+    cotangents into dC (``cs_col = W_m @ C`` gives ``dC += W_m^T g_col``,
+    ``cs_row = C @ W_n`` gives ``dC += g_row W_n^T``) and takes the two
+    operand gradients as plain fp32 products, as the reference leaves them
+    to XLA.  The encoding weights are constants of the scheme: they get
+    zero gradients."""
+
+    @staticmethod
+    def forward(ctx, plan, out_dtype, a, b, wm, wn):
+        ctx.save_for_backward(a, b, wm, wn)
+        return _run_oneshot(plan, out_dtype, a, b, wm, wn)
+
+    @staticmethod
+    def backward(ctx, gc, gcol, grow):
+        a, b, wm, wn = ctx.saved_tensors
+        gc32 = (gc.float() + torch.matmul(wm.float().T, gcol.float())
+                + torch.matmul(grow.float(), wn.float().T))
+        need = ctx.needs_input_grad
+        ga = torch.matmul(gc32, b.float().T).to(a.dtype) if need[2] else None
+        gb = torch.matmul(a.float().T, gc32).to(b.dtype) if need[3] else None
+        gwm = torch.zeros_like(wm) if need[4] else None
+        gwn = torch.zeros_like(wn) if need[5] else None
+        return None, None, ga, gb, gwm, gwn
+
+
 @functools.lru_cache(maxsize=4096)
 def _publish_dispatch(op: str, m: int, k: int, n: int, dtype: str,
                       backend: str):
@@ -251,9 +285,10 @@ def abft_matmul(a: torch.Tensor, b: torch.Tensor, *, f: int = KERNEL_F,
     epilogue reductions of C (e.g. ``core.abft_gemm`` passes
     ``wn = [w_r; -I]`` so cs_row IS the verification residual, with zero
     extra reads of C).  A CUDA tensor launches the kernel or raises; a CPU
-    tensor runs the kernel's plain version.  The kernel masks ragged
-    edges, so every shape takes it (``ref.abft_matmul_ref`` is the test
-    oracle, not a fallback).
+    tensor runs the kernel's plain version.  Differentiable in ``a`` and
+    ``b`` through ``_FusedMM``.  The kernel masks ragged edges, so every
+    shape takes it (``ref.abft_matmul_ref`` is the test oracle, not a
+    fallback).
     """
     m, k = a.shape
     n = b.shape[1]
@@ -273,7 +308,7 @@ def abft_matmul(a: torch.Tensor, b: torch.Tensor, *, f: int = KERNEL_F,
     _publish_dispatch("abft_matmul", m, k, n,
                       str(a.dtype).replace("torch.", ""),
                       "cuda" if a.is_cuda else "plain")
-    return _run_oneshot(plan, out_dtype, a, b, wm, wn)
+    return _FusedMM.apply(plan, out_dtype, a, b, wm, wn)
 
 
 # ---------------------------------------------------------------------------
@@ -576,3 +611,25 @@ def abft_matmul_acc(a: torch.Tensor, b: torch.Tensor, c_in: torch.Tensor,
             dst.copy_(src)
         c, ccol, crow = out
     return c, (ccol, crow), stats
+
+
+# ---------------------------------------------------------------------------
+# Diskless-checkpoint encode
+# ---------------------------------------------------------------------------
+
+
+def checksum_encode(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Diskless-checkpoint encode: [p, m, n] x [f, p] -> [f, m, n] in
+    x.dtype (fp32 sums over p, rounded once).
+
+    A CUDA tensor launches kernel #3 or raises (fp32 and bf16 only); a CPU
+    tensor runs its plain version.  The reference takes its Pallas kernel
+    only when m and n are multiples of 128 and runs an einsum otherwise;
+    the CUDA kernel masks nothing and pads nothing (a flat walk over the
+    m * n columns), so every shape takes it."""
+    p, m, n = x.shape
+    a = a.to(device=x.device, dtype=torch.float32).contiguous()
+    _publish_dispatch("checksum_encode", m, p, n,
+                      str(x.dtype).replace("torch.", ""),
+                      "cuda" if x.is_cuda else "plain")
+    return kenc.checksum_encode_cuda(x.contiguous(), a)

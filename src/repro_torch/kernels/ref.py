@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.core.checksum import checkpoint_matrix
 
-__all__ = ["default_weights", "abft_matmul_ref"]
+__all__ = ["default_weights", "abft_matmul_ref", "checksum_encode_ref",
+           "checksum_verify_ref"]
 
 # Seed for the kernel-level checkpoint matrices.  Fixed so that carried
 # checksum states are reproducible across calls, processes and the two
@@ -49,3 +50,15 @@ def abft_matmul_ref(a: torch.Tensor, b: torch.Tensor, wm=None, wn=None, *,
     cs_col = torch.matmul(wm.float(), rounded)
     cs_row = torch.matmul(rounded, wn.float())
     return c, cs_col, cs_row
+
+
+def checksum_encode_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Weighted checksums of stacked shards: [p, m, n] x [f, p] -> [f, m, n]
+    (fp32 sums, rounded once to x.dtype)."""
+    return torch.einsum("fp,pmn->fmn", a.float(), x.float()).to(x.dtype)
+
+
+def checksum_verify_ref(c: torch.Tensor, colsum: torch.Tensor) -> torch.Tensor:
+    """Max abs residual between colsum(C) and a carried checksum row."""
+    rec = torch.sum(c.float(), dim=0)
+    return torch.max(torch.abs(rec - colsum.float()))

@@ -11,12 +11,18 @@ The KV cache keeps the reference layout — per layout group and pattern slot
 
 ABFT protection threads through every projection via `abft`
 (core.abft_gemm.ABFTConfig); `None`/mode "off" is the baseline path.
+``loss_fn`` is the training loss; with ``remat`` each block is an
+activation checkpoint (``torch.utils.checkpoint``, non-reentrant), the
+counterpart of the reference's ``jax.checkpoint`` of its layer scan body
+with nothing saved: the block's forward, its protected projections
+included, runs again in the backward.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -159,11 +165,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 
 def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
-                invariants: bool = False):
+                invariants: bool = False, remat: bool = False):
     """Loop over every layout group; returns (x, new_cache, aux, inv_ok).
 
     K/V are written in place into the stacked cache; the per-layer cache
     indices are gathered into a fresh ``index`` leaf per pattern slot.
+    ``remat`` (training, no cache) checkpoints each block.
     """
     new_groups = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -177,9 +184,21 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
                 c_in = None
                 if gcache is not None:
                     c_in = {name: leaf[r] for name, leaf in gcache[key].items()}
-                x, c_out, aux, ok_b = _block_apply(
-                    layer[key], x, cfg, mixer, ffn, positions=positions,
-                    cache=c_in, abft=abft, invariants=invariants)
+                if remat and c_in is None:
+                    def body(h, lp, mixer=mixer, ffn=ffn):
+                        out = _block_apply(lp, h, cfg, mixer, ffn,
+                                           positions=positions, abft=abft,
+                                           invariants=invariants)
+                        return out[0], out[2], out[3]
+                    # the blocks draw no random numbers: no RNG state to keep
+                    x, aux, ok_b = torch.utils.checkpoint.checkpoint(
+                        body, x, layer[key], use_reentrant=False,
+                        preserve_rng_state=False)
+                    c_out = None
+                else:
+                    x, c_out, aux, ok_b = _block_apply(
+                        layer[key], x, cfg, mixer, ffn, positions=positions,
+                        cache=c_in, abft=abft, invariants=invariants)
                 aux_total = aux_total + aux
                 ok_total = ok_total & ok_b
                 if c_out is not None:
@@ -193,13 +212,15 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
 
 
 def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
-            abft=None, return_hidden: bool = False, invariants: bool = False):
+            abft=None, return_hidden: bool = False, invariants: bool = False,
+            remat: bool = False):
     """Train/prefill forward. tokens: [B,S] -> logits [B,S,V] fp32.
 
     return_hidden: skip the unembedding and return the post-final-norm
     hidden state [B,S,D] instead of logits.
     invariants: run the embedding-gather and rmsnorm construction checks
     and return a 4-tuple (..., inv_ok).
+    remat: checkpoint each block (training without a cache).
     The tied unembedding reads ``params["embed"]["table_f32"]`` when
     present (an fp32 copy the serving engine caches once) instead of
     casting the table on every call; the numbers are the same.
@@ -216,7 +237,8 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     x, new_cache, aux, ok_run = _run_groups(params, x, cfg,
                                             positions=positions, cache=cache,
-                                            abft=abft, invariants=invariants)
+                                            abft=abft, invariants=invariants,
+                                            remat=remat)
     if invariants:
         x, ok_fn = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                                  check=True)
@@ -252,3 +274,17 @@ def decode_step(params, token, pos, cache, cfg: ModelConfig, *, abft=None,
     if return_hidden:
         return out, new_cache
     return out[:, -1], new_cache
+
+
+def loss_fn(params, tokens, labels, cfg: ModelConfig, *, abft=None,
+            remat: bool = False, aux_weight: float = 0.01,
+            invariants: bool = False):
+    """Scalar LM loss (mean next-token NLL + ``aux_weight`` x aux); with
+    ``invariants=True`` returns ``(loss, inv_ok)``."""
+    out = forward(params, tokens, cfg, abft=abft, remat=remat,
+                  invariants=invariants)
+    logits, aux = out[0], out[2]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    loss = torch.mean(nll) + aux_weight * aux
+    return (loss, out[3]) if invariants else loss

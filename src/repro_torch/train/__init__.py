@@ -1,1 +1,2 @@
-"""Training options (the step builders come with the protected-LM slice)."""
+"""Training: the optimizer (`train.optimizer`) and the train step
+(`train.step.build_train_step`)."""

@@ -135,9 +135,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "k.startswith(('jax.', 'repro.')))\n"
         "assert not bad, bad\n"
         "need = {'repro_torch.core.' + m for m in ('encoding', 'detect', "
-        "'recovery', 'summa')} | {'repro_torch.launch.stress'}\n"
+        "'recovery', 'summa')} | {'repro_torch.launch.stress', "
+        "'repro_torch.launch.train', 'repro_torch.kernels.checksum_encode', "
+        "'repro_torch.ckpt.diskless', 'repro_torch.ckpt.disk', "
+        "'repro_torch.ft.runtime', 'repro_torch.data.pipeline', "
+        "'repro_torch.train.optimizer', 'repro_torch.tree'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True)
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 35
