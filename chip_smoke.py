@@ -5,7 +5,10 @@ at the shapes its path gives it, drill ABFT detection and correction on the
 card, serve Qwen2-0.5B at its published width through the port's serving
 entry point, run the paper's fault-tolerant SUMMA at the paper's size, and
 train Qwen2-0.5B at its published width through the port's fault-tolerant
-training entry point, with diskless recoveries.
+training entry point, with diskless recoveries, hold the checked
+flash-attention kernel against its plain version at the Qwen2-0.5B and
+Gemma2-2B attention shapes, and run the chaos campaign's kernel and layer
+drills through its CLI.
 
     python3 chip_smoke.py
 
@@ -13,8 +16,8 @@ Phases (one line or more each; any failed check raises, and the script
 exits non-zero without printing a result):
   1. device   — a CUDA card, and its name and power limit from nvidia-smi;
   2. build    — nvcc builds kernels/csrc/abft_matmul.cu,
-                abft_matmul_acc.cu and checksum_encode.cu (sm_90a), one
-                process each, at once;
+                abft_matmul_acc.cu, checksum_encode.cu and
+                flash_attention.cu (sm_90a), one process each, at once;
   3. kernel   — the kernel against its plain version at the serving shapes
                 (m = 4 decode, m = 1024 prefill bucket; fp32 and bf16, one
                 int8 shape), with kernel, plain and torch.matmul times;
@@ -28,10 +31,12 @@ exits non-zero without printing a result):
                 plain path within a tolerance measured from fp32
                 activations, and every first token equal to its argmax;
   6. acc      — the accumulate kernel against its plain version at the
-                SUMMA step shape (3072^3: fp32, bf16 and int8 operands) and
-                a ragged shape, with kernel, plain, torch.addmm and bound
-                times; a clean two-call chain re-verifies with residual
-                exactly 0; flip drills: five single flips located and
+                SUMMA step shape (3072^3: fp32, bf16 and int8 operands), a
+                ragged shape and the chaos campaign's 256^3 drills on the
+                32 x 32 tiles its runner plans (fp32, bf16, int8), with
+                kernel, plain, torch.addmm and bound times; a clean
+                two-call chain re-verifies with residual exactly 0; flip
+                drills: five single flips located and
                 repaired, two flips in two tiles, an int8 data flip repaired
                 bit-exactly, a carried-ccol flip detected and not repaired;
   7. summa    — repro_torch.core.abft_summa on an 8 x 8 grid of 3072 blocks
@@ -55,11 +60,35 @@ exits non-zero without printing a result):
                 plain-version call; 2 diskless recoveries, each replayed step
                 close to its first pass, the loss falling; verify, a flip,
                 reshard and the bf16 recovery error on the held checkpoint;
-                a resume from the disk checkpoint, bit-identical.
+                a resume from the disk checkpoint, bit-identical;
+ 10. flash    — the checked flash-attention kernel against its plain
+                version at Qwen2-0.5B's attention (4 x 14 heads, S 4096,
+                D 64, causal; fp32 and bf16, plain and checked), Gemma2-2B's
+                local attention (2 x 8 heads, S 8192, D 256, window 4096,
+                softcap 50, bf16, checked), a rectangular non-causal
+                256 x 1024 case and the chaos campaign's drill shape (2
+                heads, S 512, D 64, causal, fp32, bq = bk = 128, plain and
+                checked), with kernel, plain, SDPA (where one call
+                computes the same function) and bound times; a clean checked
+                run flags nothing, injects into acc and l before, on and
+                past the diagonal and a NaN are flagged at their tile and
+                repaired;
+ 11. chaos    — kernels #4 and #2 against their plain versions on each of
+                the campaign's eight kernel drills (its inputs, tiles and
+                faults, clean and faulted calls); then
+                repro_torch.launch.chaos over the default space's train
+                workload (the slice's main path), counts zeroed just
+                before it: the ten kernel and layer drills with the
+                reference's outcomes and rungs, kernel #4 launched 4 and
+                kernel #2 21 times, no plain call, every other row skipped
+                with the slice it waits for, nothing missed, no false
+                alarm (the artifact and matrix in chiprun_out/chaos.*).
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import pathlib
@@ -397,6 +426,10 @@ ACC_CASES = [                   # (m, k, n, operand dtype, pinned tile)
     (3072, 3072, 3072, "bfloat16", None),
     (3072, 3072, 3072, "int8", None),
     (200, 136, 328, "float32", (64, 64)),    # ragged edges in every direction
+    # the chaos campaign's drills, on the tiles its runner plans (32 x 32)
+    (256, 256, 256, "float32", "campaign"),
+    (256, 256, 256, "bfloat16", "campaign"),
+    (256, 256, 256, "int8", "campaign"),
 ]
 
 
@@ -436,6 +469,7 @@ def _acc_inputs(torch, g, m, k, n, dt):
 
 
 def phase_acc(torch, record):
+    from repro_torch.chaos.campaign import CampaignRunner
     from repro_torch.kernels import abft_matmul as kmm
     from repro_torch.kernels import ops
 
@@ -447,6 +481,9 @@ def phase_acc(torch, record):
         if tile is None:
             plan = ops.pick_blocks(m, k, n, in_dtype=dt, out_bytes=4,
                                    carry=True, require_exact=True)
+            tile = (plan.bm, plan.bn)
+        elif tile == "campaign":
+            plan = CampaignRunner._acc_plan(m, k, n)
             tile = (plan.bm, plan.bn)
         bm, bn = tile
         wm = ops.kernel_weights(m, device="cuda")
@@ -1048,6 +1085,353 @@ def phase_train(torch, record, card):
     return l3, tot
 
 
+# (what, BH, Sq, Sk, D, dtype, causal, window, softcap, checksum, bq = bk);
+# BH is batch x query heads
+FLASH_CASES = [
+    ("qwen2-0.5b", 56, 4096, 4096, 64, "float32", True, None, None, False,
+     256),
+    ("qwen2-0.5b", 56, 4096, 4096, 64, "float32", True, None, None, True,
+     256),
+    ("qwen2-0.5b", 56, 4096, 4096, 64, "bfloat16", True, None, None, False,
+     256),
+    ("qwen2-0.5b", 56, 4096, 4096, 64, "bfloat16", True, None, None, True,
+     256),
+    ("gemma2-2b local", 16, 8192, 8192, 256, "bfloat16", True, 4096, 50.0,
+     True, 256),
+    ("rectangular", 56, 256, 1024, 64, "float32", False, None, None, True,
+     256),
+    # the chaos campaign's flash drill
+    ("campaign drill", 2, 512, 512, 64, "float32", True, None, None, False,
+     128),
+    ("campaign drill", 2, 512, 512, 64, "float32", True, None, None, True,
+     128),
+]
+FLASH_BLOCK = 256
+BF16_ULP = 2.0 ** -7          # one bf16 ulp, relative
+
+
+def flash_pairs(sq, sk, causal, window):
+    """(q, k) pairs the mask admits in one [sq, sk] head."""
+    n = 0
+    for r in range(sq):
+        lo, hi = 0, sk
+        if causal:
+            hi = min(hi, r + 1)
+        if window is not None:
+            lo = max(lo, r - window + 1)
+            hi = min(hi, r + window)
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_bound(bh, sq, sk, d, dtype, causal, window, checksum):
+    """Least time of one forward: Q, K, V read once and O written once
+    over HBM; 4 D operations per admitted (q, k) pair (q.k and p.v; 3 more
+    for the checksum's cs and l2) over the peak rate of the operand type."""
+    item = 4 if dtype == "float32" else 2
+    nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * item
+    ops = bh * flash_pairs(sq, sk, causal, window) * (4 * d + 3 * checksum)
+    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_close(torch, x, ref, dtype):
+    """fp32 within RTOL (relative, plus RTOL of the largest |ref|); bf16
+    within one bf16 ulp of ref on top of that."""
+    x, ref = x.double(), ref.double()
+    rel = RTOL if dtype == "float32" else BF16_ULP
+    scale = float(ref.abs().max())
+    return bool(((x - ref).abs() <= rel * ref.abs() + RTOL * scale).all())
+
+
+def phase_flash(torch, record):
+    """Kernel #4 against its plain version at full width, timed, and its
+    checked variant's drills at the Qwen2-0.5B shape."""
+    import torch.nn.functional as tnf
+    from repro_torch.kernels import flash_attention as kfa
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for what, bh, sq, sk, d, name, causal, window, softcap, checksum, blk \
+            in FLASH_CASES:
+        dt = getattr(torch, name)
+        q, k, v = (torch.randn((bh, n, d), generator=g, device="cuda")
+                   .to(dt) for n in (sq, sk, sk))
+        kw = dict(scale=d ** -0.5, causal=causal, window=window,
+                  softcap=softcap, bq=blk, bk=blk, checksum=checksum)
+        got = kfa.flash_attention_cuda(q, k, v, **kw)
+        want = kfa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        o, po = (got, want) if not checksum else (got[0], want[0])
+        err = float((o.double() - po.double()).abs().max())
+        if not (torch.isfinite(o).all() and flash_close(torch, o, po, name)):
+            raise AssertionError(f"flash differs at {what} {name} "
+                                 f"checksum={checksum}: {err}")
+        resid = None
+        if checksum:
+            resid = float(got[1].max())
+            if not resid <= kfa.FLASH_CHECK_TOL \
+                    or not float(want[1].max()) <= kfa.FLASH_CHECK_TOL:
+                raise AssertionError(f"clean checked run flagged at {what}: "
+                                     f"{resid} / {float(want[1].max())}")
+        reps = 5
+        ms = time_ms(torch, lambda: kfa.flash_attention_cuda(q, k, v, **kw),
+                     reps, flush)
+        plain_ms = time_ms(
+            torch, lambda: kfa.flash_attention_plain(q, k, v, **kw), 2,
+            flush)
+        lib_ms = None
+        if causal and window is None and not softcap and sq == sk \
+                and name == "float32":
+            lib_ms = time_ms(torch, lambda: tnf.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=d ** -0.5), reps, flush)
+        b_ms, b_by = flash_bound(bh, sq, sk, d, name, causal, window,
+                                 checksum)
+        row = dict(what=what, bh=bh, sq=sq, sk=sk, d=d, dtype=name,
+                   causal=causal, window=window, softcap=softcap,
+                   checksum=checksum, block=blk, max_abs_err=err, clean_residual=resid,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        log("flash", json.dumps(row))
+        del q, k, v, got, want, o, po
+        torch.cuda.empty_cache()
+    record["flash_cases"] = rows
+    record["flash_drills"] = _flash_drills(torch, g, kfa)
+    return rows
+
+
+def _flash_drills(torch, g, kfa):
+    """Injects into acc and l of q-tile 8 at a KV chunk before, on and past
+    the diagonal, and a NaN into acc, at the Qwen2-0.5B shape: each flagged
+    at exactly (0, 8) and repaired to within 1e-5 of the clean output."""
+    q, k, v = (torch.randn((56, 4096, 64), generator=g, device="cuda")
+               for _ in range(3))
+    kw = dict(scale=0.125, causal=True, bq=FLASH_BLOCK, bk=FLASH_BLOCK)
+    clean = kfa.flash_attention_cuda(q, k, v, **kw)
+    o, rep = kfa.flash_attention_checked(q, k, v, **kw)
+    if not rep.ok or not torch.equal(o, clean):
+        raise AssertionError(f"clean checked run: {rep}")
+    drills = []
+    for target, kk, delta in (("acc", 3, 1e4), ("acc", 8, 1e4),
+                              ("acc", 12, 1e4), ("l", 3, 1e4),
+                              ("l", 8, 1e4), ("l", 12, 1e4),
+                              ("acc", 5, float("nan"))):
+        o, rep = kfa.flash_attention_checked(q, k, v,
+                                             inject=(8, kk, delta, target),
+                                             **kw)
+        err = float((o - clean).abs().max())
+        if rep.detected != ((0, 8),) or rep.repaired != 1 or not err <= 1e-5:
+            raise AssertionError(f"inject {target} kk={kk} {delta}: {rep}, "
+                                 f"max |o - clean| {err}")
+        drills.append(dict(target=target, kk=kk, delta=str(delta),
+                           r_pv=rep.max_pv_residual,
+                           r_l=rep.max_rowsum_residual, repair_err=err))
+    log("flash", f"clean checked run flags nothing; {len(drills)} injects "
+                 "(acc and l at kk 3, 8, 12 of q-tile 8, a NaN into acc) "
+                 "each flagged at exactly (0, 8) and repaired to max |o - "
+                 f"clean| <= {max(d['repair_err'] for d in drills):.3g}")
+    return drills
+
+
+# the campaign's kernel and layer rows: name -> (outcome, rung, end_state;
+# None = within the promise)
+CHAOS_ROWS = {
+    "train:checksum_state_flip:s1": ("detected", None, "bit_identical"),
+    "train:checksum_state_flip:s1:bf16:seed1":
+        ("detected", None, "bit_identical"),
+    "train:checksum_state_flip:s2:b29:int8:seed2":
+        ("detected", None, "bit_identical"),
+    "train:sdc_collective:s1:b20:int8":
+        ("corrected", "kernel:masked_recompute", "bit_identical"),
+    "train:sdc_collective:s2:bf16:seed2":
+        ("corrected", "kernel:masked_recompute", None),
+    "train:sdc_collective:s2:b28:seed3":
+        ("corrected", "kernel:masked_recompute", None),
+    "train:flash_state_flip:s1": ("corrected", "flash:recompute_tile", None),
+    "train:flash_state_flip:s2:l:seed1":
+        ("corrected", "flash:recompute_tile", None),
+    "train:norm_corruption:s2": ("corrected", "recompute", "bit_identical"),
+    "train:gather_corruption:s2": ("corrected", "recompute", "bit_identical"),
+}
+
+
+def _campaign_pairs(torch):
+    """Kernels #4 and #2 against their plain versions on the campaign's own
+    drills: each flash, carried-state and carried-data spec of the default
+    space replayed with its inputs, plan, blocks and fault, every call made
+    on the kernel and on the plain version.  Flash: outputs within RTOL,
+    the same tiles flagged.  Accumulate: detection and location equal,
+    clean calls' data and state within RTOL, the faulted call's data within
+    the flip drills' tolerance (integers exactly)."""
+    import numpy as np
+    from repro_torch.chaos.campaign import CampaignRunner
+    from repro_torch.chaos.faults import FaultSpace, flip_bit
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+
+    def flags(stats):
+        return ~(stats <= kfa.FLASH_CHECK_TOL)          # NaN flags
+
+    def flash_pair(spec, rng):
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, 512, 64))
+                                    .astype(np.float32)).cuda()
+                   for _ in range(3))
+        kw = dict(scale=64 ** -0.5, causal=True, bq=128, bk=128,
+                  checksum=True)
+        target = "l" if spec.variant == "l" else "acc"
+        err = 0.0
+        for inject in (None, (1, spec.step, spec.delta, target)):
+            o, st = kfa.flash_attention_cuda(q, k, v, inject=inject, **kw)
+            po, pst = kfa.flash_attention_plain(q, k, v, inject=inject, **kw)
+            torch.cuda.synchronize()
+            if not flash_close(torch, o, po, "float32") \
+                    or not torch.equal(flags(st), flags(pst)) \
+                    or bool(flags(st).any()) != (inject is not None):
+                raise AssertionError(f"{spec.name} inject {inject}: kernel "
+                                     f"and plain disagree")
+            err = max(err, float((o.double() - po.double()).abs().max()))
+        return err
+
+    def acc_pair(spec, rng, runner):
+        m = k = n = 256
+        plan = CampaignRunner._acc_plan(m, k, n)
+        a1, a2, b1, b2, c0, out_dt, _ = runner._kernel_drill_operands(
+            spec, rng, m, k, n)
+        wm = ops.kernel_weights(m, device="cuda")
+        wn = ops.kernel_weights(n, device="cuda").T.contiguous()
+        kw = dict(bm=plan.bm, bn=plan.bn, bk=plan.bk, out_dtype=out_dt,
+                  eps_c=ops.detection_eps(c0.dtype))
+        errs = []
+
+        def pair(a, b, c, ccol, crow, fault):
+            got = kmm.abft_matmul_acc_cuda(a, b, c, ccol, crow, wm, wn, **kw)
+            want = kmm.abft_matmul_acc_plain(a, b, c, ccol, crow, wm, wn,
+                                             **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got[3][..., :4], want[3][..., :4]) \
+                    or bool(got[3][..., 0].any()) != fault:
+                raise AssertionError(f"{spec.name}: detection or location "
+                                     "differs from the plain version")
+            cg, cp = got[0].double(), want[0].double()
+            scale = float(cp.abs().max())
+            if out_dt == torch.int32:
+                ok = torch.equal(got[0], want[0])
+            elif fault:
+                ok = bool(((cg - cp).abs()
+                           <= 1e-5 * cp.abs() + 1e-4 * scale).all())
+            else:
+                ok = within(cg, cp, scale)
+            terms = float((wm.abs().double() @ cp.abs()).max())
+            if not fault:
+                ok = ok and all(within(x.double(), y.double(), terms)
+                                for x, y in zip(got[1:3], want[1:3]))
+            if not ok:
+                raise AssertionError(f"{spec.name}: kernel and plain differ "
+                                     f"(fault={fault})")
+            errs.append(float((cg - cp).abs().max()))
+            return got
+
+        c1, ccol1, crow1, _ = pair(a1, b1, c0,
+                                   *acc_zero_state(torch, m, n, plan.bm,
+                                                   plan.bn), False)
+        pair(a2, b2, c1, ccol1, crow1, False)
+        if spec.kind == "checksum_state_flip":
+            flat = int(np.ravel_multi_index((0, 0, int(rng.randint(n))),
+                                            tuple(ccol1.shape)))
+            pair(a2, b2, c1, flip_bit(ccol1, flat, bit=spec.bit), crow1,
+                 True)
+        else:
+            flat = int(rng.randint(m)) * n + int(rng.randint(n))
+            pair(a2, b2, flip_bit(c1, flat, bit=spec.bit), ccol1, crow1,
+                 True)
+        return max(errs), (plan.bm, plan.bn)
+
+    runner = CampaignRunner(FaultSpace("pairs", ()), device="cuda")
+    out = {}
+    for spec in FaultSpace.default():
+        if spec.workload != "train":
+            continue
+        rng = np.random.RandomState(spec.seed)
+        if spec.kind == "flash_state_flip":
+            out[spec.name] = dict(max_abs_err=flash_pair(spec, rng))
+        elif spec.surface == "kernels.ops/acc_state":
+            err, tile = acc_pair(spec, rng, runner)
+            out[spec.name] = dict(max_abs_err=err, tile=list(tile))
+    if len(out) != 8:
+        raise AssertionError(f"campaign drills replayed: {sorted(out)}")
+    log("chaos", f"kernels #4 and #2 held to their plain versions on the "
+                 f"campaign's {len(out)} kernel drills (inputs, tiles and "
+                 f"faults of each spec): max |kernel - plain| "
+                 f"{max(r['max_abs_err'] for r in out.values()):.3g}")
+    return out
+
+
+def phase_chaos(torch, record):
+    """The slice's main path: the chaos campaign's CLI over the default
+    space's train workload on the card, counts zeroed just before it."""
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import chaos
+
+    record["chaos_pairs"] = _campaign_pairs(torch)
+    out = ROOT / "chiprun_out" / "chaos.json"
+    out.parent.mkdir(exist_ok=True)
+    kmm.reset_counts()
+    kfa.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):    # the matrix: to file
+        rc = chaos.main(["--space", "default", "--workload", "train",
+                         "--json", str(out), "--markdown",
+                         str(out.with_suffix(".md")), "--quiet"])
+    wall = time.perf_counter() - t0
+    counts = dict(flash=kfa.launches, flash_plain=kfa.plain_calls,
+                  acc=kmm.acc_launches, acc_plain=kmm.acc_plain_calls)
+    log("chaos", f"repro_torch.launch.chaos (default space, train) -> {rc} "
+                 f"in {wall:.2f} s; launches: kernel #4 {counts['flash']}, "
+                 f"kernel #2 {counts['acc']}; plain calls "
+                 f"{counts['flash_plain']} / {counts['acc_plain']}")
+    if rc != 0:
+        raise AssertionError(f"chaos CLI returned {rc}")
+    # kernel #4: a clean and a checked run per flash spec (2); kernel #2:
+    # three chained calls per state-flip spec and four (a warm repair) per
+    # data-flip spec (3 + 3)
+    if counts != dict(flash=4, flash_plain=0, acc=21, acc_plain=0):
+        raise AssertionError(f"the campaign did not run on kernels #4 and "
+                             f"#2 alone: {counts}")
+    d = json.loads(out.read_text())
+    if not d["meta"]["device_name"] == torch.cuda.get_device_name(0):
+        raise AssertionError(f"campaign meta {d['meta']}")
+    rows = {e["name"]: e for e in d["events"]}
+    for name, (outcome, rung, end) in CHAOS_ROWS.items():
+        e = rows[name]
+        ok_end = (e["end_state"] == end if end is not None
+                  else e["end_state"] in ("bit_identical", "within_tol"))
+        if e["outcome"] != outcome or e["rung"] != rung or not ok_end:
+            raise AssertionError(f"{name}: {e['outcome']} {e['rung']} "
+                                 f"{e['end_state']} ({e['note']})")
+        log("chaos", f"{name}: {e['outcome']}, rung {e['rung']}, "
+                     f"{e['end_state']} (max diff {e['max_abs_diff']})")
+    others = [e for e in d["events"] if e["name"] not in CHAOS_ROWS]
+    bad = [e["name"] for e in others
+           if e["outcome"] != "skipped" or "slice" not in e["note"]]
+    if bad or not any(e["kind"] == "clean_sweep" for e in others):
+        raise AssertionError(f"rows not skipped with a reason: {bad}")
+    summ = d["summary"]
+    if summ["missed_anywhere"] or summ["false_alarms"]:
+        raise AssertionError(f"missed {summ['missed_anywhere']}, false "
+                             f"alarms {summ['false_alarms']}")
+    log("chaos", f"{len(others)} other train rows (specs, episodes, the "
+                 "clean sweep) skipped with the slice they wait for; missed "
+                 "[], false alarms []")
+    record["chaos"] = dict(rc=rc, wall_s=wall, counts=counts,
+                           by_outcome=summ["by_outcome"])
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1074,6 +1458,8 @@ def main():
     acc_launches = phase_summa(torch, record, f"{name} ({smi})")
     enc_rows = phase_encode(torch, record)
     enc_launches, enc_tot = phase_train(torch, record, f"{name} ({smi})")
+    flash_rows = phase_flash(torch, record)
+    chaos_counts = phase_chaos(torch, record)
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -1123,6 +1509,22 @@ def main():
         "bound_ms": enc_tot["bound_ms"],
         "bound_by": enc_tot["bound_by"],
         "library_ms": enc_tot["library_ms"],
+    }, {
+        # the Qwen2-0.5B attention at full width (4 x 14 heads, S 4096,
+        # D 64, causal, fp32), the shape SDPA computes the same function
+        # at; the campaign's main path launches it at [2, 512, 64]
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:181",
+        "launches": chaos_counts["flash"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                           if r["dtype"] == "float32"),
+        "ms": flash_rows[0]["ms"],
+        "plain_ms": flash_rows[0]["plain_ms"],
+        "bound_ms": flash_rows[0]["bound_ms"],
+        "bound_by": flash_rows[0]["bound_by"],
+        "library_ms": flash_rows[0]["library_ms"],
     }]}
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

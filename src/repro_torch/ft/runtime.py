@@ -34,7 +34,7 @@ from repro_torch.tree import tree_map
 
 __all__ = ["FTPolicy", "FTRuntime", "stack_view", "unstack_view"]
 
-_ELASTIC = "the elastic slice (slice 6 of ROADMAP.md)"
+_ELASTIC = "ElasticRuntime (distribution + elastic FT, see ROADMAP.md)"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,8 @@ __all__ = ["build_dir", "nvcc_path", "compile_source", "compile_all", "load",
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # every kernel source of the port, by name (csrc/<name>.cu)
-SOURCES = ("abft_matmul", "abft_matmul_acc", "checksum_encode")
+SOURCES = ("abft_matmul", "abft_matmul_acc", "checksum_encode",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

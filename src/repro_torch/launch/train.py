@@ -179,7 +179,7 @@ def main(argv=None):
     if given:
         raise NotImplementedError(
             f"{', '.join(given)}: the pod-loss drill (ElasticRuntime) comes "
-            "with slice 6 (distribution + elastic FT) of ROADMAP.md")
+            "with the distribution + elastic-FT slice of ROADMAP.md")
     run(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
         seq=args.seq, microbatches=args.microbatches, abft_mode=args.abft,
         inject_failures=args.inject_failures, ckpt_dir=args.ckpt_dir,

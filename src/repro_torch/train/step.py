@@ -33,7 +33,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["StepOptions", "build_train_step", "init_state"]
 
-_DIST = "slice 6 (distribution + elastic FT) of ROADMAP.md"
+_DIST = "the distribution + elastic-FT slice of ROADMAP.md"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +80,7 @@ def _check_ported(opts: StepOptions) -> None:
         "abft_reduce": (opts.abft_reduce != "off", _DIST),
         "sdc_inject": (opts.sdc_inject is not None, _DIST),
         "invariant_checks": (opts.invariant_checks,
-                             "slice 4 (the protected LM) of ROADMAP.md"),
+                             "the protected-LM slice of ROADMAP.md"),
     }
     for name, (on, where) in later.items():
         if on:

@@ -519,7 +519,8 @@ def test_what_is_not_ported_raises():
                              opts=StepOptions(**{field: value}))
     for flag in (["--kill-pod-at-step", "4"], ["--regrow-at-step", "7"],
                  ["--drill-mesh", "2x2x2"]):
-        with pytest.raises(NotImplementedError, match="slice 6"):
+        with pytest.raises(NotImplementedError,
+                           match="distribution \\+ elastic-FT slice"):
             ttrain.main(flag)
 
 
