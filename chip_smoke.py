@@ -19,8 +19,14 @@ exits non-zero without printing a result):
                 abft_matmul_acc.cu, checksum_encode.cu and
                 flash_attention.cu (sm_90a), one process each, at once;
   3. kernel   — the kernel against its plain version at the serving shapes
-                (m = 4 decode, m = 1024 prefill bucket; fp32 and bf16, one
-                int8 shape), with kernel, plain and torch.matmul times;
+                (m = 4 decode on the split-k route, m = 1024 prefill bucket
+                on tensor-core tiles; fp32 and bf16, one int8 shape), the
+                training shapes (m = 2048, fp32) and ragged shapes (m = 5,
+                k = 900, n = 130; m = 1000, n = 898; every operand type),
+                each row with its route, tile, split count and copy widths;
+                two calls bit-identical; kernel, plain and torch.matmul
+                times of eager calls and the bound at the tensor-core rate
+                (3xTF32 for fp32) and at the CUDA-core rate;
   4. drill    — a corrupted checksum column is detected by the fused verify
                 on the kernel; a 1e4 flip in a kernel-computed output is
                 flagged, located and corrected;
@@ -70,9 +76,10 @@ exits non-zero without printing a result):
                 heads, S 512, D 64, causal, fp32, bq = bk = 128, plain and
                 checked), with kernel, plain, SDPA (where one call
                 computes the same function) and bound times; a clean checked
-                run flags nothing, injects into acc and l before, on and
-                past the diagonal and a NaN are flagged at their tile and
-                repaired;
+                run flags nothing; injects into acc and l before, on and
+                past the diagonal, a NaN into acc, and a NaN and a -1e4
+                into l (which leave l dead: the plain version flags those
+                two as well) are flagged at their tile and repaired;
  11. chaos    — kernels #4 and #2 against their plain versions on each of
                 the campaign's eight kernel drills (its inputs, tiles and
                 faults, clean and faulted calls); then
@@ -102,16 +109,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_HBM_BPS = 3.35e12        # bytes/s, H100 SXM data sheet
 PEAK_OPS = {                  # dense peak rates, H100 SXM data sheet
-    "float32": 67e12,         # CUDA cores (no TF32: the kernel is IEEE fp32)
+    "float32": 495e12 / 3,    # tensor cores in 3xTF32 (fp32-level error)
     "bfloat16": 989e12,       # tensor cores
     "int8": 1979e12,          # tensor cores
 }
+CUDA_CORE_FP32 = 67e12        # fp32 FMA outside the tensor cores
 SERVE_SHAPES = [             # (k, n_enc, projections per layer)
     (896, 898, 2),           # q, o   (d_model + 2 checksum columns)
     (896, 130, 2),           # k, v   (2 KV heads x 64 + 2)
     (896, 4866, 2),          # gate, up
     (4864, 898, 1),          # down
 ]
+TRAIN_M = 2048                # batch 16 x seq 128 of the training phase
+RAGGED_SHAPES = [(5, 900, 130), (1000, 900, 898)]   # (m, k, n)
 RTOL = 1e-5   # fp32 accumulation in both, sums in another order
 
 
@@ -129,7 +139,10 @@ def nvidia_smi_line():
 def time_ms(torch, fn, reps, flush):
     """Mean device time of one call, CUDA events around each call, with
     the 50 MB L2 flushed before it (the serving path reads every weight
-    cold: one layer's weights outgrow L2 several times over per step)."""
+    cold: one layer's weights outgrow L2 several times over per step).
+    The call is eager, as the serving and training paths make it: where
+    the host takes longer to issue it than the flush takes to run, the
+    events also see that host time."""
     for _ in range(2):
         fn()
     ts = []
@@ -153,7 +166,8 @@ def within(x, ref, scale):
 def bound(torch, m, k, n, f, in_dtype, out_bytes, plan):
     """Least time of the same work on the card: every input read once,
     every output written once, over HBM; 2mkn + 4fmn operations over the
-    peak rate of the operand type."""
+    peak rate of the operand type.  Returns (ms, "bytes" or "operations",
+    ms with fp32 operations at the CUDA-core rate instead)."""
     in_b = torch.empty((), dtype=in_dtype).element_size()
     mt, nt = -(-m // plan.bm), -(-n // plan.bn)
     nbytes = (m * k + k * n) * in_b + (f * m + n * f) * 4 \
@@ -161,11 +175,31 @@ def bound(torch, m, k, n, f, in_dtype, out_bytes, plan):
     ops = 2 * m * k * n + 4 * f * m * n
     name = str(in_dtype).replace("torch.", "")
     t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS[name]
+    t_cuda = ops / CUDA_CORE_FP32 if name == "float32" else t_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), \
+        1e3 * max(t_bytes, t_cuda)
+
+
+def kernel_cases(torch):
+    """(m, k, n, projections per served layer, dtype, set) of phase 3: the
+    serving shapes at decode and prefill (fp32, bf16), one int8 shape, the
+    training shapes (fp32) and ragged shapes (every operand type)."""
+    cases = [(m, k, n, mult, dt, "serve") for m in (4, 1024)
+             for k, n, mult in SERVE_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((1024, 4864, 896, 0, torch.int8, "int8"))
+    cases += [(TRAIN_M, k, n, 0, torch.float32, "train")
+              for k, n, _ in SERVE_SHAPES]
+    cases += [(m, k, n, 0, dt, "ragged") for m, k, n in RAGGED_SHAPES
+              for dt in (torch.float32, torch.bfloat16, torch.int8)]
+    return cases
 
 
 def phase_kernel(torch, record):
+    """Kernel #1 against its plain version at every case of
+    ``kernel_cases``, on the route and tile the planner gives it; two calls
+    bit-identical; timed against the plain version and torch.matmul."""
     from repro_torch.core.abft_gemm import _residual_weights
     from repro_torch.kernels import abft_matmul as kmm
     from repro_torch.kernels import ops
@@ -173,12 +207,8 @@ def phase_kernel(torch, record):
     g = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32,
                         device="cuda")          # 128 MB > the 50 MB L2
-    cases = [(m, k, n, mult, dt) for m in (4, 1024)
-             for k, n, mult in SERVE_SHAPES
-             for dt in (torch.float32, torch.bfloat16)]
-    cases.append((1024, 4864, 896, 0, torch.int8))
     rows = []
-    for m, k, n, mult, dt in cases:
+    for m, k, n, mult, dt, what in kernel_cases(torch):
         if dt == torch.int8:
             a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                               dtype=torch.int8)
@@ -197,8 +227,15 @@ def phase_kernel(torch, record):
                                out_bytes=4, f=2)
         kw = dict(bm=plan.bm, bn=plan.bn, bk=plan.bk, out_dtype=out)
         c, ccol, crow = kmm.abft_matmul_cuda(a, b, wm, wn, **kw)
+        route = dict(kmm.last_route)
+        again = kmm.abft_matmul_cuda(a, b, wm, wn, **kw)
         cp, ccolp, crowp = kmm.abft_matmul_plain(a, b, wm, wn, **kw)
         torch.cuda.synchronize()
+        if route["route"] != plan.route or route["splits"] != plan.splits:
+            raise AssertionError(f"{(m, k, n, dt)} ran {route}, planned "
+                                 f"{plan.route} with {plan.splits} splits")
+        if not all(torch.equal(x, y) for x, y in zip((c, ccol, crow), again)):
+            raise AssertionError(f"two calls differ at {(m, k, n, dt)}")
         c32, cp32 = c.double(), cp.double()
         err_c = float((c32 - cp32).abs().max())
         if dt == torch.int8:
@@ -218,23 +255,28 @@ def phase_kernel(torch, record):
                 and within(cs_row, cs_rowp, terms_row)):
             raise AssertionError(f"checksums differ at {(m, k, n, dt)}: "
                                  f"{err_col} / {err_row}")
-        reps = 20 if m == 4 else 10
-        ms = time_ms(torch, lambda: kmm.abft_matmul_cuda(a, b, wm, wn, **kw),
-                     reps, flush)
-        plain_ms = time_ms(
+        row = dict(m=m, k=k, n=n, dtype=str(dt).replace("torch.", ""),
+                   set=what, per_layer=mult, tile=[plan.bm, plan.bn],
+                   route=route["route"], splits=route["splits"],
+                   copy_bytes=[route["copy_a"], route["copy_b"]],
+                   max_abs_err=err_c, err_cs_col=err_col, err_cs_row=err_row,
+                   repeat_bit_identical=True)
+        reps = 20 if m <= 32 else 10
+        row["ms"] = time_ms(
+            torch, lambda: kmm.abft_matmul_cuda(a, b, wm, wn, **kw), reps,
+            flush)
+        row["plain_ms"] = time_ms(
             torch, lambda: kmm.abft_matmul_plain(a, b, wm, wn, **kw), reps,
             flush)
-        lib_ms = None
+        row["library_ms"] = None
         if dt != torch.int8:
-            lib_ms = time_ms(torch, lambda: torch.matmul(a, b), reps, flush)
-        b_ms, b_by = bound(torch, m, k, n, 2, dt, out.itemsize, plan)
-        row = dict(m=m, k=k, n=n, dtype=str(dt).replace("torch.", ""),
-                   per_layer=mult, tile=[plan.bm, plan.bn],
-                   max_abs_err=err_c, err_cs_col=err_col, err_cs_row=err_row,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+            row["library_ms"] = time_ms(torch, lambda: torch.matmul(a, b),
+                                        reps, flush)
+        row["bound_ms"], row["bound_by"], row["bound_cuda_core_ms"] = \
+            bound(torch, m, k, n, 2, dt, out.itemsize, plan)
         rows.append(row)
         log("kernel", json.dumps(row))
+        del a, b, c, ccol, crow, again, cp, ccolp, crowp
     record["kernel_cases"] = rows
     return rows
 
@@ -446,8 +488,10 @@ def acc_bound(m, k, n, f, in_dtype, out_bytes, bm, bn):
               + (f * m + n * f) * 4 + 2 * state + mt * nt * 8 * 4)
     ops = 2 * m * k * n + 4 * f * m * n + 4 * m * n
     t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS[in_dtype]
+    t_cuda = ops / CUDA_CORE_FP32 if in_dtype == "float32" else t_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), \
+        1e3 * max(t_bytes, t_cuda)
 
 
 def acc_zero_state(torch, m, n, bm, bn, f=2):
@@ -536,11 +580,11 @@ def phase_acc(torch, record):
         plain_ms = time_ms(torch, lambda: kmm.abft_matmul_acc_plain(
             a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
         lib_ms = time_ms(torch, lib, reps, flush) if lib else None
-        b_ms, b_by = acc_bound(m, k, n, 2, name, 4, bm, bn)
+        b_ms, b_by, b_cuda = acc_bound(m, k, n, 2, name, 4, bm, bn)
         row = dict(m=m, k=k, n=n, dtype=name, tile=[bm, bn],
                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                   clean_residual=0.0)
+                   bound_cuda_core_ms=b_cuda, clean_residual=0.0)
         rows.append(row)
         log("acc", json.dumps(row))
     record["acc_cases"] = rows
@@ -791,7 +835,7 @@ def enc_bound(p, f, m, n, itemsize):
     fp32 whatever the storage type)."""
     nbytes = (p + f) * m * n * itemsize + f * p * 4
     ops = 2 * f * p * m * n
-    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS["float32"]
+    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / CUDA_CORE_FP32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1127,11 +1171,13 @@ def flash_pairs(sq, sk, causal, window):
 def flash_bound(bh, sq, sk, d, dtype, causal, window, checksum):
     """Least time of one forward: Q, K, V read once and O written once
     over HBM; 4 D operations per admitted (q, k) pair (q.k and p.v; 3 more
-    for the checksum's cs and l2) over the peak rate of the operand type."""
+    for the checksum's cs and l2) over the peak rate of the operand type
+    (fp32 at the CUDA-core rate, as the kernel runs it)."""
     item = 4 if dtype == "float32" else 2
     nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * item
     ops = bh * flash_pairs(sq, sk, causal, window) * (4 * d + 3 * checksum)
-    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS[dtype]
+    rate = CUDA_CORE_FP32 if dtype == "float32" else PEAK_OPS[dtype]
+    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1205,8 +1251,9 @@ def phase_flash(torch, record):
 
 def _flash_drills(torch, g, kfa):
     """Injects into acc and l of q-tile 8 at a KV chunk before, on and past
-    the diagonal, and a NaN into acc, at the Qwen2-0.5B shape: each flagged
-    at exactly (0, 8) and repaired to within 1e-5 of the clean output."""
+    the diagonal, a NaN into acc, and a NaN and a -1e4 into l, at the
+    Qwen2-0.5B shape: each flagged at exactly (0, 8) and repaired to within
+    1e-5 of the clean output."""
     q, k, v = (torch.randn((56, 4096, 64), generator=g, device="cuda")
                for _ in range(3))
     kw = dict(scale=0.125, causal=True, bq=FLASH_BLOCK, bk=FLASH_BLOCK)
@@ -1218,19 +1265,29 @@ def _flash_drills(torch, g, kfa):
     for target, kk, delta in (("acc", 3, 1e4), ("acc", 8, 1e4),
                               ("acc", 12, 1e4), ("l", 3, 1e4),
                               ("l", 8, 1e4), ("l", 12, 1e4),
-                              ("acc", 5, float("nan"))):
-        o, rep = kfa.flash_attention_checked(q, k, v,
-                                             inject=(8, kk, delta, target),
-                                             **kw)
+                              ("acc", 5, float("nan")),
+                              ("l", 5, float("nan")), ("l", 5, -1e4)):
+        inject = (8, kk, delta, target)
+        o, rep = kfa.flash_attention_checked(q, k, v, inject=inject, **kw)
         err = float((o - clean).abs().max())
         if rep.detected != ((0, 8),) or rep.repaired != 1 or not err <= 1e-5:
             raise AssertionError(f"inject {target} kk={kk} {delta}: {rep}, "
                                  f"max |o - clean| {err}")
+        if target == "l" and not delta > 0:
+            # an l fault that leaves l NaN or negative: the plain version
+            # flags the same tile (the reference flags none)
+            _, pst = kfa.flash_attention_plain(q, k, v, checksum=True,
+                                               inject=inject, **kw)
+            flagged = torch.nonzero(~(pst <= kfa.FLASH_CHECK_TOL).all(-1))
+            if flagged.tolist() != [[0, 8]]:
+                raise AssertionError(f"plain version flags {flagged.tolist()}"
+                                     f" for inject l kk={kk} {delta}")
         drills.append(dict(target=target, kk=kk, delta=str(delta),
                            r_pv=rep.max_pv_residual,
                            r_l=rep.max_rowsum_residual, repair_err=err))
     log("flash", f"clean checked run flags nothing; {len(drills)} injects "
-                 "(acc and l at kk 3, 8, 12 of q-tile 8, a NaN into acc) "
+                 "(acc and l at kk 3, 8, 12 of q-tile 8, a NaN into acc, a "
+                 "NaN and -1e4 into l, those two on the plain version too) "
                  "each flagged at exactly (0, 8) and repaired to max |o - "
                  f"clean| <= {max(d['repair_err'] for d in drills):.3g}")
     return drills
@@ -1463,7 +1520,8 @@ def main():
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
-    served = [r for r in rows if r["dtype"] == "float32"]
+    served = [r for r in rows
+              if r["dtype"] == "float32" and r["set"] == "serve"]
     tot = {key: sum(r[key] * r["per_layer"] for r in served)
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     by_ops = sum(r["bound_ms"] * r["per_layer"] for r in served

@@ -20,27 +20,47 @@ verify/correct prologue that repairs a single corrupted element of each C_in
 tile before accumulating, and per-tile ``stats [ceil(m/bm), ceil(n/bn),
 STATS_WIDTH]``; the counterpart of ``abft_matmul_acc_pallas``.
 
-The kernels live in ``csrc/abft_matmul.cu`` and ``csrc/abft_matmul_acc.cu``
-(see their headers for what bounds them and what the simple design leaves
-out).  On a CUDA tensor a wrapper launches its kernel or raises; on a CPU
-tensor, and only there, it runs its plain version (``abft_matmul_plain``,
-``abft_matmul_acc_plain``).  ``launches`` / ``acc_launches`` count kernel
-launches and ``plain_calls`` / ``acc_plain_calls`` plain-version calls.
+The kernels live in ``csrc/abft_matmul.cu`` (with ``abft_mma.cuh``) and
+``csrc/abft_matmul_acc.cu``; both end in ``abft_tile.cuh``'s epilogue (see
+their headers for what bounds them).  Kernel #1 has two routes, picked by
+the tile: ``MMA_TILES`` run tensor-core tiles (3xTF32 for fp32 operands)
+behind a cp.async ring, for prefill and training; a tile of
+``SPLITK_TILES_M`` rows streams B in ``split_count`` k slices into an fp32
+workspace and sums them in split order, for decode (the split policy,
+``split_rows`` and ``split_count``, lives here alone).  On a CUDA tensor a
+wrapper launches its kernel or raises; on a CPU tensor, and only there, it
+runs its plain version (``abft_matmul_plain``, ``abft_matmul_acc_plain``).
+``launches`` / ``acc_launches`` count wrapper calls that launched a kernel
+(a split-k call is two kernels and counts once), ``plain_calls`` /
+``acc_plain_calls`` plain-version calls; ``last_route`` says how the last
+kernel #1 call ran.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["abft_matmul_cuda", "abft_matmul_plain", "abft_matmul_acc_cuda",
-           "abft_matmul_acc_plain", "reset_counts", "TILES_M", "TILES_N",
-           "KT", "F_MAX", "STATS_WIDTH"]
+           "abft_matmul_acc_plain", "reset_counts", "route_of", "split_count",
+           "split_rows", "sm_count",
+           "TILES_M", "TILES_N", "MMA_TILES", "SPLITK_TILES_M", "KT", "F_MAX",
+           "STATS_WIDTH"]
 
-TILES_M = (16, 32, 64, 128)      # CTA tile rows the kernel is built for
-TILES_N = (32, 64, 128)          # CTA tile columns the kernel is built for
+TILES_M = (16, 32, 64, 128)      # CTA tile rows of kernel #2 (and the plain
+TILES_N = (32, 64, 128)          # versions); columns
+MMA_TILES = ((128, 128), (128, 64))   # kernel #1's tensor-core tiles
+SPLITK_TILES_M = (16, 32)        # kernel #1's split-k tile rows (bn: TILES_N)
+# The split-k policy: decided here and passed to the launcher, which has
+# SPLIT_COLS and SPLIT_KMAX compiled in and refuses a slice over
+# SPLIT_KMAX or a row block outside SPLIT_ROWS (code -5); it derives none.
+SPLIT_COLS = 128                 # columns of B a split-k CTA streams
+SPLIT_KMAX = 256                 # most k rows in one split
+SPLIT_KMIN = 64                  # fewest k rows in one split, where k allows
+SPLIT_ROWS = (4, 8, 16, 32)      # rows of A a split-k CTA holds
 KT = 16                          # k columns staged per shared-memory slab
 F_MAX = 4                        # most checksum rows per direction
 
@@ -58,6 +78,8 @@ launches = 0                     # kernel launches by abft_matmul_cuda
 plain_calls = 0                  # calls of abft_matmul_plain
 acc_launches = 0                 # kernel launches by abft_matmul_acc_cuda
 acc_plain_calls = 0              # calls of abft_matmul_acc_plain
+last_route: dict = {}            # route, copy widths and splits of the last
+                                 # kernel #1 launch
 
 
 def reset_counts() -> None:
@@ -67,6 +89,40 @@ def reset_counts() -> None:
 
 def _cdiv(x: int, y: int) -> int:
     return -(-x // y)
+
+
+def route_of(bm: int, bn: int) -> Optional[str]:
+    """Kernel #1's route for a tile: "mma" (tensor-core tiles), "splitk"
+    (k split for decode), or None for a tile it is not built for."""
+    if (bm, bn) in MMA_TILES:
+        return "mma"
+    if bm in SPLITK_TILES_M and bn in TILES_N:
+        return "splitk"
+    return None
+
+
+def split_rows(m: int) -> int:
+    """Rows of A a split-k CTA holds: the fewest of ``SPLIT_ROWS`` that
+    cover m, else the most (the grid then walks m in blocks of it)."""
+    return next((r for r in SPLIT_ROWS if r >= m), SPLIT_ROWS[-1])
+
+
+def split_count(m: int, k: int, n: int, sms: int) -> int:
+    """k slices of a split-k call on a card of ``sms`` SMs: enough CTAs for
+    two on each SM (a CTA streams ``SPLIT_COLS`` columns of B for
+    ``split_rows(m)`` rows of A) but no slice under ``SPLIT_KMIN`` k rows
+    (a narrow B has too few bytes to spread), at most ``SPLIT_KMAX`` k
+    rows a slice, and no empty slice."""
+    blocks = _cdiv(n, SPLIT_COLS) * _cdiv(m, split_rows(m))
+    most = _cdiv(k, SPLIT_KMAX)
+    s = min(max(_cdiv(2 * sms, blocks), most), max(most, k // SPLIT_KMIN))
+    return _cdiv(k, _cdiv(k, s))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(a, b, wm, wn, bm, bn, bk, out_dtype):
@@ -104,6 +160,16 @@ def _check(a, b, wm, wn, bm, bn, bk, out_dtype):
     return out_dtype
 
 
+def _check_oneshot(a, b, wm, wn, bm, bn, bk, out_dtype):
+    """``_check`` for kernel #1 and its plain version, which take the same
+    tiles: those with a route (``route_of``)."""
+    out_dtype = _check(a, b, wm, wn, bm, bn, bk, out_dtype)
+    if route_of(bm, bn) is None:
+        raise ValueError(f"tile ({bm}, {bn}) not built for kernel #1: "
+                         f"{MMA_TILES} or bm in {SPLITK_TILES_M}")
+    return out_dtype
+
+
 def abft_matmul_plain(a, b, wm, wn, *, bm: int = 128, bn: int = 128,
                       bk: int = KT, out_dtype=None):
     """Plain PyTorch version of the kernel: same arguments, same outputs.
@@ -113,7 +179,7 @@ def abft_matmul_plain(a, b, wm, wn, *, bm: int = 128, bn: int = 128,
     land in int32.  The partials are reduced from the rounded output.
     """
     global plain_calls
-    out_dtype = _check(a, b, wm, wn, bm, bn, bk, out_dtype)
+    out_dtype = _check_oneshot(a, b, wm, wn, bm, bn, bk, out_dtype)
     plain_calls += 1
     m, n, f = a.shape[0], b.shape[1], wm.shape[0]
     mt, nt = _cdiv(m, bm), _cdiv(n, bn)
@@ -140,29 +206,32 @@ def _launcher():
     if _FN is None:
         from repro_torch.kernels import build
         fn = build.load("abft_matmul").abft_matmul_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
 def abft_matmul_cuda(a, b, wm, wn, *, bm: int = 128, bn: int = 128,
-                     bk: int = KT, out_dtype=None):
+                     bk: int = KT, out_dtype=None,
+                     splits: Optional[int] = None):
     """One-shot C = A @ B with fused dual checksum partials.
 
     a: [m, k], b: [k, n] (fp32, bf16 or int8); wm: [f, m], wn: [n, f] fp32.
     Returns (c [m, n] in out_dtype (int32 for int8), ccol [ceil(m/bm), f, n]
-    fp32, crow [ceil(n/bn), m, f] fp32).  ``bk`` is the plan's k block; the
-    kernel stages k in slabs of ``KT`` and needs only that ``bk`` is a
-    multiple of it.  CUDA tensors launch the kernel on the current stream;
-    CPU tensors run ``abft_matmul_plain``.
+    fp32, crow [ceil(n/bn), m, f] fp32).  ``bk`` is the plan's k block and
+    needs only be a multiple of ``KT``.  CUDA tensors launch the kernel on
+    the current stream, on the route of the tile (``route_of``); a split-k
+    tile cuts k into ``splits`` slices (the plan's; by default
+    ``split_count`` on this card) and allocates its ``[splits, m, n]``
+    workspace.  CPU tensors run ``abft_matmul_plain``.
     """
-    global launches
+    global launches, last_route
     if a.device.type == "cpu":
         return abft_matmul_plain(a, b, wm, wn, bm=bm, bn=bn, bk=bk,
                                  out_dtype=out_dtype)
-    out_dtype = _check(a, b, wm, wn, bm, bn, bk, out_dtype)
+    out_dtype = _check_oneshot(a, b, wm, wn, bm, bn, bk, out_dtype)
     if a.device.type != "cuda":
         raise RuntimeError(f"abft_matmul_cuda runs on CUDA (or the plain "
                            f"version on CPU), got {a.device}")
@@ -177,16 +246,30 @@ def abft_matmul_cuda(a, b, wm, wn, *, bm: int = 128, bn: int = 128,
     c = torch.empty((m, n), dtype=out_dtype, device=dev)
     ccol = torch.empty((_cdiv(m, bm), f, n), dtype=torch.float32, device=dev)
     crow = torch.empty((_cdiv(n, bn), m, f), dtype=torch.float32, device=dev)
+    route, rows, ws = route_of(bm, bn), 0, None
+    if route == "splitk":
+        if splits is None:
+            splits = split_count(m, k, n, sm_count(dev.index))
+        rows = split_rows(m)
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+    elif splits not in (None, 1):
+        raise ValueError(f"tile ({bm}, {bn}) runs tensor-core tiles, not "
+                         f"{splits} k splits")
+    info = (ctypes.c_int * 4)()
     fn = _launcher()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(a.data_ptr(), b.data_ptr(), wm.data_ptr(), wn.data_ptr(),
-            c.data_ptr(), ccol.data_ptr(), crow.data_ptr(), m, k, n, f, bm, bn,
-            _IN_KIND[a.dtype], _OUT_KIND[out_dtype], stream)
+            c.data_ptr(), ccol.data_ptr(), crow.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, k, n, f, bm, bn,
+            splits or 1, rows, _IN_KIND[a.dtype], _OUT_KIND[out_dtype], info,
+            stream)
     if rc != 0:
         raise RuntimeError(f"abft_matmul kernel launch failed: code {rc} "
                            f"(m={m}, k={k}, n={n}, f={f}, tile=({bm}, {bn}), "
-                           f"{a.dtype} -> {out_dtype})")
+                           f"splits={splits}, {a.dtype} -> {out_dtype})")
     launches += 1
+    last_route = dict(route=route, copy_a=info[1], copy_b=info[2],
+                      splits=info[3])
     return c, ccol, crow
 
 

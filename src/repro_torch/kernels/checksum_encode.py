@@ -16,9 +16,10 @@ counts kernel launches and ``plain_calls`` plain-version calls.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
+
+from repro_torch.kernels.abft_matmul import sm_count
 
 __all__ = ["checksum_encode_cuda", "checksum_encode_plain", "reset_counts",
            "MAX_FP"]
@@ -77,11 +78,6 @@ def _launcher():
     return _FN
 
 
-@functools.lru_cache(maxsize=16)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def checksum_encode_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """x: [p, m, n] (fp32 or bf16), a: [f, p] fp32 -> y: [f, m, n] in
     x.dtype.  CUDA tensors launch the kernel on the current stream; CPU
@@ -105,7 +101,7 @@ def checksum_encode_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     dev = x.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _launcher()(x.data_ptr(), a.data_ptr(), y.data_ptr(), p, f, m * n,
-                     _KIND[x.dtype], _sm_count(dev.index or 0), stream)
+                     _KIND[x.dtype], sm_count(dev.index or 0), stream)
     if rc != 0:
         raise RuntimeError(f"checksum_encode kernel launch failed: code {rc} "
                            f"(p={p}, f={f}, m={m}, n={n}, {x.dtype})")

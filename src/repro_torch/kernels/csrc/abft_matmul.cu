@@ -1,82 +1,524 @@
-// One-shot C = A @ B with fused dual (column + row) checksum partials,
-// for Hopper (sm_90a), on CUDA cores.
+// One-shot C = A @ B with fused dual (column + row) checksum partials, for
+// Hopper (sm_90a): tensor-core tiles for prefill and training, a split-k
+// stream for decode.
 //
 // Replaces the TPU kernel src/repro/kernels/abft_matmul.py::abft_matmul_pallas
 // (its `_kernel` with carry_in=False and the `_tile_checksums` epilogue).
-// It computes what that kernel computes, not its block layout:
+// It computes what that kernel computes, not its block layout.  The output
+// is c [m, n] and the per-tile partials of the ROUNDED stored tile,
+// ccol [ceil(m/bm), f, n] (ccol[i] = W_m[:, tile_i] @ C_tile) and
+// crow [ceil(n/bn), m, f] (crow[j] = C_tile @ W_n[tile_j, :]); summing them
+// over axis 0 is the caller's second pass, so nothing here uses atomics and
+// two calls on the same inputs are bit-identical.  Ragged edges are masked
+// (zero rows and columns checksum to zero).  Every route ends in
+// abft_tile.cuh's `epilogue`, the routine kernel #2's verify prologue
+// recomputes, so the checksum semantics are those of the CUDA-core design
+// this kernel replaced.
 //
-//   * one CTA per output tile (BM, BN); a loop over k, staged through shared
-//     memory KT=16 columns at a time, takes the place of the TPU's sequential
-//     k grid axis;
-//   * the accumulator is fp32 (fp32 and bf16 operands; fp32 FMA, never TF32)
-//     or int32 (int8 operands, exact);
-//   * in the epilogue the CTA casts each value to the output type, reads the
-//     stored value back as fp32, and reduces the checksum partials of that
-//     ROUNDED tile:  ccol[i] = W_m[:, tile_i] @ C_tile   ([f, BN] slice of
-//     ccol [ceil(m/BM), f, n])  and  crow[j] = C_tile @ W_n[tile_j, :]
-//     ([BM, f] slice of crow [ceil(n/BN), m, f]).  Summing the partials over
-//     axis 0 is a second pass in the caller, so there are no atomics and the
-//     result is deterministic.  For shapes that divide the tile this is
-//     exactly the reference layout; ragged edges are masked here instead of
-//     zero-padded in memory (zero rows and columns checksum to zero, so the
-//     two agree).
+// The tile (bm, bn) picks the route:
 //
-// What bounds it on an H100: at the serving prefill shapes (m = 1024) the
-// 2mkn fp32 FMAs on the CUDA cores (67 TFLOP/s peak); at decode (m = 4) the
-// bytes of the weight operand B (k * n * 4 at 3.35 TB/s).  The design is the
-// simple one on purpose: 256 threads as a 16 x 16 grid, each holding a
-// (BM/16) x (BN/16) register tile, strided so that the B reads and the C
-// stores are contiguous across a half-warp.  What it leaves on the table:
-// tensor cores (wgmma for bf16 / int8; fp32 must stay IEEE, so at most a
-// 3xTF32 split), TMA or cp.async double buffering of the k slabs, 16-byte
-// vector loads, and, at decode, a split over k to put more CTAs on the 132
-// SMs.  The k loop and the epilogue live in abft_tile.cuh, shared with the
-// accumulate kernel (abft_matmul_acc.cu), whose verify prologue recomputes
-// the checksums this epilogue writes.
+//   Route A, (128, 128) or (128, 64): one CTA of 8 warps per output tile.
+//     Each warp owns a 64 x 32 (or 32 x 32) tile of mma.sync fragments
+//     (abft_mma.cuh): 3xTF32 m16n8k8 for fp32 operands (fp32-level error,
+//     not TF32's), bf16 m16n8k16 and s8 m16n8k32 (exact, int32) otherwise.
+//     k moves through a 3-stage cp.async ring in dynamic shared memory,
+//     128 bytes of k a stage (32 fp32, 64 bf16 or 128 int8 columns), rows
+//     padded so that ldmatrix (A; bf16 B, transposed) and the 32-bit
+//     fragment loads (fp32 and int8 B) hit 32 banks.  After the last stage the
+//     ring's bytes hold the fp32 (int32) tile, which each thread reloads in
+//     the epilogue's (ty + 16 i, tx + 16 j) layout.
+//   Route B, bm in {16, 32}: decode, where the work is bytes of B.  Pass 1
+//     cuts k into `splits` slices; one CTA per (128 columns, slice, MB rows)
+//     holds its rows of A in shared memory, streams its slice of B once with
+//     vector loads (eight rows in flight per thread), sums on CUDA cores and
+//     writes fp32 (int32) partials to the workspace ws [splits, m, n] after
+//     a fixed-order reduction over its row groups.  Pass 2, one CTA per
+//     (bm, bn) tile, sums the partials in split order and runs the epilogue.
+//
+// Copy widths.  An encoded weight has n + 2 columns, so its rows are often
+// not 16-byte aligned (898 fp32 columns: 3592 bytes, 8 mod 16).  The
+// launcher takes the widest copy (16, 8 or 4 bytes; element by element
+// below 4) that divides both the base pointer and the row stride, for A
+// and B apart, and writes its choice to `info`.  Nothing is padded or
+// copied per call.
+//
+// What bounds it on an H100: at prefill and training shapes (m >= 64) the
+// operations (2mkn at 495/3 TFLOP/s for 3xTF32, 989 bf16, 1979 int8); at
+// decode the bytes of B (k n at 3.35 TB/s).  What it leaves on the table:
+// wgmma and TMA (route A runs the older warp-level mma, whose 3xTF32 split
+// costs about five other instructions per tensor-core op, and its loads
+// do not overlap the math well), a persistent grid (wave quantization,
+// epilogues overlapped with mainloops), int8 B fragments from ldmatrix
+// (packed here from byte loads), and a split-k in one launch.
+#include <cstring>
+
+#include "abft_mma.cuh"
 #include "abft_tile.cuh"
 
 using namespace abft;
+namespace am = abft_mma;
 
 namespace {
 
-template <typename TIn, int BM, int BN>
+template <int S> struct Raw;
+template <> struct Raw<1> { using type = uint8_t; };
+template <> struct Raw<2> { using type = uint16_t; };
+template <> struct Raw<4> { using type = uint32_t; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// ---------------------------------------------------------------------------
+// Route A: tensor-core tiles behind a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int STAGES = 3;
+constexpr int SLAB = 128;          // bytes of k per stage in a row of A
+constexpr int A_ROW = SLAB + 16;   // padded: fragment rows 4 banks apart
+
+template <typename T, int BM, int BN>
+struct TileCfg {
+  static constexpr int S = sizeof(T);
+  static constexpr int E = am::Word<T>::E;
+  static constexpr int BK = SLAB / S;                    // k per stage
+  // fp32 rows 8 banks apart, bf16 / int8 rows 4 banks apart
+  static constexpr int B_ROW = BN * S + (S == 4 ? 32 : 16);
+  static constexpr int A_BYTES = BM * A_ROW;
+  static constexpr int B_BYTES = BK * B_ROW;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int CS_ROW = BN + 4;                  // staged C, words
+  static constexpr int STAGED = BM * CS_ROW * 4;
+  static constexpr int EPI = Smem<float, BM, BN>::EPI;
+  static constexpr int SMEM = RING > STAGED ? (RING > EPI ? RING : EPI)
+                                            : (STAGED > EPI ? STAGED : EPI);
+  static constexpr int WARPS_N = BN / 32;                // warp tile 32 wide
+  static constexpr int WARPS_M = THREADS / 32 / WARPS_N;
+  static constexpr int WM = BM / WARPS_M;                // 64 or 32 rows
+  static constexpr int MF = WM / 16;
+  static constexpr int NF = 4;
+};
+
+// One stage: A[m0:+BM, kb:+BK] and B[kb:+BK, n0:+BN] into shared memory,
+// zero past m, k and n; chunks of wa / wb bytes by cp.async, or element by
+// element where the width is under 4 bytes.
+template <typename T, int BM, int BN>
+__device__ __forceinline__ void load_stage(
+    const T* __restrict__ a, const T* __restrict__ b, int m, int k, int n,
+    int m0, int n0, int kb, unsigned char* as, unsigned char* bs, int wa,
+    int wb) {
+  using C = TileCfg<T, BM, BN>;
+  using R = typename Raw<sizeof(T)>::type;
+  constexpr int S = C::S;
+  const int tid = threadIdx.x;
+  if (wa >= 4) {
+    // per_row = SLAB / wa chunks a row, a power of two: shifts, not division
+    const int per_row = SLAB / wa, lg = 31 - __clz(per_row), v = wa / S;
+    for (int c = tid; c < BM * per_row; c += THREADS) {
+      const int r = c >> lg, kc = (c & (per_row - 1)) * v;
+      const int gr = m0 + r, gk = kb + kc;
+      const int valid = (gr < m && gk < k) ? min(v, k - gk) : 0;
+      const T* src = valid ? a + static_cast<long long>(gr) * k + gk : a;
+      am::cp_async(as + r * A_ROW + kc * S, src, wa, valid * S);
+    }
+  } else {
+    const R* ra = reinterpret_cast<const R*>(a);
+    for (int e = tid; e < BM * C::BK; e += THREADS) {
+      const int r = e / C::BK, kc = e % C::BK;
+      const int gr = m0 + r, gk = kb + kc;
+      *reinterpret_cast<R*>(as + r * A_ROW + kc * S) =
+          (gr < m && gk < k) ? ra[static_cast<long long>(gr) * k + gk] : R(0);
+    }
+  }
+  if (wb >= 4) {
+    const int per_row = BN * S / wb, lg = 31 - __clz(per_row), v = wb / S;
+    for (int c = tid; c < C::BK * per_row; c += THREADS) {
+      const int r = c >> lg, nc = (c & (per_row - 1)) * v;
+      const int gk = kb + r, gc = n0 + nc;
+      const int valid = (gk < k && gc < n) ? min(v, n - gc) : 0;
+      const T* src = valid ? b + static_cast<long long>(gk) * n + gc : b;
+      am::cp_async(bs + r * C::B_ROW + nc * S, src, wb, valid * S);
+    }
+  } else {
+    const R* rb = reinterpret_cast<const R*>(b);
+    for (int e = tid; e < C::BK * BN; e += THREADS) {
+      const int r = e / BN, nc = e % BN;
+      const int gk = kb + r, gc = n0 + nc;
+      *reinterpret_cast<R*>(bs + r * C::B_ROW + nc * S) =
+          (gk < k && gc < n) ? rb[static_cast<long long>(gk) * n + gc] : R(0);
+    }
+  }
+}
+
+// The B word of k rows kr .. kr + E - 1 at column c of a stage (fp32 and
+// int8; bf16 B fragments come from ldmatrix.trans).
+template <typename T>
+__device__ __forceinline__ uint32_t b_word(const unsigned char* bs, int row,
+                                           int kr, int c) {
+  if constexpr (sizeof(T) == 4) {
+    return *reinterpret_cast<const uint32_t*>(bs + kr * row + c * 4);
+  } else {
+    uint32_t w = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w |= static_cast<uint32_t>(bs[(kr + e) * row + c]) << (8 * e);
+    return w;
+  }
+}
+
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+mma_kernel(const T* __restrict__ a, const T* __restrict__ b,
+           const float* __restrict__ wm, const float* __restrict__ wn,
+           void* __restrict__ c, float* __restrict__ ccol,
+           float* __restrict__ crow, int m, int k, int n, int f, int out_kind,
+           int wa, int wb) {
+  using C = TileCfg<T, BM, BN>;
+  using TC = typename am::Mma<T>::Acc;
+  constexpr int E = C::E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm0 = (warp / C::WARPS_N) * C::WM;
+  const int wn0 = (warp % C::WARPS_N) * 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  TC acc[C::MF][C::NF][4];
+#pragma unroll
+  for (int i = 0; i < C::MF; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NF; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = TC(0);
+
+  const int kt_n = (k + C::BK - 1) / C::BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < kt_n)
+      load_stage<T, BM, BN>(a, b, m, k, n, m0, n0, s * C::BK,
+                            smem + s * C::STAGE,
+                            smem + s * C::STAGE + C::A_BYTES, wa, wb);
+    am::cp_async_commit();
+  }
+  for (int kt = 0; kt < kt_n; ++kt) {
+    am::cp_async_wait<STAGES - 2>();
+    __syncthreads();   // stage kt landed; stage kt - 1 is free to refill
+    const int nxt = kt + STAGES - 1;
+    if (nxt < kt_n) {
+      unsigned char* st = smem + (nxt % STAGES) * C::STAGE;
+      load_stage<T, BM, BN>(a, b, m, k, n, m0, n0, nxt * C::BK, st,
+                            st + C::A_BYTES, wa, wb);
+    }
+    am::cp_async_commit();
+    const unsigned char* as = smem + (kt % STAGES) * C::STAGE;
+    const unsigned char* bs = as + C::A_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < SLAB / 32; ++ks) {   // 8 words of k a step
+      uint32_t af[C::MF][4], bf[C::NF][2];
+#pragma unroll
+      for (int i = 0; i < C::MF; ++i)
+        am::ldsm_x4(af[i], as + (wm0 + 16 * i + (lane % 8) + 8 * ((lane / 8) % 2))
+                                    * A_ROW + ks * 32 + 16 * (lane / 16));
+      if constexpr (sizeof(T) == 2) {
+        // lane l: k row ks * 16 + 8 ((l / 8) % 2) + l % 8 of n-block
+        // 2 jj + l / 16
+#pragma unroll
+        for (int jj = 0; jj < C::NF / 2; ++jj) {
+          uint32_t r[4];
+          am::ldsm_x4_trans(
+              r, bs + (ks * 16 + 8 * ((lane / 8) % 2) + lane % 8) * C::B_ROW
+                     + (wn0 + 8 * (2 * jj + lane / 16)) * 2);
+          bf[2 * jj][0] = r[0];
+          bf[2 * jj][1] = r[1];
+          bf[2 * jj + 1][0] = r[2];
+          bf[2 * jj + 1][1] = r[3];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < C::NF; ++j) {
+          const int col = wn0 + 8 * j + g;
+          const int kr = ks * 8 * E + E * t;
+          bf[j][0] = b_word<T>(bs, C::B_ROW, kr, col);
+          bf[j][1] = b_word<T>(bs, C::B_ROW, kr + 4 * E, col);
+        }
+      }
+      am::mma_step<T, C::MF, C::NF>(acc, af, bf);
+    }
+  }
+  am::cp_async_wait<0>();
+  __syncthreads();     // every warp is done with the ring
+
+  // the fragments, staged as a BM x BN tile in the ring's bytes
+  TC* cs = reinterpret_cast<TC*>(smem);
+#pragma unroll
+  for (int i = 0; i < C::MF; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NF; ++j) {
+      const int row = wm0 + 16 * i + g, col = wn0 + 8 * j + 2 * t;
+      cs[row * C::CS_ROW + col] = acc[i][j][0];
+      cs[row * C::CS_ROW + col + 1] = acc[i][j][1];
+      cs[(row + 8) * C::CS_ROW + col] = acc[i][j][2];
+      cs[(row + 8) * C::CS_ROW + col + 1] = acc[i][j][3];
+    }
+  __syncthreads();
+  const int tx = tid % 16, ty = tid / 16;
+  TC v[BM / 16][BN / 16];
+#pragma unroll
+  for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+      v[i][j] = cs[(ty + 16 * i) * C::CS_ROW + tx + 16 * j];
+  __syncthreads();     // the epilogue's reductions reuse these bytes
+  epilogue<TC, BM, BN>(v, c, ccol, crow, wm, wn, m, n, f, out_kind, smem);
+}
+
+template <typename T, int BM, int BN>
+int launch_mma(const void* a, const void* b, const float* wm, const float* wn,
+               void* c, float* ccol, float* crow, int m, int k, int n, int f,
+               int out_kind, int wa, int wb, cudaStream_t stream) {
+  using C = TileCfg<T, BM, BN>;
+  static int attr = -1;   // once per instantiation
+  if (attr < 0)
+    attr = static_cast<int>(cudaFuncSetAttribute(
+        mma_kernel<T, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM));
+  if (attr != 0) return attr;
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  mma_kernel<T, BM, BN><<<grid, THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), wm, wn, c, ccol,
+      crow, m, k, n, f, out_kind, wa, wb);
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Route B: split-k stream for decode
+// ---------------------------------------------------------------------------
+
+// The split policy (slices, rows a CTA) is the caller's (abft_matmul.py's
+// split_count / split_rows); these sizes are compiled in and checked.
+constexpr int SK_COLS = 128;   // columns of B per CTA (SPLIT_COLS)
+constexpr int SK_KMAX = 256;   // most k rows in a slice (SPLIT_KMAX)
+constexpr int UNROLL = 8;      // rows of B in flight per thread
+
+// Pass 1: partials of rows [m0, m0 + MB) over k slice blockIdx.y, columns
+// [n0, n0 + 128), into ws [splits, m, n].  V values a thread per row of B
+// (one load of V * sizeof(T) bytes); TPR threads cover a row, RPI rows run
+// side by side, each thread has UNROLL loads in flight and sums its rows
+// in order.
+template <typename T, int MB, int V>
 __global__ void __launch_bounds__(THREADS)
-abft_matmul_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
-                   const float* __restrict__ wm, const float* __restrict__ wn,
-                   void* __restrict__ c, float* __restrict__ ccol,
-                   float* __restrict__ crow, int m, int k, int n, int f,
-                   int out_kind) {
-  using TC = typename Compute<TIn>::type;
-  __shared__ __align__(16) unsigned char smem[Smem<TC, BM, BN>::BYTES];
+splitk_partial(const T* __restrict__ a, const T* __restrict__ b,
+               typename Compute<T>::type* __restrict__ ws, int m, int k, int n,
+               int kslice) {
+  using TC = typename Compute<T>::type;
+  using Vec = typename Raw<V * sizeof(T)>::type;
+  constexpr int TPR = SK_COLS / V;
+  constexpr int RPI = THREADS / TPR;
+  constexpr int MC = MB < 32 / V ? MB : 32 / V;   // rows a reduction round
+  constexpr int AS = SK_KMAX * MB;
+  constexpr int RED = RPI * MC * SK_COLS;
+  __shared__ __align__(16) TC sm[AS > RED ? AS : RED];
+  const int tid = threadIdx.x;
+  const int grp = tid / TPR, lc = (tid % TPR) * V;
+  const int n0 = blockIdx.x * SK_COLS, s = blockIdx.y, m0 = blockIdx.z * MB;
+  const int k0 = s * kslice;
+  const int klen = min(kslice, k - k0);
+
+  // this slice of A, transposed: sm[kk * MB + mm]
+  for (int e = tid; e < MB * klen; e += THREADS) {
+    const int mm = e / klen, kk = e % klen;
+    const int row = m0 + mm;
+    sm[kk * MB + mm] = row < m
+        ? to_compute(a[static_cast<long long>(row) * k + k0 + kk]) : TC(0);
+  }
+  __syncthreads();
+
+  TC acc[MB][V];
+#pragma unroll
+  for (int mm = 0; mm < MB; ++mm)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[mm][v] = TC(0);
+  const int col = n0 + lc;
+  const bool live = col < n;   // n % V == 0, so the whole vector is in
+  const T* bp = b + static_cast<long long>(k0) * n + col;
+  for (int kk = grp; kk < klen; kk += UNROLL * RPI) {
+    Vec bv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int r = kk + u * RPI;
+      if (live && r < klen)
+        bv[u] = *reinterpret_cast<const Vec*>(bp + static_cast<long long>(r) * n);
+      else
+        bv[u] = Vec{};
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int r = kk + u * RPI;
+      if (r < klen) {
+        T x[V];
+        memcpy(x, &bv[u], sizeof(Vec));
+        const TC* ar = sm + r * MB;
+#pragma unroll
+        for (int mm = 0; mm < MB; ++mm) {
+          const TC av = ar[mm];
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[mm][v] = mac(acc[mm][v], av, to_compute(x[v]));
+        }
+      }
+    }
+  }
+  __syncthreads();     // A's slice is spent: the bytes hold the reduction
+
+#pragma unroll
+  for (int mm0 = 0; mm0 < MB; mm0 += MC) {
+#pragma unroll
+    for (int i = 0; i < MC; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        sm[(grp * MC + i) * SK_COLS + lc + v] = acc[mm0 + i][v];
+    __syncthreads();
+    for (int e = tid; e < MC * SK_COLS; e += THREADS) {
+      const int i = e / SK_COLS, cc = e % SK_COLS;
+      TC sum = TC(0);
+      for (int gg = 0; gg < RPI; ++gg) sum += sm[(gg * MC + i) * SK_COLS + cc];
+      const int row = m0 + mm0 + i, gc = n0 + cc;
+      if (row < m && gc < n)
+        ws[(static_cast<long long>(s) * m + row) * n + gc] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// Pass 2: the partials of each (BM, BN) tile summed in split order, then
+// the shared epilogue.
+template <typename TC, int BM, int BN>
+__global__ void __launch_bounds__(THREADS)
+splitk_epilogue(const TC* __restrict__ ws, int splits,
+                const float* __restrict__ wm, const float* __restrict__ wn,
+                void* __restrict__ c, float* __restrict__ ccol,
+                float* __restrict__ crow, int m, int n, int f, int out_kind) {
+  __shared__ __align__(16) unsigned char smem[Smem<TC, BM, BN>::EPI];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   TC acc[BM / 16][BN / 16];
 #pragma unroll
   for (int i = 0; i < BM / 16; ++i)
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j) acc[i][j] = TC(0);
-  mainloop<TIn, BM, BN>(a, b, m, k, n, blockIdx.y * BM, blockIdx.x * BN, acc,
-                        smem);
-  // Epilogue: store the tile, reduce the checksums of the stored values.
+  // split-major, so a thread's (BM/16) x (BN/16) loads of one split are
+  // in flight together; each element still sums its splits in order
+#pragma unroll 8
+  for (int sp = 0; sp < splits; ++sp) {
+    const TC* p = ws + static_cast<long long>(sp) * m * n;
+    TC x[BM / 16][BN / 16];
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i) {
+      const int row = m0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        const int col = n0 + tx + 16 * j;
+        x[i][j] = (row < m && col < n)
+            ? p[static_cast<long long>(row) * n + col] : TC(0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) acc[i][j] += x[i][j];
+  }
   epilogue<TC, BM, BN>(acc, c, ccol, crow, wm, wn, m, n, f, out_kind, smem);
 }
 
-template <typename TIn>
-int launch_typed(const void* a, const void* b, const float* wm, const float* wn,
-                 void* c, float* ccol, float* crow, int m, int k, int n, int f,
-                 int bm, int bn, int out_kind, cudaStream_t stream) {
+template <typename T, int MB>
+int launch_partial(const T* a, const T* b, typename Compute<T>::type* ws,
+                   int m, int k, int n, int splits, int kslice, int v,
+                   cudaStream_t stream) {
+  const dim3 grid((n + SK_COLS - 1) / SK_COLS, splits, (m + MB - 1) / MB);
+  if (v == 4)
+    splitk_partial<T, MB, 4><<<grid, THREADS, 0, stream>>>(a, b, ws, m, k, n,
+                                                           kslice);
+  else if (v == 2)
+    splitk_partial<T, MB, 2><<<grid, THREADS, 0, stream>>>(a, b, ws, m, k, n,
+                                                           kslice);
+  else
+    splitk_partial<T, MB, 1><<<grid, THREADS, 0, stream>>>(a, b, ws, m, k, n,
+                                                           kslice);
+  return 0;
+}
+
+template <typename T>
+int launch_splitk(const void* a, const void* b, const float* wm,
+                  const float* wn, void* c, float* ccol, float* crow,
+                  void* ws, int m, int k, int n, int f, int bm, int bn,
+                  int splits, int rows, int out_kind, int wb,
+                  cudaStream_t stream) {
+  using TC = typename Compute<T>::type;
+  const T* ta = static_cast<const T*>(a);
+  const T* tb = static_cast<const T*>(b);
+  TC* tws = static_cast<TC*>(ws);
+  const int kslice = (k + splits - 1) / splits;
+  if (splits < 1 || kslice > SK_KMAX || (splits - 1) * kslice >= k) return -5;
+  const int v = wb / static_cast<int>(sizeof(T));
+  if (rows == 4)
+    launch_partial<T, 4>(ta, tb, tws, m, k, n, splits, kslice, v, stream);
+  else if (rows == 8)
+    launch_partial<T, 8>(ta, tb, tws, m, k, n, splits, kslice, v, stream);
+  else if (rows == 16)
+    launch_partial<T, 16>(ta, tb, tws, m, k, n, splits, kslice, v, stream);
+  else if (rows == 32)
+    launch_partial<T, 32>(ta, tb, tws, m, k, n, splits, kslice, v, stream);
+  else
+    return -5;
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
   const dim3 grid((n + bn - 1) / bn, (m + bm - 1) / bm);
-  const TIn* ta = static_cast<const TIn*>(a);
-  const TIn* tb = static_cast<const TIn*>(b);
-#define ABFT_CASE(BM_, BN_)                                                   \
+#define SPLITK_CASE(BM_, BN_)                                                 \
   if (bm == BM_ && bn == BN_) {                                               \
-    abft_matmul_kernel<TIn, BM_, BN_><<<grid, THREADS, 0, stream>>>(          \
-        ta, tb, wm, wn, c, ccol, crow, m, k, n, f, out_kind);                 \
+    splitk_epilogue<TC, BM_, BN_><<<grid, THREADS, 0, stream>>>(              \
+        tws, splits, wm, wn, c, ccol, crow, m, n, f, out_kind);               \
     return 0;                                                                 \
   }
-  ABFT_CASE(16, 32) ABFT_CASE(16, 64) ABFT_CASE(16, 128)
-  ABFT_CASE(32, 32) ABFT_CASE(32, 64) ABFT_CASE(32, 128)
-  ABFT_CASE(64, 32) ABFT_CASE(64, 64) ABFT_CASE(64, 128)
-  ABFT_CASE(128, 32) ABFT_CASE(128, 64) ABFT_CASE(128, 128)
-#undef ABFT_CASE
+  SPLITK_CASE(16, 32) SPLITK_CASE(16, 64) SPLITK_CASE(16, 128)
+  SPLITK_CASE(32, 32) SPLITK_CASE(32, 64) SPLITK_CASE(32, 128)
+#undef SPLITK_CASE
+  return -3;
+}
+
+// The widest copy, from `maxw` down to the element size, that divides the
+// base pointer and the row stride.
+int copy_width(const void* p, long long row_bytes, int elem, int maxw) {
+  for (int w = maxw; w > elem; w /= 2)
+    if (reinterpret_cast<uintptr_t>(p) % w == 0 && row_bytes % w == 0)
+      return w;
+  return elem;
+}
+
+template <typename T>
+int launch_typed(const void* a, const void* b, const float* wm,
+                 const float* wn, void* c, float* ccol, float* crow, void* ws,
+                 int m, int k, int n, int f, int bm, int bn, int splits,
+                 int rows, int out_kind, int* info, cudaStream_t stream) {
+  constexpr int S = sizeof(T);
+  if (bm == 128 && (bn == 128 || bn == 64)) {
+    if (splits != 1) return -5;
+    const int wa = copy_width(a, static_cast<long long>(k) * S, S, 16);
+    const int wb = copy_width(b, static_cast<long long>(n) * S, S, 16);
+    if (info) { info[0] = 1; info[1] = wa; info[2] = wb; info[3] = 1; }
+    if (bn == 128)
+      return launch_mma<T, 128, 128>(a, b, wm, wn, c, ccol, crow, m, k, n, f,
+                                     out_kind, wa, wb, stream);
+    return launch_mma<T, 128, 64>(a, b, wm, wn, c, ccol, crow, m, k, n, f,
+                                  out_kind, wa, wb, stream);
+  }
+  if (bm == 16 || bm == 32) {
+    if (ws == nullptr) return -6;
+    // V = 1, 2 or 4 values a load
+    const int wb = copy_width(b, static_cast<long long>(n) * S, S, 4 * S);
+    if (info) { info[0] = 2; info[1] = S; info[2] = wb; info[3] = splits; }
+    return launch_splitk<T>(a, b, wm, wn, c, ccol, crow, ws, m, k, n, f, bm,
+                            bn, splits, rows, out_kind, wb, stream);
+  }
   return -3;
 }
 
@@ -85,13 +527,21 @@ int launch_typed(const void* a, const void* b, const float* wm, const float* wn,
 // Plain C entry point, bound with ctypes.  Pointers are device pointers of
 // contiguous row-major tensors: a [m, k], b [k, n], wm [f, m] fp32,
 // wn [n, f] fp32, c [m, n], ccol [ceil(m/bm), f, n] fp32,
-// crow [ceil(n/bn), m, f] fp32.  Launches on `stream` without synchronising.
-// Returns 0, cudaGetLastError() of the launch, or a negative code for
-// arguments the kernel does not take (-1 f, -2 dtype pair, -3 tile).
+// crow [ceil(n/bn), m, f] fp32, and for route B (bm 16 or 32) the
+// workspace ws [splits, m, n] of 4-byte values (fp32, int32 for int8), with
+// `rows` (4, 8, 16 or 32) rows of A a pass-1 CTA; route A takes splits 1.
+// `info`, a host array of 4 ints or null, receives the route (1 tensor-core
+// tiles, 2 split-k), A's and B's copy widths in bytes and the split count.
+// Launches on `stream` without synchronising.  Returns 0,
+// cudaGetLastError() of the launches, or a negative code for arguments the
+// kernel does not take (-1 f, -2 dtype pair, -3 tile, -4 empty shape,
+// -5 split count or rows, -6 missing workspace).
 extern "C" int abft_matmul_launch(const void* a, const void* b, const void* wm,
                                   const void* wn, void* c, void* ccol,
-                                  void* crow, int m, int k, int n, int f,
-                                  int bm, int bn, int in_kind, int out_kind,
+                                  void* crow, void* ws, int m, int k, int n,
+                                  int f, int bm, int bn, int splits,
+                                  int rows, int in_kind, int out_kind,
+                                  int* info,
                                   void* stream) {
   if (f < 1 || f > FMAX) return -1;
   if (m < 1 || k < 1 || n < 1) return -4;
@@ -102,14 +552,16 @@ extern "C" int abft_matmul_launch(const void* a, const void* b, const void* wm,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (in_kind == IN_F32 && (out_kind == OUT_F32 || out_kind == OUT_BF16)) {
-    rc = launch_typed<float>(a, b, fwm, fwn, c, fcol, frow, m, k, n, f, bm, bn,
-                             out_kind, s);
-  } else if (in_kind == IN_BF16 && (out_kind == OUT_F32 || out_kind == OUT_BF16)) {
-    rc = launch_typed<__nv_bfloat16>(a, b, fwm, fwn, c, fcol, frow, m, k, n, f,
-                                     bm, bn, out_kind, s);
+    rc = launch_typed<float>(a, b, fwm, fwn, c, fcol, frow, ws, m, k, n, f,
+                             bm, bn, splits, rows, out_kind, info, s);
+  } else if (in_kind == IN_BF16 &&
+             (out_kind == OUT_F32 || out_kind == OUT_BF16)) {
+    rc = launch_typed<__nv_bfloat16>(a, b, fwm, fwn, c, fcol, frow, ws, m, k,
+                                     n, f, bm, bn, splits, rows, out_kind,
+                                     info, s);
   } else if (in_kind == IN_I8 && out_kind == OUT_I32) {
-    rc = launch_typed<int8_t>(a, b, fwm, fwn, c, fcol, frow, m, k, n, f, bm, bn,
-                              out_kind, s);
+    rc = launch_typed<int8_t>(a, b, fwm, fwn, c, fcol, frow, ws, m, k, n, f,
+                              bm, bn, splits, rows, out_kind, info, s);
   } else {
     return -2;
   }

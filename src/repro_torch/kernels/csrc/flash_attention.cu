@@ -18,7 +18,10 @@
 // row sum l2 <- l2 * corr + sum p, summed from the P tile in shared memory
 // (a path apart from l's, which sums p in registers).  The epilogue writes
 // per row r_pv = |sum_d o - cs/l| / (|cs/l| + 1) over the fp32 o and
-// r_l = |l2/l - 1|, both 0 where l > 0 is false (a NaN l is not live);
+// r_l = |l2/l - 1|, both 0 on a row with no live key.  Liveness is read
+// from l2 > 0, not from l, the state a fault hits: a NaN or non-positive l
+// on a live row gives r_l = inf (the reference gates on l > 0 and misses
+// such a fault);
 // the wrapper takes the max over each bq-row tile with torch.amax, which
 // keeps a NaN.
 //
@@ -359,11 +362,13 @@ flash_kernel(Params prm) {
     if (CHECKSUM) {
       osum = hw_sum(osum);
       if (tx == 0 && row < sq) {
-        const bool live = l[i] > 0.0f;
+        const bool live = l2[i] > 0.0f;   // l itself may be the fault
         const float want = cs[i] / l_safe;
         const float r_pv =
             live ? fabsf(osum - want) / (fabsf(want) + 1.0f) : 0.0f;
-        const float r_l = live ? fabsf(l2[i] / l_safe - 1.0f) : 0.0f;
+        const float r_l = !live ? 0.0f
+            : l[i] > 0.0f ? fabsf(l2[i] / l_safe - 1.0f)
+                          : __int_as_float(0x7f800000);   // +inf
         float* rr = prm.rows + (static_cast<long long>(bh) * sq + row) * 2;
         rr[0] = r_pv;
         rr[1] = r_l;

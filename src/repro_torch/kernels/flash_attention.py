@@ -17,9 +17,13 @@ The checked variant also carries the V-column checksum
 ``cs <- cs * corr + p @ (sum_d v)`` and a second row sum
 ``l2 <- l2 * corr + p @ 1`` beside the state, and emits per q-tile of
 ``bq`` rows ``r_pv = max_rows |sum_d o - cs/l| / (|cs/l| + 1)`` and
-``r_l = max_rows |l2/l - 1|`` (0 on rows with no live key, a NaN ``l``
-reading as not live).  ``flash_attention_checked`` reads them, treats NaN
-as a trip, and recomputes only the flagged (bh, q-tile) tiles densely.
+``r_l = max_rows |l2/l - 1|``, both 0 on rows with no live key.  A row
+is live when its duplicate row sum ``l2`` is positive, not ``l``, which
+is the state a fault hits: a NaN or non-positive ``l`` on a live row
+gives ``r_l = inf``.  (The reference gates on ``l > 0`` and so misses an
+``l`` fault that makes ``l`` NaN or negative; the port departs from it
+there.)  ``flash_attention_checked`` reads the residuals, treats NaN as a
+trip, and recomputes only the flagged (bh, q-tile) tiles densely.
 
 ``inject=(qi, kk, delta, target)`` is the chaos drill's hook: ``delta`` is
 added to ``acc[row qi*bq, col 0]`` (target "acc") or ``l[row qi*bq]``
@@ -175,12 +179,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = o.to(q.dtype)
     if not checksum:
         return out
-    live = l > 0.0
+    live = l2 > 0.0                       # l itself may be the fault
     want = cs / l_safe
     r_pv = torch.where(live, torch.abs(torch.sum(o, dim=-1, keepdim=True)
                                        - want) / (torch.abs(want) + 1.0),
                        0.0)
-    r_l = torch.where(live, torch.abs(l2 / l_safe - 1.0), 0.0)
+    r_l = torch.where(live, torch.where(l > 0.0,
+                                        torch.abs(l2 / l_safe - 1.0),
+                                        torch.inf), 0.0)
     rows = torch.cat([r_pv, r_l], dim=-1)                        # [bh, sq, 2]
     return out, torch.amax(rows.view(bh, sq // bq, bq, 2), dim=2)
 

@@ -1,10 +1,12 @@
 """Dispatchers over the port's kernels.
 
-``pick_blocks`` plans the tiling for any (m, k, n): the CTA tile
-``(bm, bn)`` comes from the tiles the CUDA kernel is built for, and a time
-model over the H100's published memory and CUDA-core rates ranks the
-candidates.  ``abft_matmul`` runs the fused dual-checksum kernel (or, for a
-CPU tensor, its plain version) and reduces the per-tile partials.
+``pick_blocks`` plans the tiling for any (m, k, n) under a time model
+over the H100's published memory, tensor-core and CUDA-core rates.  A
+one-shot plan is one of kernel #1's routes: its tensor-core tiles, or for
+m <= 32 its split-k stream; an accumulate plan (``carry=True``) is one of
+kernel #2's CUDA-core tiles.  ``abft_matmul`` runs the fused
+dual-checksum kernel (or, for a CPU tensor, its plain version) and
+reduces the per-tile partials.
 ``abft_matmul_acc`` runs the accumulate step with its carried per-tile
 checksum state and fused verify/correct prologue: the kernel on a CUDA
 tensor, or the separate-op PyTorch twin (``backend="torch"``).
@@ -43,8 +45,8 @@ from repro_torch.kernels import ref
 __all__ = [
     "BlockPlan", "abft_matmul", "abft_matmul_acc", "acc_state_zeros",
     "checksum_encode", "correct_from_state", "detection_eps",
-    "kernel_weights", "pick_blocks", "rank_blocks", "reduce_state",
-    "smem_bytes", "tile_checksums",
+    "kernel_weights", "oneshot_smem_bytes", "pick_blocks", "rank_blocks",
+    "reduce_state", "smem_bytes", "tile_checksums",
 ]
 
 KERNEL_F = 2  # checksums per direction: plain sum + one weighted row
@@ -91,14 +93,21 @@ def detection_eps(dtype) -> float:
 # ---------------------------------------------------------------------------
 
 # Planner time model over published H100 SXM figures (NVIDIA data sheet):
-# device memory and the CUDA-core fp32 rate, which is what the kernel runs
-# on for every operand type.  A grid with fewer CTAs than SMs leaves SMs
-# idle, so the compute term scales with the share of SMs that get a CTA.
-# A model for ranking tiles, not a measurement.
+# device memory, the CUDA-core fp32 rate (kernel #2 and kernel #1's split-k
+# stream) and the dense tensor-core rates of kernel #1's tiles, where fp32
+# operands take three TF32 passes (3xTF32).  A grid with fewer CTAs than
+# SMs leaves SMs idle, so the compute term scales with the share of SMs
+# that get a CTA.  A model for ranking tiles, not a measurement.
 HBM_BW = 3.35e12                     # bytes/s
 CUDA_CORE_FLOPS = 67e12              # fp32 FMA rate, FLOP/s
-N_SM = 132
+TENSOR_FLOPS = {                     # kernel #1's tensor-core tiles, FLOP/s
+    torch.float32: 495e12 / 3,       # 3xTF32: three TF32 products
+    torch.bfloat16: 989e12,
+    torch.int8: 1979e12,
+}
+N_SM = 132                           # H100 SXM streaming multiprocessors
 SMEM_STATIC = 48 * 1024              # static shared memory per block
+SMEM_DYNAMIC = 232448                # most dynamic shared memory per block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +118,8 @@ class BlockPlan:
     dims rounded up to them (the kernel masks the ragged edge, so the
     padding costs idle lanes, not bytes); ``cost_bytes`` is the modeled
     device-memory traffic including the checksum-partial writes.
+    ``route`` is "mma" or "splitk" for kernel #1 (``kmm.route_of``) and
+    "cuda_core" for kernel #2; ``splits`` is a split-k plan's k slices.
     """
     m: int
     k: int
@@ -120,6 +131,8 @@ class BlockPlan:
     pk: int
     pn: int
     cost_bytes: int
+    route: str = "cuda_core"
+    splits: int = 1
 
     @property
     def grid(self) -> Tuple[int, int, int]:
@@ -139,20 +152,40 @@ def _round_up(x: int, b: int) -> int:
     return -(-x // b) * b
 
 
+def _cdiv(x: int, y: int) -> int:
+    return -(-x // y)
+
+
 def smem_bytes(bm: int, bn: int, bk: int = kmm.KT) -> int:
-    """Static shared memory of one CTA: the staged A/B slabs (widened to
-    4-byte fp32 or int32 for every operand type) or the epilogue's
-    partial-sum buffer, which reuses the same bytes."""
+    """Static shared memory of one kernel-#2 CTA: the staged A/B slabs
+    (widened to 4-byte fp32 or int32 for every operand type) or the
+    epilogue's partial-sum buffer, which reuses the same bytes."""
     loop = bk * (bm + 1 + bn) * 4
     epi = 16 * kmm.F_MAX * max(bm, bn) * 4
     return max(loop, epi)
 
 
+def oneshot_smem_bytes(bm: int, bn: int, in_dtype=torch.float32) -> int:
+    """Shared memory of one kernel-#1 CTA.  Tensor-core tiles (dynamic):
+    a 3-stage ring of ``bm`` rows x 128 bytes of A and 128 bytes' worth of
+    k rows of B (rows padded by 16 bytes, 32 for fp32 B), whose bytes then
+    hold the staged fp32 tile and the epilogue's buffer.  Split-k (static):
+    pass 1's slice of A or its reduction buffer (32 KB at most), pass 2's
+    epilogue buffer."""
+    epi = 16 * kmm.F_MAX * max(bm, bn) * 4
+    if kmm.route_of(bm, bn) == "mma":
+        s = in_dtype.itemsize
+        ring = 3 * (bm * (128 + 16) + (128 // s) * (bn * s + (32 if s == 4
+                                                              else 16)))
+        return max(ring, bm * (bn + 4) * 4, epi)
+    return max(32 * 1024, epi)
+
+
 def _plan_time(plan: BlockPlan, in_bytes: int, out_bytes: int, f: int,
                carry: bool = False):
-    """(modeled seconds, modeled bytes) of one launch under ``plan``;
-    ``carry`` adds the accumulate kernel's reads of C_in and of the carried
-    state and its stats writes."""
+    """(modeled seconds, modeled bytes) of one kernel-#2 launch under
+    ``plan`` (CUDA cores); ``carry`` adds the accumulate kernel's reads of
+    C_in and of the carried state and its stats writes."""
     mt, nt, _ = plan.grid
     m, k, n = plan.m, plan.k, plan.n
     cs_bytes = mt * f * n * 4 + nt * m * f * 4          # checksum partials
@@ -168,22 +201,85 @@ def _plan_time(plan: BlockPlan, in_bytes: int, out_bytes: int, f: int,
     return t, total_bytes
 
 
+def _oneshot_time(plan: BlockPlan, in_dtype, out_bytes: int, f: int):
+    """(modeled seconds, modeled bytes) of one kernel-#1 call.  Tensor-core
+    tiles: A once per column of tiles, B once per row of tiles, the
+    products at the tensor-core rate of the operand type.  Split-k: B once,
+    A once per 128 columns, the fp32 workspace written and read once, the
+    products on CUDA cores over ``ceil(n/128) x splits`` CTAs.  A grid
+    with fewer CTAs than SMs leaves both the idle SMs' compute and their
+    share of the memory bandwidth unused."""
+    mt, nt, _ = plan.grid
+    m, k, n = plan.m, plan.k, plan.n
+    in_bytes = in_dtype.itemsize
+    fixed = m * n * out_bytes + mt * f * n * 4 + nt * m * f * 4
+    epi_flops = 4 * f * plan.pm * plan.pn
+    if plan.route == "mma":
+        total = m * k * nt * in_bytes + k * n * mt * in_bytes + fixed
+        ctas, rate = mt * nt, TENSOR_FLOPS[in_dtype]
+        flops = 2 * plan.pm * plan.pk * plan.pn + epi_flops
+    else:
+        cols = _cdiv(n, kmm.SPLIT_COLS)
+        total = (m * k * cols * in_bytes + k * n * in_bytes
+                 + 2 * plan.splits * m * n * 4 + fixed)
+        ctas, rate = cols * plan.splits, CUDA_CORE_FLOPS
+        flops = 2 * plan.pm * k * cols * kmm.SPLIT_COLS + epi_flops
+    fill = min(1.0, ctas / _sms())
+    return max(total / HBM_BW, flops / rate) / fill, total
+
+
+def _sms() -> int:
+    """SMs of the current card, or the model's ``N_SM`` without one: what
+    kernel #1's split count and its plans' SM fill are taken for."""
+    if torch.cuda.is_available():
+        return kmm.sm_count(torch.cuda.current_device())
+    return N_SM
+
+
+def _oneshot_candidates(m: int, k: int, n: int, in_dtype):
+    """Kernel #1's plans: each tensor-core tile, and for m <= 32 the
+    split-k stream on the smallest row tile that holds m, at each width."""
+    bk = 128 // in_dtype.itemsize              # k per stage of the ring
+    for bm, bn in kmm.MMA_TILES:
+        yield BlockPlan(m=m, k=k, n=n, bm=bm, bn=bn, bk=bk,
+                        pm=_round_up(m, bm), pk=_round_up(k, bk),
+                        pn=_round_up(n, bn), cost_bytes=0, route="mma")
+    if m <= max(kmm.SPLITK_TILES_M):
+        bm = min(t for t in kmm.SPLITK_TILES_M if t >= m)
+        splits = kmm.split_count(m, k, n, _sms())
+        for bn in kmm.TILES_N:
+            yield BlockPlan(m=m, k=k, n=n, bm=bm, bn=bn, bk=kmm.KT,
+                            pm=_round_up(m, bm), pk=_round_up(k, kmm.KT),
+                            pn=_round_up(n, bn), cost_bytes=0,
+                            route="splitk", splits=splits)
+
+
 def rank_blocks(m: int, k: int, n: int, *, in_dtype=torch.float32,
                 out_bytes: int = 4, f: int = KERNEL_F, carry: bool = False,
                 require_exact: bool = False) -> list:
     """All tilings for an (m, k, n) ABFT-GEMM, best-first.
 
-    Candidates are the CTA tiles the kernels are built for (k staged in
-    ``KT`` slabs); each is scored by the modeled time
-    ``max(bytes / HBM_BW, FLOPs / (rate * SM fill))``, ties broken toward
-    fewer bytes, then bigger tiles.  ``carry`` prices the accumulate
-    kernel's extra traffic.  ``require_exact`` keeps only tilings that
-    divide (m, k, n) with no ragged edge, as the reference's SUMMA local
-    update asks for its long-lived carried state (the kernels mask ragged
-    edges, so a ragged plan is a choice, not a fault).
+    One-shot (``carry=False``): kernel #1's routes, each scored by
+    ``_oneshot_time``.  Accumulate (``carry=True``): kernel #2's CUDA-core
+    tiles (k staged in ``KT`` slabs), each scored by ``_plan_time``, the
+    modeled ``max(bytes / HBM_BW, FLOPs / (rate * SM fill))`` with the
+    accumulate kernel's extra traffic.  Ties go toward fewer bytes, then
+    bigger tiles.  ``require_exact`` keeps only tilings that divide (m, k,
+    n) with no ragged edge, as the reference's SUMMA local update asks for
+    its long-lived carried state (the kernels mask ragged edges, so a
+    ragged plan is a choice, not a fault).
     """
-    in_bytes = in_dtype.itemsize
     ranked = []
+    if not carry:
+        for cand in _oneshot_candidates(m, k, n, in_dtype):
+            if require_exact and not cand.exact:
+                continue
+            t, cost = _oneshot_time(cand, in_dtype, out_bytes, f)
+            ranked.append(((t, cost, -(cand.bm * cand.bn)),
+                           dataclasses.replace(cand, cost_bytes=cost)))
+        ranked.sort(key=lambda kp: kp[0])
+        return [p for _, p in ranked]
+    in_bytes = in_dtype.itemsize
     for bm in kmm.TILES_M:
         for bn in kmm.TILES_N:
             if smem_bytes(bm, bn) > SMEM_STATIC:
@@ -228,7 +324,7 @@ def _run_oneshot(plan: BlockPlan, out_dtype, a, b, wm, wn):
     c, ccol, crow = kmm.abft_matmul_cuda(
         a.contiguous(), b.contiguous(), wm.float().contiguous(),
         wn.float().contiguous(), bm=plan.bm, bn=plan.bn, bk=plan.bk,
-        out_dtype=out_dtype)
+        out_dtype=out_dtype, splits=plan.splits)
     cs_col = ccol.sum(dim=0)[:, : plan.n]
     cs_row = crow.sum(dim=0)[: plan.m, :]
     return c[: plan.m, : plan.n], cs_col, cs_row

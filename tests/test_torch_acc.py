@@ -474,12 +474,14 @@ def test_kernel_digest_follows_included_headers(tmp_path, monkeypatch):
     assert d1 != d0
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edit\n')
     assert build.source_digest("k") not in (d0, d1)
-    # the real sources: both kernels include the shared tile header
+    # the real sources: both kernels include the shared tile header, and
+    # the one-shot kernel the tensor-core helpers
     monkeypatch.undo()
-    for name in ("abft_matmul", "abft_matmul_acc"):
+    for name, headers in (("abft_matmul", {"abft_tile.cuh", "abft_mma.cuh"}),
+                          ("abft_matmul_acc", {"abft_tile.cuh"})):
         seen = set()
         build._local_includes((build.CSRC / f"{name}.cu").resolve(), seen)
-        assert {p.name for p in seen} == {f"{name}.cu", "abft_tile.cuh"}
+        assert {p.name for p in seen} == {f"{name}.cu", *headers}
 
 
 @pytest.mark.gpu

@@ -169,6 +169,34 @@ def test_nan_inject_into_acc_is_flagged(rs):
     np.testing.assert_allclose(to_np(o), to_np(jo), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("delta", [float("nan"), -1e4])
+@pytest.mark.parametrize("kk", [0, 1, 3])
+def test_l_fault_that_kills_l_is_flagged_unlike_reference(kk, delta):
+    """An ``l`` inject that leaves ``l`` NaN or negative.  The reference
+    reads such a row as having no live key (``live = l > 0``) and flags
+    nothing; the port decides liveness from the duplicate row sum ``l2``
+    and reads the dead ``l`` as a trip: it flags tile (0, 1) and repairs it
+    to the clean output within the reference's own margin for the -1
+    inject it does catch (1e-6).  This is where the port departs from the
+    reference."""
+    rs = np.random.RandomState(0)
+    a = [rs.standard_normal((2, 256, D)).astype(np.float32)
+         for _ in range(3)]
+    jq, jk, jv = (jnp.asarray(x) for x in a)
+    q, k, v = (torch.from_numpy(x) for x in a)
+    kw = dict(scale=D ** -0.5, causal=True, bq=64, bk=64)
+    inject = (1, kk, delta, "l")
+    _, jrep = j_checked(jq, jk, jv, interpret=True, inject=inject, **kw)
+    assert jrep.detected == ()
+    o, rep = F.flash_attention_checked(q, k, v, inject=inject, **kw)
+    assert rep.detected == ((0, 1),) and rep.repaired == 1
+    assert math.isinf(rep.max_rowsum_residual) \
+        or math.isnan(rep.max_rowsum_residual)
+    clean = F.flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(o).all()
+    assert float((o - clean).abs().max()) <= 1e-6
+
+
 def test_stats_shape_and_block_contract(rs):
     _, (q, k, v) = _inputs(rs, torch.float32)
     o, stats = F.flash_attention_plain(q, k, v, scale=0.125, bq=128, bk=256,

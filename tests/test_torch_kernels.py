@@ -17,7 +17,7 @@ from repro.kernels.abft_matmul import abft_matmul_pallas
 from repro_torch.kernels import abft_matmul as kmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from torch_port_helpers import assert_close, to_np, to_torch
+from torch_port_helpers import RTOL, assert_close, to_np, to_torch
 
 SHAPES = [(130, 200, 70), (256, 384, 256)]
 
@@ -182,20 +182,207 @@ def test_decode_shape_takes_the_kernel_at_any_padding(rs):
         assert_close(got, exp)
 
 
+SERVE_SHAPES = [(896, 898), (896, 130), (896, 4866), (4864, 898)]  # (k, n_enc)
+
+
 def test_planner_covers_serving_shapes():
-    """Every serving projection shape gets a tile the kernel is built for,
-    within the static shared-memory budget; decode takes the 16-row tile."""
+    """Every serving projection shape gets a plan kernel #1 is built for:
+    a tensor-core tile within the dynamic shared-memory budget, or a
+    split-k tile within the static one, whose k slices are all non-empty
+    and at most ``SPLIT_KMAX`` rows; decode takes the split-k stream on
+    the 16-row tile, prefill the tensor-core tiles."""
     for m in (4, 1024):
-        for k, n in [(896, 898), (896, 130), (896, 4866), (4864, 898)]:
+        for k, n in SERVE_SHAPES:
             for dt in (torch.float32, torch.bfloat16, torch.int8):
                 plan = ops.pick_blocks(m, k, n, in_dtype=dt)
-                assert plan.bm in kmm.TILES_M and plan.bn in kmm.TILES_N
+                assert plan.route == kmm.route_of(plan.bm, plan.bn)
                 assert plan.bk % kmm.KT == 0
-                assert ops.smem_bytes(plan.bm, plan.bn, plan.bk) \
-                    <= ops.SMEM_STATIC
+                smem = ops.oneshot_smem_bytes(plan.bm, plan.bn, dt)
+                if plan.route == "mma":
+                    assert (plan.bm, plan.bn) in kmm.MMA_TILES
+                    assert smem <= ops.SMEM_DYNAMIC and plan.splits == 1
+                else:
+                    assert plan.bm in kmm.SPLITK_TILES_M
+                    assert smem <= ops.SMEM_STATIC
+                    assert plan.splits == kmm.split_count(m, k, n,
+                                                          ops.N_SM)
+                    kslice = -(-k // plan.splits)
+                    assert kslice <= kmm.SPLIT_KMAX
+                    assert (plan.splits - 1) * kslice < k
                 assert plan.pm >= m and plan.pn >= n and plan.pk >= k
                 if m == 4:
-                    assert plan.bm == 16
+                    assert plan.route == "splitk" and plan.bm == 16
+                else:
+                    assert plan.route == "mma"
+
+
+@pytest.mark.parametrize("m", [4, 16, 1024, 2048])
+def test_decode_takes_split_k_and_prefill_takes_tensor_cores(m):
+    """m = 4 and 16 (decode slots) stream B in k slices; m = 1024 and 2048
+    (prefill, a training step's batch x seq) take the tensor-core tiles, at
+    every serving shape and operand type."""
+    want = "splitk" if m <= 16 else "mma"
+    for k, n in SERVE_SHAPES:
+        for dt in (torch.float32, torch.bfloat16, torch.int8):
+            assert ops.pick_blocks(m, k, n, in_dtype=dt,
+                                   out_bytes=4).route == want
+
+
+# kernel #2's plans (carry=True): the accumulate kernel, SUMMA and the chaos
+# campaign plan through them, so they stay as they were before kernel #1
+# gained its routes: (bm, bn, bk, pm, pk, pn, cost_bytes), and the full
+# ranking at the SUMMA step shape
+CARRY_PLANS = [
+    ((3072, 3072, 3072), dict(in_dtype=torch.float32, out_bytes=4,
+                              require_exact=True),
+     (128, 128, 16, 3072, 3072, 3072, 1889814528)),
+    ((3072, 3072, 3072), dict(in_dtype=torch.bfloat16, out_bytes=4,
+                              require_exact=True),
+     (128, 128, 16, 3072, 3072, 3072, 983844864)),
+    ((3072, 3072, 3072), dict(in_dtype=torch.int8, out_bytes=4,
+                              require_exact=True),
+     (128, 128, 16, 3072, 3072, 3072, 530860032)),
+    ((256, 256, 256), dict(require_exact=True),          # the campaign
+     (32, 32, 16, 256, 256, 256, 4786176)),
+    ((128, 128, 128), dict(in_dtype=torch.float32, out_bytes=4,
+                           require_exact=True),          # a SUMMA test block
+     (16, 32, 16, 128, 128, 128, 943104)),
+    ((8, 8, 8), dict(), (16, 32, 16, 16, 16, 32, 1312)),
+    ((8, 8, 8), dict(require_exact=True), None),
+    ((200, 136, 328), dict(), (32, 32, 16, 224, 144, 352, 3045024)),
+]
+
+
+@pytest.mark.parametrize("shape,kw,want", CARRY_PLANS)
+def test_accumulate_plans_are_unchanged(shape, kw, want):
+    plan = ops.pick_blocks(*shape, carry=True, **kw)
+    got = None if plan is None else (plan.bm, plan.bn, plan.bk, plan.pm,
+                                     plan.pk, plan.pn, plan.cost_bytes)
+    assert got == want
+    if plan is not None:
+        assert plan.route == "cuda_core" and plan.splits == 1
+
+
+def test_accumulate_rankings_are_unchanged():
+    ranked = [(p.bm, p.bn, p.cost_bytes) for p in ops.rank_blocks(
+        3072, 3072, 3072, in_dtype=torch.float32, out_bytes=4, carry=True,
+        require_exact=True)]
+    assert ranked == [
+        (128, 128, 1889814528), (64, 128, 2796982272),
+        (128, 64, 2796982272), (64, 64, 3704168448), (32, 128, 4611317760),
+        (128, 32, 4611317760), (32, 64, 5518540800), (64, 32, 5518540800),
+        (32, 32, 7332986880), (16, 128, 8239988736), (16, 64, 9147285504),
+        (16, 32, 10961879040)]
+    ranked = [(p.bm, p.bn, p.cost_bytes) for p in ops.rank_blocks(
+        256, 256, 256, carry=True, require_exact=True)]
+    assert ranked == [
+        (32, 32, 4786176), (16, 64, 5851136), (16, 32, 6918144),
+        (32, 64, 3720192), (64, 32, 3720192), (16, 128, 5317632),
+        (64, 64, 2654720), (32, 128, 3187200), (128, 32, 3187200),
+        (64, 128, 2121984), (128, 64, 2121984), (128, 128, 1589376)]
+    ranked = [(p.bm, p.bn, p.cost_bytes) for p in ops.rank_blocks(
+        96, 64, 160, carry=True, require_exact=True)]
+    assert ranked == [(16, 32, 515520), (32, 32, 384480)]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits), nearest with ties away from zero:
+    half a TF32 ulp added to the bits, the 13 low mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product_3xtf32(a, b):
+    """The kernel's 3xTF32 product in plain fp32: a = a_hi + a_lo and
+    b = b_hi + b_lo, each part rounded to TF32, the small terms first."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _within(x, ref):
+    """chip_smoke.py's criterion: |x - ref| <= RTOL (|ref| + max|ref|)."""
+    x, ref = x.double(), ref.double()
+    tol = RTOL * ref.abs() + RTOL * float(ref.abs().max())
+    return bool(((x - ref).abs() <= tol).all())
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -12, 1.0 + 3 * 2 ** -12,
+                      -(1.0 + 2 ** -11), 3.0e-3], dtype=torch.float32)
+    got = _tf32(x).tolist()
+    assert got[0] == 1.0
+    assert got[1] == 1.0 + 2 ** -10          # a tie rounds away from zero
+    assert got[2] == 1.0                     # under half an ulp: down
+    assert got[3] == 1.0 + 2 ** -10          # over half an ulp: up
+    assert got[4] == -(1.0 + 2 ** -10)
+    lo = x - _tf32(x)
+    assert bool((lo.abs() <= 2 ** -11 * x.abs()).all())
+
+
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("k,n_enc", SERVE_SHAPES)
+def test_3xtf32_product_holds_the_fp32_tolerance(m, k, n_enc):
+    """The kernel's fp32 route: a 3xTF32 product of the served operands
+    (x and an encoded weight) stays within chip_smoke.py's RTOL of the fp32
+    product, and its fused-verify residual passes ``_residual_ok``."""
+    from repro_torch.core import abft_gemm as ag
+    rs = np.random.RandomState(m + k + n_enc)
+    cfg = ag.ABFTConfig(mode="verify")
+    n = n_enc - cfg.f
+    x = torch.from_numpy(rs.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy((rs.standard_normal((k, n)) * k ** -0.5)
+                         .astype(np.float32))
+    w_enc = ag.encode_weight(w, cfg)
+    y_f = _product_3xtf32(x, w_enc)
+    assert _within(y_f, x @ w_enc)
+    residual = y_f @ ag._residual_weights(n, cfg.f, cfg.seed, "cpu")
+    assert bool(ag._residual_ok(y_f[:, :n], residual, cfg))
+
+
+def test_one_tf32_pass_misses_the_fp32_tolerance():
+    """Why the split: one TF32 product (2^-11 a term) at the down
+    projection's k = 4864 misses RTOL, where 3xTF32 holds it."""
+    rs = np.random.RandomState(0)
+    a = torch.from_numpy(rs.standard_normal((64, 4864)).astype(np.float32))
+    b = torch.from_numpy((rs.standard_normal((4864, 898)) * 4864 ** -0.5)
+                         .astype(np.float32))
+    ref = a @ b
+    assert not _within(_tf32(a) @ _tf32(b), ref)
+    assert _within(_product_3xtf32(a, b), ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 896, 898), (5, 900, 130),
+                                   (16, 4864, 898), (4, 50, 70)])
+def test_split_k_partials_summed_in_order_give_the_plain_layout(rs, m, k, n):
+    """The split-k route's arithmetic in plain PyTorch: fp32 partials of
+    ``split_count`` k slices, summed in split order, then the epilogue's
+    per-tile reduction of the stored tile (``ops.tile_checksums``), give
+    the plain version's c / ccol / crow layout and values."""
+    a = torch.from_numpy(rs.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal((k, n)).astype(np.float32))
+    wm = ops.kernel_weights(m)
+    wn = ops.kernel_weights(n).T.contiguous()
+    plan = ops.pick_blocks(m, k, n)
+    assert plan.route == "splitk"
+    splits = plan.splits
+    assert splits == kmm.split_count(m, k, n, ops.N_SM)
+    kslice = -(-k // splits)
+    parts = [a[:, s * kslice:(s + 1) * kslice]
+             @ b[s * kslice:(s + 1) * kslice] for s in range(splits)]
+    assert all(p.shape == (m, n) for p in parts)
+    assert 0 < k - (splits - 1) * kslice <= kslice <= kmm.SPLIT_KMAX
+    c = parts[0].clone()
+    for p in parts[1:]:
+        c = c + p
+    ccol, crow = ops.tile_checksums(c, wm, wn, plan.bm, plan.bn)
+    c_p, ccol_p, crow_p = kmm.abft_matmul_plain(a, b, wm, wn, bm=plan.bm,
+                                                bn=plan.bn)
+    assert ccol.shape == ccol_p.shape and crow.shape == crow_p.shape
+    s_col, s_row = _checksum_scales(c_p, wm.numpy(), wn.numpy())
+    assert_close(c, c_p)
+    assert_close(ccol, ccol_p, scale=s_col)
+    assert_close(crow, crow_p, scale=s_row)
 
 
 def test_detection_eps_matches_reference():
@@ -219,6 +406,9 @@ def test_wrapper_raises_instead_of_falling_back(rs):
     with pytest.raises(ValueError):     # tile not built
         kmm.abft_matmul_cuda(cpu(32, 16), cpu(16, 64), cpu(2, 32),
                              cpu(64, 2), bm=48, bn=64)
+    with pytest.raises(ValueError):     # kernel #2's tile, not kernel #1's:
+        kmm.abft_matmul_plain(cpu(32, 16), cpu(16, 64), cpu(2, 32),
+                              cpu(64, 2), bm=64, bn=64)   # the plain refuses
     with pytest.raises(TypeError):      # int8 into a float output
         kmm.abft_matmul_cuda(cpu(32, 16).to(torch.int8),
                              cpu(16, 64).to(torch.int8), cpu(2, 32),
@@ -233,13 +423,19 @@ def test_wrapper_raises_instead_of_falling_back(rs):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_cuda_kernel_matches_plain_on_card(dtype):
+    """Both routes (split-k at decode sizes, tensor-core tiles at prefill
+    and training sizes), ragged shapes included, against the plain version;
+    a repeated call is bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc: the CUDA kernel has no CPU "
                     "mode (chip_smoke.py runs this comparison on the H100)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    for m, k, n in [(4, 896, 898), (1024, 896, 130), (37, 50, 70)]:
+    routes = set()
+    for m, k, n in [(4, 896, 898), (16, 896, 4866), (1024, 896, 130),
+                    (2048, 896, 898), (37, 50, 70), (5, 900, 130),
+                    (1000, 900, 898)]:
         if dtype == torch.int8:
             a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                               dtype=torch.int8)
@@ -252,12 +448,15 @@ def test_cuda_kernel_matches_plain_on_card(dtype):
         wn = ops.kernel_weights(n, device="cuda").T.contiguous()
         plan = ops.pick_blocks(m, k, n, in_dtype=dtype)
         out = None if dtype == torch.int8 else torch.float32
-        got = kmm.abft_matmul_cuda(a, b, wm, wn, bm=plan.bm, bn=plan.bn,
-                                   out_dtype=out)
-        want = kmm.abft_matmul_plain(a, b, wm, wn, bm=plan.bm, bn=plan.bn,
-                                     out_dtype=out)
+        kw = dict(bm=plan.bm, bn=plan.bn, bk=plan.bk, out_dtype=out)
+        got = kmm.abft_matmul_cuda(a, b, wm, wn, **kw)
+        routes.add(kmm.last_route["route"])
+        again = kmm.abft_matmul_cuda(a, b, wm, wn, **kw)
+        want = kmm.abft_matmul_plain(a, b, wm, wn, **kw)
         torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
         if dtype == torch.int8:
             assert torch.equal(got[0], want[0])
         for x, y in zip(got, want):
             assert_close(x, y)
+    assert routes == {"mma", "splitk"}
