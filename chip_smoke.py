@@ -36,13 +36,17 @@ exits non-zero without printing a result):
                 plain-version call; each prefill's logits against the
                 plain path within a tolerance measured from fp32
                 activations, and every first token equal to its argmax;
-  6. acc      — the accumulate kernel against its plain version at the
-                SUMMA step shape (3072^3: fp32, bf16 and int8 operands), a
-                ragged shape and the chaos campaign's 256^3 drills on the
-                32 x 32 tiles its runner plans (fp32, bf16, int8), with
-                kernel, plain, torch.addmm and bound times; a clean
-                two-call chain re-verifies with residual exactly 0; flip
-                drills: five single flips located and
+  6. acc      — the accumulate kernel against its plain version on both
+                routes: tensor-core tiles at the SUMMA step shape (3072^3:
+                fp32, bf16 and int8 operands; fp32 also in place, as the
+                SUMMA calls it) and a ragged, misaligned 1000 x 900 x 898
+                (every operand type), CUDA cores at a ragged shape and the
+                chaos campaign's 256^3 drills on the 32 x 32 tiles its
+                runner plans (fp32, bf16, int8); each row with its route,
+                tile and copy widths, two calls bit-identical, kernel,
+                plain, torch.addmm and bound times; a clean two-call chain
+                re-verifies with residual exactly 0; flip drills on the
+                tensor-core tile: five single flips located and
                 repaired, two flips in two tiles, an int8 data flip repaired
                 bit-exactly, a carried-ccol flip detected and not repaired;
   7. summa    — repro_torch.core.abft_summa on an 8 x 8 grid of 3072 blocks
@@ -72,9 +76,11 @@ exits non-zero without printing a result):
                 D 64, causal; fp32 and bf16, plain and checked), Gemma2-2B's
                 local attention (2 x 8 heads, S 8192, D 256, window 4096,
                 softcap 50, bf16, checked), a rectangular non-causal
-                256 x 1024 case and the chaos campaign's drill shape (2
+                256 x 1024 case, the chaos campaign's drill shape (2
                 heads, S 512, D 64, causal, fp32, bq = bk = 128, plain and
-                checked), with kernel, plain, SDPA (where one call
+                checked) and B.H = 65,540 heads of S 64, D 64 (past
+                grid.y's 65,535; plain and checked), with kernel, plain,
+                SDPA (where one call
                 computes the same function) and bound times; a clean checked
                 run flags nothing; injects into acc and l before, on and
                 past the diagonal, a NaN into acc, and a NaN and a -1e4
@@ -463,15 +469,21 @@ def phase_build(torch, record):
                  "parallel)")
 
 
-ACC_CASES = [                   # (m, k, n, operand dtype, pinned tile)
-    (3072, 3072, 3072, "float32", None),     # the SUMMA step
-    (3072, 3072, 3072, "bfloat16", None),
-    (3072, 3072, 3072, "int8", None),
-    (200, 136, 328, "float32", (64, 64)),    # ragged edges in every direction
+ACC_CASES = [       # (m, k, n, operand dtype, pinned tile, in place)
+    (3072, 3072, 3072, "float32", None, False),    # the SUMMA step
+    (3072, 3072, 3072, "bfloat16", None, False),
+    (3072, 3072, 3072, "int8", None, False),
+    (3072, 3072, 3072, "float32", None, True),     # as the SUMMA calls it
+    # ragged and misaligned on the tensor-core route: 898 fp32 columns are
+    # 8 mod 16 bytes a row
+    (1000, 900, 898, "float32", (128, 64), False),
+    (1000, 900, 898, "bfloat16", (128, 64), False),
+    (1000, 900, 898, "int8", (128, 64), False),
+    (200, 136, 328, "float32", (64, 64), False),   # ragged, CUDA cores
     # the chaos campaign's drills, on the tiles its runner plans (32 x 32)
-    (256, 256, 256, "float32", "campaign"),
-    (256, 256, 256, "bfloat16", "campaign"),
-    (256, 256, 256, "int8", "campaign"),
+    (256, 256, 256, "float32", "campaign", False),
+    (256, 256, 256, "bfloat16", "campaign", False),
+    (256, 256, 256, "int8", "campaign", False),
 ]
 
 
@@ -520,7 +532,7 @@ def phase_acc(torch, record):
     g = torch.Generator(device="cuda").manual_seed(2)
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     rows = []
-    for m, k, n, name, tile in ACC_CASES:
+    for m, k, n, name, tile, in_place in ACC_CASES:
         dt = getattr(torch, name)
         if tile is None:
             plan = ops.pick_blocks(m, k, n, in_dtype=dt, out_bytes=4,
@@ -542,9 +554,23 @@ def phase_acc(torch, record):
         # state the first one wrote
         c1, ccol1, crow1, _ = kmm.abft_matmul_acc_cuda(a0, b0, c0, *st0, wm,
                                                        wn, **kw)
-        got = kmm.abft_matmul_acc_cuda(a, b, c1, ccol1, crow1, wm, wn, **kw)
         want = kmm.abft_matmul_acc_plain(a, b, c1, ccol1, crow1, wm, wn, **kw)
+        got = kmm.abft_matmul_acc_cuda(a, b, c1, ccol1, crow1, wm, wn, **kw)
+        route = dict(kmm.last_acc_route)
+        again = kmm.abft_matmul_acc_cuda(a, b, c1, ccol1, crow1, wm, wn, **kw)
+        if in_place:
+            # the SUMMA's call: C_out and the new state over the inputs,
+            # bit for bit the out-of-place result
+            ins = (c1.clone(), ccol1.clone(), crow1.clone())
+            got = kmm.abft_matmul_acc_cuda(a, b, *ins, wm, wn, **kw, out=ins)
         torch.cuda.synchronize()
+        want_route = kmm.route_of(bm, bn, carry=True)
+        if route["route"] != want_route or tuple(route["tile"]) != (bm, bn):
+            raise AssertionError(f"{(m, k, n, name)} ran {route}, planned "
+                                 f"{want_route} on {(bm, bn)}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"two calls differ at {(m, k, n, name)}"
+                                 + (" (in place)" if in_place else ""))
         stats = got[3]
         if float(stats[..., 4:6].abs().max()) != 0.0:
             raise AssertionError(f"clean chain re-verified with residual "
@@ -575,13 +601,20 @@ def phase_acc(torch, record):
             c1b = c1.to(dt)
             lib = lambda: torch.addmm(c1b, a, b)         # noqa: E731
         reps = 5 if m * n * k > 1e9 else 20
-        ms = time_ms(torch, lambda: kmm.abft_matmul_acc_cuda(
-            a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
+        if in_place:
+            ms = time_ms(torch, lambda: kmm.abft_matmul_acc_cuda(
+                a, b, *ins, wm, wn, **kw, out=ins), reps, flush)
+        else:
+            ms = time_ms(torch, lambda: kmm.abft_matmul_acc_cuda(
+                a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
         plain_ms = time_ms(torch, lambda: kmm.abft_matmul_acc_plain(
             a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
         lib_ms = time_ms(torch, lib, reps, flush) if lib else None
         b_ms, b_by, b_cuda = acc_bound(m, k, n, 2, name, 4, bm, bn)
         row = dict(m=m, k=k, n=n, dtype=name, tile=[bm, bn],
+                   route=route["route"], in_place=in_place,
+                   copy_bytes=[route["copy_a"], route["copy_b"]],
+                   repeat_bit_identical=True,
                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                    bound_cuda_core_ms=b_cuda, clean_residual=0.0)
@@ -1149,6 +1182,9 @@ FLASH_CASES = [
      128),
     ("campaign drill", 2, 512, 512, 64, "float32", True, None, None, True,
      128),
+    # B.H past grid.y's 65535, which the reference does not bound
+    ("B.H 65540", 65540, 64, 64, 64, "float32", True, None, None, False, 64),
+    ("B.H 65540", 65540, 64, 64, 64, "float32", True, None, None, True, 64),
 ]
 FLASH_BLOCK = 256
 BF16_ULP = 2.0 ** -7          # one bf16 ulp, relative

@@ -20,20 +20,23 @@ verify/correct prologue that repairs a single corrupted element of each C_in
 tile before accumulating, and per-tile ``stats [ceil(m/bm), ceil(n/bn),
 STATS_WIDTH]``; the counterpart of ``abft_matmul_acc_pallas``.
 
-The kernels live in ``csrc/abft_matmul.cu`` (with ``abft_mma.cuh``) and
-``csrc/abft_matmul_acc.cu``; both end in ``abft_tile.cuh``'s epilogue (see
-their headers for what bounds them).  Kernel #1 has two routes, picked by
-the tile: ``MMA_TILES`` run tensor-core tiles (3xTF32 for fp32 operands)
-behind a cp.async ring, for prefill and training; a tile of
-``SPLITK_TILES_M`` rows streams B in ``split_count`` k slices into an fp32
-workspace and sums them in split order, for decode (the split policy,
-``split_rows`` and ``split_count``, lives here alone).  On a CUDA tensor a
-wrapper launches its kernel or raises; on a CPU tensor, and only there, it
-runs its plain version (``abft_matmul_plain``, ``abft_matmul_acc_plain``).
-``launches`` / ``acc_launches`` count wrapper calls that launched a kernel
-(a split-k call is two kernels and counts once), ``plain_calls`` /
-``acc_plain_calls`` plain-version calls; ``last_route`` says how the last
-kernel #1 call ran.
+The kernels live in ``csrc/abft_matmul.cu`` and ``csrc/abft_matmul_acc.cu``;
+both run ``abft_mma.cuh``'s ring mainloop on their tensor-core tiles and
+end in ``abft_tile.cuh``'s epilogue (see their headers for what bounds
+them).  The tile picks the route, and ``route_of`` is the one place that
+says which: ``MMA_TILES`` run tensor-core tiles (3xTF32 for fp32 operands)
+behind a cp.async ring in both kernels, for prefill, training and the
+SUMMA step; kernel #1's tiles of ``SPLITK_TILES_M`` rows stream B in
+``split_count`` k slices into an fp32 workspace and sum them in split
+order, for decode (the split policy, ``split_rows`` and ``split_count``,
+lives here alone); kernel #2's other tiles run on CUDA cores.  On a CUDA
+tensor a wrapper launches its kernel or raises; on a CPU tensor, and only
+there, it runs its plain version (``abft_matmul_plain``,
+``abft_matmul_acc_plain``).  ``launches`` / ``acc_launches`` count wrapper
+calls that launched a kernel (a split-k call is two kernels and counts
+once), ``plain_calls`` / ``acc_plain_calls`` plain-version calls;
+``last_route`` / ``last_acc_route`` say how the last call of each kernel
+ran.
 """
 from __future__ import annotations
 
@@ -47,12 +50,15 @@ import torch.nn.functional as F
 __all__ = ["abft_matmul_cuda", "abft_matmul_plain", "abft_matmul_acc_cuda",
            "abft_matmul_acc_plain", "reset_counts", "route_of", "split_count",
            "split_rows", "sm_count",
-           "TILES_M", "TILES_N", "MMA_TILES", "SPLITK_TILES_M", "KT", "F_MAX",
+           "TILES_M", "TILES_N", "MMA_TILES", "MMA_SLAB", "SPLITK_TILES_M",
+           "KT", "F_MAX",
            "STATS_WIDTH"]
 
 TILES_M = (16, 32, 64, 128)      # CTA tile rows of kernel #2 (and the plain
 TILES_N = (32, 64, 128)          # versions); columns
-MMA_TILES = ((128, 128), (128, 64))   # kernel #1's tensor-core tiles
+MMA_TILES = ((128, 128), (128, 64))   # both kernels' tensor-core tiles
+MMA_SLAB = 256                   # bytes of k a ring stage of those tiles
+                                 # takes from a row of A (abft_mma.cuh)
 SPLITK_TILES_M = (16, 32)        # kernel #1's split-k tile rows (bn: TILES_N)
 # The split-k policy: decided here and passed to the launcher, which has
 # SPLIT_COLS and SPLIT_KMAX compiled in and refuses a slice over
@@ -80,6 +86,8 @@ acc_launches = 0                 # kernel launches by abft_matmul_acc_cuda
 acc_plain_calls = 0              # calls of abft_matmul_acc_plain
 last_route: dict = {}            # route, copy widths and splits of the last
                                  # kernel #1 launch
+last_acc_route: dict = {}        # route, tile and copy widths of the last
+                                 # kernel #2 launch
 
 
 def reset_counts() -> None:
@@ -91,11 +99,16 @@ def _cdiv(x: int, y: int) -> int:
     return -(-x // y)
 
 
-def route_of(bm: int, bn: int) -> Optional[str]:
-    """Kernel #1's route for a tile: "mma" (tensor-core tiles), "splitk"
-    (k split for decode), or None for a tile it is not built for."""
+def route_of(bm: int, bn: int, *, carry: bool = False) -> Optional[str]:
+    """The route a tile runs, or None for a tile that is not built.  Kernel
+    #1: "mma" (tensor-core tiles) or "splitk" (k split for decode).  Kernel
+    #2 (``carry``): "mma" for ``MMA_TILES``, "cuda_core" for every other
+    tile of ``TILES_M`` x ``TILES_N``.  The launchers check the route they
+    ran against this."""
     if (bm, bn) in MMA_TILES:
         return "mma"
+    if carry:
+        return "cuda_core" if bm in TILES_M and bn in TILES_N else None
     if bm in SPLITK_TILES_M and bn in TILES_N:
         return "splitk"
     return None
@@ -325,7 +338,7 @@ def _acc_launcher():
         from repro_torch.kernels import build
         fn = build.load("abft_matmul_acc").abft_matmul_acc_launch
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _ACC_FN = fn
     return _ACC_FN
@@ -349,10 +362,12 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
     CTA reads its tiles before it writes them); by default they are new.
     Returns (c_out, ccol_out, crow_out, stats [ceil(m/bm), ceil(n/bn),
     STATS_WIDTH] fp32).  CUDA tensors launch the kernel on the current
-    stream; CPU tensors run ``abft_matmul_acc_plain`` (which returns new
-    tensors and copies them into ``out`` when given).
+    stream, on the tile's route (``route_of(bm, bn, carry=True)``, checked
+    against what the launcher ran; ``last_acc_route`` records it with the
+    copy widths); CPU tensors run ``abft_matmul_acc_plain`` (which returns
+    new tensors and copies them into ``out`` when given).
     """
-    global acc_launches
+    global acc_launches, last_acc_route
     if a.device.type == "cpu":
         res = abft_matmul_acc_plain(
             a, b, c_in, ccol_in, crow_in, wm, wn, bm=bm, bn=bn, bk=bk,
@@ -390,16 +405,23 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
                         dtype=torch.float32, device=dev)
     eps = float(torch.finfo(torch.float32).eps) if eps_c is None else eps_c
     fn = _acc_launcher()
+    info = (ctypes.c_int * 4)()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(a.data_ptr(), b.data_ptr(), wm.data_ptr(), wn.data_ptr(),
             c_in.data_ptr(), ccol_in.data_ptr(), crow_in.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             stats.data_ptr(), m, k, n, f, bm, bn, _IN_KIND[a.dtype],
             _OUT_KIND[out_dtype], int(bool(verify)),
-            tol_factor * bm * eps, tol_factor * bn * eps, stream)
+            tol_factor * bm * eps, tol_factor * bn * eps, info, stream)
     if rc != 0:
         raise RuntimeError(f"abft_matmul_acc kernel launch failed: code {rc} "
                            f"(m={m}, k={k}, n={n}, f={f}, tile=({bm}, {bn}), "
                            f"{a.dtype} -> {out_dtype})")
     acc_launches += 1
+    route = "mma" if info[0] == 1 else "cuda_core"
+    if route != route_of(bm, bn, carry=True):
+        raise RuntimeError(f"abft_matmul_acc ran tile ({bm}, {bn}) on "
+                           f"{route}, planned {route_of(bm, bn, carry=True)}")
+    last_acc_route = dict(route=route, tile=(bm, bn), copy_a=info[1],
+                          copy_b=info[2])
     return (*out, stats)

@@ -17,16 +17,16 @@
 //
 // The tile (bm, bn) picks the route:
 //
-//   Route A, (128, 128) or (128, 64): one CTA of 8 warps per output tile.
-//     Each warp owns a 64 x 32 (or 32 x 32) tile of mma.sync fragments
-//     (abft_mma.cuh): 3xTF32 m16n8k8 for fp32 operands (fp32-level error,
-//     not TF32's), bf16 m16n8k16 and s8 m16n8k32 (exact, int32) otherwise.
-//     k moves through a 3-stage cp.async ring in dynamic shared memory,
-//     128 bytes of k a stage (32 fp32, 64 bf16 or 128 int8 columns), rows
-//     padded so that ldmatrix (A; bf16 B, transposed) and the 32-bit
-//     fragment loads (fp32 and int8 B) hit 32 banks.  After the last stage the
-//     ring's bytes hold the fp32 (int32) tile, which each thread reloads in
-//     the epilogue's (ty + 16 i, tx + 16 j) layout.
+//   Route A, (128, 128) or (128, 64): one CTA of 8 warps per output tile,
+//     running abft_mma.cuh's ring mainloop, the one kernel #2's
+//     tensor-core route runs too: mma.sync fragments, 3xTF32 m16n8k8 for
+//     fp32 operands (fp32-level error, not TF32's), bf16 m16n8k16 and s8
+//     m16n8k32 (exact, int32) otherwise, k moving through a 3-stage
+//     cp.async ring of 256-byte stages, each summed in the tensor core
+//     from zero and added to the accumulator in fp32, tiles walked in
+//     groups of 4 tile rows.  The accumulator starts at 0; after the last
+//     stage the ring's bytes hold the fp32 (int32) tile, which each thread
+//     reloads in the epilogue's (ty + 16 i, tx + 16 j) layout.
 //   Route B, bm in {16, 32}: decode, where the work is bytes of B.  Pass 1
 //     cuts k into `splits` slices; one CTA per (128 columns, slice, MB rows)
 //     holds its rows of A in shared memory, streams its slice of B once with
@@ -45,11 +45,10 @@
 // What bounds it on an H100: at prefill and training shapes (m >= 64) the
 // operations (2mkn at 495/3 TFLOP/s for 3xTF32, 989 bf16, 1979 int8); at
 // decode the bytes of B (k n at 3.35 TB/s).  What it leaves on the table:
-// wgmma and TMA (route A runs the older warp-level mma, whose 3xTF32 split
-// costs about five other instructions per tensor-core op, and its loads
-// do not overlap the math well), a persistent grid (wave quantization,
-// epilogues overlapped with mainloops), int8 B fragments from ldmatrix
-// (packed here from byte loads), and a split-k in one launch.
+// TMA and a producer warp for the ring (route A runs the warp-level mma;
+// a wgmma loop alone ran no faster), a persistent grid (wave
+// quantization, epilogues overlapped with mainloops), and a split-k in
+// one launch.
 #include <cstring>
 
 #include "abft_mma.cuh"
@@ -60,110 +59,11 @@ namespace am = abft_mma;
 
 namespace {
 
-template <int S> struct Raw;
-template <> struct Raw<1> { using type = uint8_t; };
-template <> struct Raw<2> { using type = uint16_t; };
-template <> struct Raw<4> { using type = uint32_t; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<16> { using type = uint4; };
+using am::Raw;
 
 // ---------------------------------------------------------------------------
-// Route A: tensor-core tiles behind a cp.async ring
+// Route A: tensor-core tiles behind the cp.async ring (abft_mma.cuh)
 // ---------------------------------------------------------------------------
-
-constexpr int STAGES = 3;
-constexpr int SLAB = 128;          // bytes of k per stage in a row of A
-constexpr int A_ROW = SLAB + 16;   // padded: fragment rows 4 banks apart
-
-template <typename T, int BM, int BN>
-struct TileCfg {
-  static constexpr int S = sizeof(T);
-  static constexpr int E = am::Word<T>::E;
-  static constexpr int BK = SLAB / S;                    // k per stage
-  // fp32 rows 8 banks apart, bf16 / int8 rows 4 banks apart
-  static constexpr int B_ROW = BN * S + (S == 4 ? 32 : 16);
-  static constexpr int A_BYTES = BM * A_ROW;
-  static constexpr int B_BYTES = BK * B_ROW;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int RING = STAGES * STAGE;
-  static constexpr int CS_ROW = BN + 4;                  // staged C, words
-  static constexpr int STAGED = BM * CS_ROW * 4;
-  static constexpr int EPI = Smem<float, BM, BN>::EPI;
-  static constexpr int SMEM = RING > STAGED ? (RING > EPI ? RING : EPI)
-                                            : (STAGED > EPI ? STAGED : EPI);
-  static constexpr int WARPS_N = BN / 32;                // warp tile 32 wide
-  static constexpr int WARPS_M = THREADS / 32 / WARPS_N;
-  static constexpr int WM = BM / WARPS_M;                // 64 or 32 rows
-  static constexpr int MF = WM / 16;
-  static constexpr int NF = 4;
-};
-
-// One stage: A[m0:+BM, kb:+BK] and B[kb:+BK, n0:+BN] into shared memory,
-// zero past m, k and n; chunks of wa / wb bytes by cp.async, or element by
-// element where the width is under 4 bytes.
-template <typename T, int BM, int BN>
-__device__ __forceinline__ void load_stage(
-    const T* __restrict__ a, const T* __restrict__ b, int m, int k, int n,
-    int m0, int n0, int kb, unsigned char* as, unsigned char* bs, int wa,
-    int wb) {
-  using C = TileCfg<T, BM, BN>;
-  using R = typename Raw<sizeof(T)>::type;
-  constexpr int S = C::S;
-  const int tid = threadIdx.x;
-  if (wa >= 4) {
-    // per_row = SLAB / wa chunks a row, a power of two: shifts, not division
-    const int per_row = SLAB / wa, lg = 31 - __clz(per_row), v = wa / S;
-    for (int c = tid; c < BM * per_row; c += THREADS) {
-      const int r = c >> lg, kc = (c & (per_row - 1)) * v;
-      const int gr = m0 + r, gk = kb + kc;
-      const int valid = (gr < m && gk < k) ? min(v, k - gk) : 0;
-      const T* src = valid ? a + static_cast<long long>(gr) * k + gk : a;
-      am::cp_async(as + r * A_ROW + kc * S, src, wa, valid * S);
-    }
-  } else {
-    const R* ra = reinterpret_cast<const R*>(a);
-    for (int e = tid; e < BM * C::BK; e += THREADS) {
-      const int r = e / C::BK, kc = e % C::BK;
-      const int gr = m0 + r, gk = kb + kc;
-      *reinterpret_cast<R*>(as + r * A_ROW + kc * S) =
-          (gr < m && gk < k) ? ra[static_cast<long long>(gr) * k + gk] : R(0);
-    }
-  }
-  if (wb >= 4) {
-    const int per_row = BN * S / wb, lg = 31 - __clz(per_row), v = wb / S;
-    for (int c = tid; c < C::BK * per_row; c += THREADS) {
-      const int r = c >> lg, nc = (c & (per_row - 1)) * v;
-      const int gk = kb + r, gc = n0 + nc;
-      const int valid = (gk < k && gc < n) ? min(v, n - gc) : 0;
-      const T* src = valid ? b + static_cast<long long>(gk) * n + gc : b;
-      am::cp_async(bs + r * C::B_ROW + nc * S, src, wb, valid * S);
-    }
-  } else {
-    const R* rb = reinterpret_cast<const R*>(b);
-    for (int e = tid; e < C::BK * BN; e += THREADS) {
-      const int r = e / BN, nc = e % BN;
-      const int gk = kb + r, gc = n0 + nc;
-      *reinterpret_cast<R*>(bs + r * C::B_ROW + nc * S) =
-          (gk < k && gc < n) ? rb[static_cast<long long>(gk) * n + gc] : R(0);
-    }
-  }
-}
-
-// The B word of k rows kr .. kr + E - 1 at column c of a stage (fp32 and
-// int8; bf16 B fragments come from ldmatrix.trans).
-template <typename T>
-__device__ __forceinline__ uint32_t b_word(const unsigned char* bs, int row,
-                                           int kr, int c) {
-  if constexpr (sizeof(T) == 4) {
-    return *reinterpret_cast<const uint32_t*>(bs + kr * row + c * 4);
-  } else {
-    uint32_t w = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      w |= static_cast<uint32_t>(bs[(kr + e) * row + c]) << (8 * e);
-    return w;
-  }
-}
 
 template <typename T, int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -172,17 +72,12 @@ mma_kernel(const T* __restrict__ a, const T* __restrict__ b,
            void* __restrict__ c, float* __restrict__ ccol,
            float* __restrict__ crow, int m, int k, int n, int f, int out_kind,
            int wa, int wb) {
-  using C = TileCfg<T, BM, BN>;
+  using C = am::TileCfg<T, BM, BN>;
   using TC = typename am::Mma<T>::Acc;
-  constexpr int E = C::E;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm0 = (warp / C::WARPS_N) * C::WM;
-  const int wn0 = (warp % C::WARPS_N) * 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
+  int ti, tj;
+  am::tile_of((m + BM - 1) / BM, (n + BN - 1) / BN, ti, tj);
+  const int m0 = ti * BM, n0 = tj * BN;
   TC acc[C::MF][C::NF][4];
 #pragma unroll
   for (int i = 0; i < C::MF; ++i)
@@ -190,100 +85,26 @@ mma_kernel(const T* __restrict__ a, const T* __restrict__ b,
     for (int j = 0; j < C::NF; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = TC(0);
-
-  const int kt_n = (k + C::BK - 1) / C::BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < kt_n)
-      load_stage<T, BM, BN>(a, b, m, k, n, m0, n0, s * C::BK,
-                            smem + s * C::STAGE,
-                            smem + s * C::STAGE + C::A_BYTES, wa, wb);
-    am::cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    am::cp_async_wait<STAGES - 2>();
-    __syncthreads();   // stage kt landed; stage kt - 1 is free to refill
-    const int nxt = kt + STAGES - 1;
-    if (nxt < kt_n) {
-      unsigned char* st = smem + (nxt % STAGES) * C::STAGE;
-      load_stage<T, BM, BN>(a, b, m, k, n, m0, n0, nxt * C::BK, st,
-                            st + C::A_BYTES, wa, wb);
-    }
-    am::cp_async_commit();
-    const unsigned char* as = smem + (kt % STAGES) * C::STAGE;
-    const unsigned char* bs = as + C::A_BYTES;
-#pragma unroll
-    for (int ks = 0; ks < SLAB / 32; ++ks) {   // 8 words of k a step
-      uint32_t af[C::MF][4], bf[C::NF][2];
-#pragma unroll
-      for (int i = 0; i < C::MF; ++i)
-        am::ldsm_x4(af[i], as + (wm0 + 16 * i + (lane % 8) + 8 * ((lane / 8) % 2))
-                                    * A_ROW + ks * 32 + 16 * (lane / 16));
-      if constexpr (sizeof(T) == 2) {
-        // lane l: k row ks * 16 + 8 ((l / 8) % 2) + l % 8 of n-block
-        // 2 jj + l / 16
-#pragma unroll
-        for (int jj = 0; jj < C::NF / 2; ++jj) {
-          uint32_t r[4];
-          am::ldsm_x4_trans(
-              r, bs + (ks * 16 + 8 * ((lane / 8) % 2) + lane % 8) * C::B_ROW
-                     + (wn0 + 8 * (2 * jj + lane / 16)) * 2);
-          bf[2 * jj][0] = r[0];
-          bf[2 * jj][1] = r[1];
-          bf[2 * jj + 1][0] = r[2];
-          bf[2 * jj + 1][1] = r[3];
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < C::NF; ++j) {
-          const int col = wn0 + 8 * j + g;
-          const int kr = ks * 8 * E + E * t;
-          bf[j][0] = b_word<T>(bs, C::B_ROW, kr, col);
-          bf[j][1] = b_word<T>(bs, C::B_ROW, kr + 4 * E, col);
-        }
-      }
-      am::mma_step<T, C::MF, C::NF>(acc, af, bf);
-    }
-  }
-  am::cp_async_wait<0>();
-  __syncthreads();     // every warp is done with the ring
-
-  // the fragments, staged as a BM x BN tile in the ring's bytes
-  TC* cs = reinterpret_cast<TC*>(smem);
-#pragma unroll
-  for (int i = 0; i < C::MF; ++i)
-#pragma unroll
-    for (int j = 0; j < C::NF; ++j) {
-      const int row = wm0 + 16 * i + g, col = wn0 + 8 * j + 2 * t;
-      cs[row * C::CS_ROW + col] = acc[i][j][0];
-      cs[row * C::CS_ROW + col + 1] = acc[i][j][1];
-      cs[(row + 8) * C::CS_ROW + col] = acc[i][j][2];
-      cs[(row + 8) * C::CS_ROW + col + 1] = acc[i][j][3];
-    }
-  __syncthreads();
-  const int tx = tid % 16, ty = tid / 16;
+  am::ring_prefetch<T, BM, BN>(a, b, m, k, n, m0, n0, wa, wb, smem);
+  am::ring_mainloop<T, BM, BN>(a, b, m, k, n, m0, n0, wa, wb, acc, smem);
   TC v[BM / 16][BN / 16];
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i)
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j)
-      v[i][j] = cs[(ty + 16 * i) * C::CS_ROW + tx + 16 * j];
-  __syncthreads();     // the epilogue's reductions reuse these bytes
-  epilogue<TC, BM, BN>(v, c, ccol, crow, wm, wn, m, n, f, out_kind, smem);
+  am::frags_to_tile<T, BM, BN>(acc, v, smem);
+  epilogue<TC, BM, BN>(v, c, ccol, crow, wm, wn, m, n, f, out_kind, smem, ti,
+                       tj);
 }
 
 template <typename T, int BM, int BN>
 int launch_mma(const void* a, const void* b, const float* wm, const float* wn,
                void* c, float* ccol, float* crow, int m, int k, int n, int f,
                int out_kind, int wa, int wb, cudaStream_t stream) {
-  using C = TileCfg<T, BM, BN>;
+  using C = am::TileCfg<T, BM, BN>;
   static int attr = -1;   // once per instantiation
   if (attr < 0)
     attr = static_cast<int>(cudaFuncSetAttribute(
         mma_kernel<T, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::SMEM));
   if (attr != 0) return attr;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  const dim3 grid(((n + BN - 1) / BN) * ((m + BM - 1) / BM));
   mma_kernel<T, BM, BN><<<grid, THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), wm, wn, c, ccol,
       crow, m, k, n, f, out_kind, wa, wb);
@@ -427,7 +248,8 @@ splitk_epilogue(const TC* __restrict__ ws, int splits,
 #pragma unroll
       for (int j = 0; j < BN / 16; ++j) acc[i][j] += x[i][j];
   }
-  epilogue<TC, BM, BN>(acc, c, ccol, crow, wm, wn, m, n, f, out_kind, smem);
+  epilogue<TC, BM, BN>(acc, c, ccol, crow, wm, wn, m, n, f, out_kind, smem,
+                       blockIdx.y, blockIdx.x);
 }
 
 template <typename T, int MB>
@@ -485,15 +307,6 @@ int launch_splitk(const void* a, const void* b, const float* wm,
   return -3;
 }
 
-// The widest copy, from `maxw` down to the element size, that divides the
-// base pointer and the row stride.
-int copy_width(const void* p, long long row_bytes, int elem, int maxw) {
-  for (int w = maxw; w > elem; w /= 2)
-    if (reinterpret_cast<uintptr_t>(p) % w == 0 && row_bytes % w == 0)
-      return w;
-  return elem;
-}
-
 template <typename T>
 int launch_typed(const void* a, const void* b, const float* wm,
                  const float* wn, void* c, float* ccol, float* crow, void* ws,
@@ -502,8 +315,8 @@ int launch_typed(const void* a, const void* b, const float* wm,
   constexpr int S = sizeof(T);
   if (bm == 128 && (bn == 128 || bn == 64)) {
     if (splits != 1) return -5;
-    const int wa = copy_width(a, static_cast<long long>(k) * S, S, 16);
-    const int wb = copy_width(b, static_cast<long long>(n) * S, S, 16);
+    const int wa = am::copy_width(a, static_cast<long long>(k) * S, S, 16);
+    const int wb = am::copy_width(b, static_cast<long long>(n) * S, S, 16);
     if (info) { info[0] = 1; info[1] = wa; info[2] = wb; info[3] = 1; }
     if (bn == 128)
       return launch_mma<T, 128, 128>(a, b, wm, wn, c, ccol, crow, m, k, n, f,
@@ -514,7 +327,7 @@ int launch_typed(const void* a, const void* b, const float* wm,
   if (bm == 16 || bm == 32) {
     if (ws == nullptr) return -6;
     // V = 1, 2 or 4 values a load
-    const int wb = copy_width(b, static_cast<long long>(n) * S, S, 4 * S);
+    const int wb = am::copy_width(b, static_cast<long long>(n) * S, S, 4 * S);
     if (info) { info[0] = 2; info[1] = S; info[2] = wb; info[3] = splits; }
     return launch_splitk<T>(a, b, wm, wn, c, ccol, crow, ws, m, k, n, f, bm,
                             bn, splits, rows, out_kind, wb, stream);

@@ -118,30 +118,62 @@ __device__ __forceinline__ void mainloop(
   }
 }
 
+// This thread's checksum weights for tile rows m0 + ty + 16 i and tile
+// columns n0 + tx + 16 j, loaded before the sums that use them so that
+// their global loads fly together with the tile's own: wm[fi, row] and
+// wn[col, fi] for fi < nf, 0 past m, past n and for fi >= nf.
+template <int BM, int BN>
+struct TileWeights {
+  float m[FMAX][BM / 16];
+  float n[FMAX][BN / 16];
+};
+
+template <int BM, int BN>
+__device__ __forceinline__ void load_weights(TileWeights<BM, BN>& w,
+                                             const float* __restrict__ wm,
+                                             const float* __restrict__ wn,
+                                             int m, int n, int f, int nf,
+                                             int m0, int n0) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int fi = 0; fi < FMAX; ++fi) {
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i) {
+      const int row = m0 + ty + 16 * i;
+      w.m[fi][i] = fi < nf && row < m
+          ? wm[static_cast<long long>(fi) * m + row] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      const int col = n0 + tx + 16 * j;
+      w.n[fi][j] = fi < nf && col < n
+          ? wn[static_cast<long long>(col) * f + fi] : 0.0f;
+    }
+  }
+}
+
 // Column checksums of the register tile v: for fi < nf and cc < BN,
 // sink(fi, cc, sum_r wm[fi, m0 + r] * v[r, cc]).  Each thread sums its TM
 // rows, then the 16 rows of threads are summed in a fixed order.  Rows
 // past m weigh 0.  `red` holds 16 * nf * BN floats.
 template <int BM, int BN, typename Sink>
 __device__ __forceinline__ void col_sums(const float (&v)[BM / 16][BN / 16],
-                                         const float* __restrict__ wm, int m,
-                                         int m0, int nf, float* red,
-                                         Sink sink) {
+                                         const TileWeights<BM, BN>& w, int nf,
+                                         float* red, Sink sink) {
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  for (int fi = 0; fi < nf; ++fi) {
+#pragma unroll
+  for (int fi = 0; fi < FMAX; ++fi) {
+    if (fi >= nf) break;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int row = m0 + ty + 16 * i;
-        const float w = row < m ? wm[static_cast<long long>(fi) * m + row] : 0.0f;
-        s = fmaf(w, v[i][j], s);
-      }
+      for (int i = 0; i < TM; ++i) s = fmaf(w.m[fi][i], v[i][j], s);
       red[(ty * nf + fi) * BN + tx + 16 * j] = s;
     }
   }
@@ -161,9 +193,8 @@ __device__ __forceinline__ void col_sums(const float (&v)[BM / 16][BN / 16],
 // Columns past n weigh 0.  `red` holds 16 * BM * nf floats.
 template <int BM, int BN, typename Sink>
 __device__ __forceinline__ void row_sums(const float (&v)[BM / 16][BN / 16],
-                                         const float* __restrict__ wn, int n,
-                                         int n0, int f, int nf, float* red,
-                                         Sink sink) {
+                                         const TileWeights<BM, BN>& w, int nf,
+                                         float* red, Sink sink) {
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
   const int tid = threadIdx.x;
@@ -171,14 +202,12 @@ __device__ __forceinline__ void row_sums(const float (&v)[BM / 16][BN / 16],
   const int ty = tid / 16;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    for (int fi = 0; fi < nf; ++fi) {
+#pragma unroll
+    for (int fi = 0; fi < FMAX; ++fi) {
+      if (fi >= nf) break;
       float s = 0.0f;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = n0 + tx + 16 * j;
-        const float w = col < n ? wn[static_cast<long long>(col) * f + fi] : 0.0f;
-        s = fmaf(v[i][j], w, s);
-      }
+      for (int j = 0; j < TN; ++j) s = fmaf(v[i][j], w.n[fi][j], s);
       red[(tx * BM + ty + 16 * i) * nf + fi] = s;
     }
   }
@@ -214,21 +243,22 @@ struct RowPartialSink {
   }
 };
 
-// Epilogue of both kernels: store the tile in the output type, keep the
-// stored (rounded) values, and write both checksum partials of them.
+// Epilogue of both kernels: store tile (ti, tj) in the output type, keep
+// the stored (rounded) values, and write both checksum partials of them.
 template <typename TC, int BM, int BN>
 __device__ __forceinline__ void epilogue(const TC (&acc)[BM / 16][BN / 16],
                                          void* c, float* ccol, float* crow,
                                          const float* __restrict__ wm,
                                          const float* __restrict__ wn, int m,
                                          int n, int f, int out_kind,
-                                         unsigned char* smem) {
+                                         unsigned char* smem, int ti, int tj) {
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int ti = blockIdx.y, tj = blockIdx.x;
   const int m0 = ti * BM, n0 = tj * BN;
+  TileWeights<BM, BN> w;
+  load_weights<BM, BN>(w, wm, wn, m, n, f, f, m0, n0);
   float v[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -243,8 +273,8 @@ __device__ __forceinline__ void epilogue(const TC (&acc)[BM / 16][BN / 16],
     }
   }
   float* red = reinterpret_cast<float*>(smem);
-  col_sums<BM, BN>(v, wm, m, m0, f, red, ColPartialSink{ccol, ti, f, n, n0});
-  row_sums<BM, BN>(v, wn, n, n0, f, f, red, RowPartialSink{crow, tj, f, m, m0});
+  col_sums<BM, BN>(v, w, f, red, ColPartialSink{ccol, ti, f, n, n0});
+  row_sums<BM, BN>(v, w, f, red, RowPartialSink{crow, tj, f, m, m0});
 }
 
 }  // namespace abft

@@ -27,7 +27,8 @@
 //
 // Design.  The TPU kernel walks a sequential (bh, q-tile, kv-chunk) grid
 // with the state in VMEM; here one CTA of 256 threads owns 64 rows of one
-// bh and loops over the keys itself, 64 keys at a time, K and V staged
+// bh (one flat grid.x over the (bh, 64-row tile) pairs, so B.H is bounded
+// only by grid.x's 2^31 - 1) and loops over the keys itself, 64 keys at a time, K and V staged
 // through shared memory as fp32 (Q stays there for the whole sweep), the
 // score tile and acc in registers.  Thread (ty, tx) = (tid / 16, tid % 16)
 // owns rows ty + 16 i (i < 4): the 16 threads of a row sit in one half
@@ -166,9 +167,11 @@ flash_kernel(Params prm) {
   float* vsum = ps + BR * PS;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y;
+  // the flat grid: blockIdx.x = bh * q tiles + q tile
   const long long sq = prm.sq, sk = prm.sk;
-  const long long r0 = static_cast<long long>(blockIdx.x) * BR;
+  const long long qtiles = (sq + BR - 1) / BR;
+  const long long bh = blockIdx.x / qtiles;
+  const long long r0 = (blockIdx.x % qtiles) * BR;
   const T* q = static_cast<const T*>(prm.q) + bh * sq * D;
   const T* k = static_cast<const T*>(prm.k) + bh * sk * D;
   const T* v = static_cast<const T*>(prm.v) + bh * sk * D;
@@ -392,8 +395,8 @@ int launch(const Params& prm, int bh, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((prm.sq + BR - 1) / BR),
-                  static_cast<unsigned>(bh));
+  const dim3 grid(static_cast<unsigned>(
+      static_cast<long long>((prm.sq + BR - 1) / BR) * bh));
   kern<<<grid, THREADS, smem, stream>>>(prm);
   return 0;
 }
@@ -425,7 +428,10 @@ extern "C" int flash_attention_launch(
     int causal, int has_window, long long window, float softcap,
     int target, long long inj_row, long long inj_key_end, float inj_delta,
     void* stream) {
-  if (bh < 1 || sq < 1 || sk < 1 || bh > 65535) return -1;
+  // the flat grid: (bh, q tile) pairs up to grid.x's 2^31 - 1
+  if (bh < 1 || sq < 1 || sk < 1 ||
+      static_cast<long long>(bh) * ((sq + BR - 1) / BR) > 0x7fffffffLL)
+    return -1;
   if (checksum && rows == nullptr) return -1;
   Params prm{q, k, v, o, static_cast<float*>(rows), sq, sk, scale, causal,
              has_window, window, softcap, target, inj_row, inj_key_end,

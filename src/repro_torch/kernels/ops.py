@@ -4,9 +4,9 @@
 over the H100's published memory, tensor-core and CUDA-core rates.  A
 one-shot plan is one of kernel #1's routes: its tensor-core tiles, or for
 m <= 32 its split-k stream; an accumulate plan (``carry=True``) is one of
-kernel #2's CUDA-core tiles.  ``abft_matmul`` runs the fused
-dual-checksum kernel (or, for a CPU tensor, its plain version) and
-reduces the per-tile partials.
+kernel #2's routes: the same tensor-core tiles, or its CUDA-core tiles.
+``abft_matmul`` runs the fused dual-checksum kernel (or, for a CPU
+tensor, its plain version) and reduces the per-tile partials.
 ``abft_matmul_acc`` runs the accumulate step with its carried per-tile
 checksum state and fused verify/correct prologue: the kernel on a CUDA
 tensor, or the separate-op PyTorch twin (``backend="torch"``).
@@ -93,14 +93,15 @@ def detection_eps(dtype) -> float:
 # ---------------------------------------------------------------------------
 
 # Planner time model over published H100 SXM figures (NVIDIA data sheet):
-# device memory, the CUDA-core fp32 rate (kernel #2 and kernel #1's split-k
-# stream) and the dense tensor-core rates of kernel #1's tiles, where fp32
-# operands take three TF32 passes (3xTF32).  A grid with fewer CTAs than
-# SMs leaves SMs idle, so the compute term scales with the share of SMs
-# that get a CTA.  A model for ranking tiles, not a measurement.
+# device memory, the CUDA-core fp32 rate (kernel #2's small tiles and
+# kernel #1's split-k stream) and the dense tensor-core rates of both
+# kernels' tensor-core tiles, where fp32 operands take three TF32 passes
+# (3xTF32).  A grid with fewer CTAs than SMs leaves SMs idle, so the
+# compute term scales with the share of SMs that get a CTA.  A model for
+# ranking tiles, not a measurement.
 HBM_BW = 3.35e12                     # bytes/s
 CUDA_CORE_FLOPS = 67e12              # fp32 FMA rate, FLOP/s
-TENSOR_FLOPS = {                     # kernel #1's tensor-core tiles, FLOP/s
+TENSOR_FLOPS = {                     # the tensor-core tiles, FLOP/s
     torch.float32: 495e12 / 3,       # 3xTF32: three TF32 products
     torch.bfloat16: 989e12,
     torch.int8: 1979e12,
@@ -118,8 +119,9 @@ class BlockPlan:
     dims rounded up to them (the kernel masks the ragged edge, so the
     padding costs idle lanes, not bytes); ``cost_bytes`` is the modeled
     device-memory traffic including the checksum-partial writes.
-    ``route`` is "mma" or "splitk" for kernel #1 (``kmm.route_of``) and
-    "cuda_core" for kernel #2; ``splits`` is a split-k plan's k slices.
+    ``route`` is "mma" or "splitk" for kernel #1 and "mma" or
+    "cuda_core" for kernel #2 (``kmm.route_of``); ``splits`` is a split-k
+    plan's k slices.
     """
     m: int
     k: int
@@ -156,27 +158,35 @@ def _cdiv(x: int, y: int) -> int:
     return -(-x // y)
 
 
-def smem_bytes(bm: int, bn: int, bk: int = kmm.KT) -> int:
-    """Static shared memory of one kernel-#2 CTA: the staged A/B slabs
-    (widened to 4-byte fp32 or int32 for every operand type) or the
-    epilogue's partial-sum buffer, which reuses the same bytes."""
+def smem_bytes(bm: int, bn: int, bk: int = kmm.KT,
+               in_dtype=torch.float32) -> int:
+    """Shared memory of one kernel-#2 CTA.  Tensor-core tiles: the ring
+    of kernel #1's (``oneshot_smem_bytes``, dynamic), which also holds the
+    prologue's reductions and the staged C tile.  CUDA-core tiles (static):
+    the staged A/B slabs (widened to 4-byte fp32 or int32 for every operand
+    type) or the epilogue's partial-sum buffer, which reuses the same
+    bytes."""
+    if kmm.route_of(bm, bn, carry=True) == "mma":
+        return oneshot_smem_bytes(bm, bn, in_dtype)
     loop = bk * (bm + 1 + bn) * 4
     epi = 16 * kmm.F_MAX * max(bm, bn) * 4
     return max(loop, epi)
 
 
 def oneshot_smem_bytes(bm: int, bn: int, in_dtype=torch.float32) -> int:
-    """Shared memory of one kernel-#1 CTA.  Tensor-core tiles (dynamic):
-    a 3-stage ring of ``bm`` rows x 128 bytes of A and 128 bytes' worth of
-    k rows of B (rows padded by 16 bytes, 32 for fp32 B), whose bytes then
-    hold the staged fp32 tile and the epilogue's buffer.  Split-k (static):
+    """Shared memory of one kernel-#1 CTA.  Tensor-core tiles (dynamic,
+    ``abft_mma.cuh``'s ``TileCfg``): a 3-stage cp.async ring of ``bm``
+    rows x ``MMA_SLAB`` bytes of A and ``MMA_SLAB`` bytes' worth of k rows
+    of B (rows padded by 16 bytes, 32 for fp32 B), whose bytes then hold
+    the staged fp32 tile and the epilogue's buffer.  Split-k (static):
     pass 1's slice of A or its reduction buffer (32 KB at most), pass 2's
     epilogue buffer."""
     epi = 16 * kmm.F_MAX * max(bm, bn) * 4
     if kmm.route_of(bm, bn) == "mma":
         s = in_dtype.itemsize
-        ring = 3 * (bm * (128 + 16) + (128 // s) * (bn * s + (32 if s == 4
-                                                              else 16)))
+        slab = kmm.MMA_SLAB
+        ring = 3 * (bm * (slab + 16) + (slab // s) * (bn * s + (32 if s == 4
+                                                                else 16)))
         return max(ring, bm * (bn + 4) * 4, epi)
     return max(32 * 1024, epi)
 
@@ -201,18 +211,24 @@ def _plan_time(plan: BlockPlan, in_bytes: int, out_bytes: int, f: int,
     return t, total_bytes
 
 
-def _oneshot_time(plan: BlockPlan, in_dtype, out_bytes: int, f: int):
+def _oneshot_time(plan: BlockPlan, in_dtype, out_bytes: int, f: int,
+                  carry: bool = False):
     """(modeled seconds, modeled bytes) of one kernel-#1 call.  Tensor-core
     tiles: A once per column of tiles, B once per row of tiles, the
     products at the tensor-core rate of the operand type.  Split-k: B once,
     A once per 128 columns, the fp32 workspace written and read once, the
     products on CUDA cores over ``ceil(n/128) x splits`` CTAs.  A grid
     with fewer CTAs than SMs leaves both the idle SMs' compute and their
-    share of the memory bandwidth unused."""
+    share of the memory bandwidth unused.  ``carry`` scores kernel #2's
+    tensor-core route: the same, plus the accumulate's reads of C_in and
+    of the carried state and its stats writes (as ``_plan_time``)."""
     mt, nt, _ = plan.grid
     m, k, n = plan.m, plan.k, plan.n
     in_bytes = in_dtype.itemsize
-    fixed = m * n * out_bytes + mt * f * n * 4 + nt * m * f * 4
+    cs_bytes = mt * f * n * 4 + nt * m * f * 4
+    fixed = m * n * out_bytes + cs_bytes
+    if carry:
+        fixed += m * n * out_bytes + cs_bytes + mt * nt * 8 * 4
     epi_flops = 4 * f * plan.pm * plan.pn
     if plan.route == "mma":
         total = m * k * nt * in_bytes + k * n * mt * in_bytes + fixed
@@ -239,7 +255,7 @@ def _sms() -> int:
 def _oneshot_candidates(m: int, k: int, n: int, in_dtype):
     """Kernel #1's plans: each tensor-core tile, and for m <= 32 the
     split-k stream on the smallest row tile that holds m, at each width."""
-    bk = 128 // in_dtype.itemsize              # k per stage of the ring
+    bk = kmm.MMA_SLAB // in_dtype.itemsize     # k per stage of the ring
     for bm, bn in kmm.MMA_TILES:
         yield BlockPlan(m=m, k=k, n=n, bm=bm, bn=bn, bk=bk,
                         pm=_round_up(m, bm), pk=_round_up(k, bk),
@@ -260,10 +276,13 @@ def rank_blocks(m: int, k: int, n: int, *, in_dtype=torch.float32,
     """All tilings for an (m, k, n) ABFT-GEMM, best-first.
 
     One-shot (``carry=False``): kernel #1's routes, each scored by
-    ``_oneshot_time``.  Accumulate (``carry=True``): kernel #2's CUDA-core
-    tiles (k staged in ``KT`` slabs), each scored by ``_plan_time``, the
-    modeled ``max(bytes / HBM_BW, FLOPs / (rate * SM fill))`` with the
-    accumulate kernel's extra traffic.  Ties go toward fewer bytes, then
+    ``_oneshot_time``.  Accumulate (``carry=True``): kernel #2's tiles,
+    each on its route (``kmm.route_of(carry=True)``): the tensor-core
+    tiles (k in ring stages of ``kmm.MMA_SLAB`` bytes) scored by
+    ``_oneshot_time``'s tensor-core rate with the accumulate's extra
+    traffic, the CUDA-core tiles (k staged in ``KT`` slabs) by
+    ``_plan_time``, the modeled ``max(bytes / HBM_BW, FLOPs / (rate * SM
+    fill))`` with the same traffic.  Ties go toward fewer bytes, then
     bigger tiles.  ``require_exact`` keeps only tilings that divide (m, k,
     n) with no ragged edge, as the reference's SUMMA local update asks for
     its long-lived carried state (the kernels mask ragged edges, so a
@@ -282,14 +301,22 @@ def rank_blocks(m: int, k: int, n: int, *, in_dtype=torch.float32,
     in_bytes = in_dtype.itemsize
     for bm in kmm.TILES_M:
         for bn in kmm.TILES_N:
-            if smem_bytes(bm, bn) > SMEM_STATIC:
+            route = kmm.route_of(bm, bn, carry=True)
+            mma = route == "mma"
+            limit = SMEM_DYNAMIC if mma else SMEM_STATIC
+            if smem_bytes(bm, bn, in_dtype=in_dtype) > limit:
                 continue
-            cand = BlockPlan(m=m, k=k, n=n, bm=bm, bn=bn, bk=kmm.KT,
-                             pm=_round_up(m, bm), pk=_round_up(k, kmm.KT),
-                             pn=_round_up(n, bn), cost_bytes=0)
+            bk = kmm.MMA_SLAB // in_bytes if mma else kmm.KT   # k a stage
+            cand = BlockPlan(m=m, k=k, n=n, bm=bm, bn=bn, bk=bk,
+                             pm=_round_up(m, bm), pk=_round_up(k, bk),
+                             pn=_round_up(n, bn), cost_bytes=0, route=route)
             if require_exact and not cand.exact:
                 continue
-            t, cost = _plan_time(cand, in_bytes, out_bytes, f, carry)
+            if mma:
+                t, cost = _oneshot_time(cand, in_dtype, out_bytes, f,
+                                        carry=True)
+            else:
+                t, cost = _plan_time(cand, in_bytes, out_bytes, f, carry)
             ranked.append(((t, cost, -(bm * bn)),
                            dataclasses.replace(cand, cost_bytes=cost)))
     ranked.sort(key=lambda kp: kp[0])

@@ -19,7 +19,7 @@ from repro.kernels.abft_matmul import abft_matmul_pallas
 from repro_torch.kernels import abft_matmul as kmm
 from repro_torch.kernels import build
 from repro_torch.kernels import ops
-from torch_port_helpers import assert_close, to_np
+from torch_port_helpers import assert_close, tf32, to_np, within_rtol
 
 BACKENDS = ["cuda", "torch"]
 FLIPS = [(0, 0, 1e4), (383, 511, -3e3), (200, 300, 1e6), (130, 40, 2.5e3),
@@ -458,6 +458,129 @@ def test_acc_wrapper_raises_instead_of_falling_back():
     assert (kmm.acc_launches, kmm.acc_plain_calls) == counts
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_summa_step_takes_tensor_cores_on_128x128(dtype):
+    """The SUMMA step shape (3072^3, an exact tiling) keeps its 128 x 128
+    tile, so the carried state's layout, and runs it on the tensor-core
+    route, through the SUMMA's own planner as well."""
+    from repro_torch.core.summa import _resolve_local_update
+    plan = ops.pick_blocks(3072, 3072, 3072, in_dtype=dtype, out_bytes=4,
+                           carry=True, require_exact=True)
+    assert (plan.bm, plan.bn, plan.route) == (128, 128, "mma")
+    assert plan.bk == kmm.MMA_SLAB // dtype.itemsize and plan.exact
+    assert ops.smem_bytes(plan.bm, plan.bn, in_dtype=dtype) \
+        <= ops.SMEM_DYNAMIC
+    got = _resolve_local_update("cuda", 3072, 3072, 3072, dtype,
+                                torch.device("cpu"))
+    assert (got.bm, got.bn, got.route) == (128, 128, "mma")
+
+
+@pytest.mark.parametrize("shape,want", [((256, 256, 256), (32, 32)),
+                                        ((128, 128, 128), (16, 32))])
+def test_campaign_and_small_summa_blocks_stay_on_cuda_cores(shape, want):
+    """The chaos campaign's 256^3 drills (its runner's plan) and a 128^3
+    SUMMA test block fill too few SMs for a 128-row tile: they stay on
+    CUDA-core tiles."""
+    from repro_torch.chaos.campaign import CampaignRunner
+    from repro_torch.core.summa import _resolve_local_update
+    plans = [ops.pick_blocks(*shape, carry=True, require_exact=True),
+             _resolve_local_update("cuda", *shape, torch.float32,
+                                   torch.device("cpu"))]
+    if shape == (256, 256, 256):
+        plans.append(CampaignRunner._acc_plan(*shape))
+    for plan in plans:
+        assert (plan.bm, plan.bn) == want and plan.route == "cuda_core"
+        assert kmm.route_of(plan.bm, plan.bn, carry=True) == "cuda_core"
+
+
+def test_acc_state_zeros_shapes_follow_the_tile_not_the_route():
+    """The carried state's layout is the tile's: the SUMMA step's
+    tensor-core plan gives the shapes a CUDA-core plan of the same tile
+    gave, and every kernel-#2 tile has a route."""
+    plan = ops.pick_blocks(3072, 3072, 3072, carry=True, require_exact=True)
+    same_tile = ops.BlockPlan(m=3072, k=3072, n=3072, bm=128, bn=128,
+                              bk=kmm.KT, pm=3072, pk=3072, pn=3072,
+                              cost_bytes=0, route="cuda_core")
+    got = [tuple(x.shape) for x in ops.acc_state_zeros(plan)]
+    assert got == [tuple(x.shape) for x in ops.acc_state_zeros(same_tile)]
+    assert got == [(24, 2, 3072), (24, 3072, 2)]
+    for bm in kmm.TILES_M:
+        for bn in kmm.TILES_N:
+            want = "mma" if (bm, bn) in kmm.MMA_TILES else "cuda_core"
+            assert kmm.route_of(bm, bn, carry=True) == want
+
+
+def test_acc_wrapper_refuses_unbuilt_tiles_and_falls_back_nowhere():
+    """A tile outside TILES_M x TILES_N raises on every device before any
+    launch; a tensor-core tile on a non-CPU, non-CUDA tensor raises instead
+    of taking the plain version."""
+    cpu = lambda *s: torch.zeros(s)  # noqa: E731
+    meta = lambda *s: torch.zeros(s, device="meta")  # noqa: E731
+    counts = (kmm.acc_launches, kmm.acc_plain_calls)
+    assert kmm.route_of(48, 64, carry=True) is None
+    assert kmm.route_of(128, 256, carry=True) is None
+    for bm, bn in ((48, 64), (128, 256), (256, 128)):
+        with pytest.raises(ValueError):
+            kmm.abft_matmul_acc_cuda(
+                cpu(256, 16), cpu(16, 256), cpu(256, 256),
+                cpu(-(-256 // bm), 2, 256), cpu(-(-256 // bn), 256, 2),
+                cpu(2, 256), cpu(256, 2), bm=bm, bn=bn)
+    with pytest.raises(RuntimeError):
+        kmm.abft_matmul_acc_cuda(meta(256, 16), meta(16, 256),
+                                 meta(256, 256), meta(2, 2, 256),
+                                 meta(2, 256, 2), meta(2, 256), meta(256, 2),
+                                 bm=128, bn=128)
+    assert (kmm.acc_launches, kmm.acc_plain_calls) == counts
+
+
+def _acc_3xtf32(c_in, a, b, stage, kstep=8):
+    """The tensor-core route's fp32 arithmetic in plain fp32: C_in plus one
+    partial a ring stage of ``stage`` k, each summed from zero in 8-deep k
+    steps of the three 3xTF32 terms (small ones first) and added to the
+    running sum by one fp32 add."""
+    c = c_in.clone()
+    for s0 in range(0, a.shape[1], stage):
+        part = torch.zeros_like(c)
+        for k0 in range(s0, min(s0 + stage, a.shape[1]), kstep):
+            ah, bh = tf32(a[:, k0:k0 + kstep]), tf32(b[k0:k0 + kstep])
+            al = tf32(a[:, k0:k0 + kstep] - ah)
+            bl = tf32(b[k0:k0 + kstep] - bh)
+            part = part + al @ bh
+            part = part + ah @ bl
+            part = part + ah @ bh
+        c = c + part
+    return c
+
+
+@pytest.mark.parametrize("stage", [8, kmm.MMA_SLAB // 4])
+def test_tensor_core_route_holds_fp32_level_with_a_large_carried_c_in(stage):
+    """At the SUMMA's k = 3072 with a carried C_in far larger than one
+    stage's partial (a late step), the route's arithmetic (a partial a ring
+    stage, ``MMA_SLAB`` bytes of k; and one a k step) stays within
+    chip_smoke.py's RTOL of the float64 result; and checked against the
+    exact result's state by the reference's verify, it raises no alarm."""
+    rs = np.random.RandomState(17)
+    m, k, n, bm, bn = 256, 3072, 256, 128, 128
+    a = torch.from_numpy(rs.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal((k, n)).astype(np.float32))
+    c_in = torch.from_numpy((1e3 * rs.standard_normal((m, n)))
+                            .astype(np.float32))
+    got = _acc_3xtf32(c_in, a, b, stage)
+    ref = c_in.double() + a.double() @ b.double()
+    assert within_rtol(got, ref)
+    wm = np.array(jops.kernel_weights(m))
+    wn = np.array(jops.kernel_weights(n)).T
+    exact = ref.float().numpy()
+    state = jops.tile_checksums(jnp.asarray(exact), jnp.asarray(wm),
+                                jnp.asarray(wn), bm, bn)
+    _, stats = jops._tile_verify_correct(
+        jnp.asarray(got.numpy()), state, jnp.asarray(wm), jnp.asarray(wn),
+        bm, bn, tol_factor=64.0)
+    stats = np.asarray(stats)
+    assert not stats[..., 0].any() and not stats[..., 1].any()
+    assert np.all(stats[..., 4] <= stats[..., 6])
+
+
 def test_kernel_digest_follows_included_headers(tmp_path, monkeypatch):
     """An edited header under csrc/ changes the library name, so the
     kernel is rebuilt; an unrelated header does not."""
@@ -474,11 +597,12 @@ def test_kernel_digest_follows_included_headers(tmp_path, monkeypatch):
     assert d1 != d0
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edit\n')
     assert build.source_digest("k") not in (d0, d1)
-    # the real sources: both kernels include the shared tile header, and
-    # the one-shot kernel the tensor-core helpers
+    # the real sources: both kernels include the shared tile header and the
+    # tensor-core helpers with the shared ring mainloop
     monkeypatch.undo()
     for name, headers in (("abft_matmul", {"abft_tile.cuh", "abft_mma.cuh"}),
-                          ("abft_matmul_acc", {"abft_tile.cuh"})):
+                          ("abft_matmul_acc", {"abft_tile.cuh",
+                                               "abft_mma.cuh"})):
         seen = set()
         build._local_includes((build.CSRC / f"{name}.cu").resolve(), seen)
         assert {p.name for p in seen} == {f"{name}.cu", *headers}

@@ -17,7 +17,8 @@ from repro.kernels.abft_matmul import abft_matmul_pallas
 from repro_torch.kernels import abft_matmul as kmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from torch_port_helpers import RTOL, assert_close, to_np, to_torch
+from torch_port_helpers import (assert_close, product_3xtf32, tf32, to_np,
+                                to_torch, within_rtol)
 
 SHAPES = [(130, 200, 70), (256, 384, 256)]
 
@@ -229,27 +230,31 @@ def test_decode_takes_split_k_and_prefill_takes_tensor_cores(m):
 
 
 # kernel #2's plans (carry=True): the accumulate kernel, SUMMA and the chaos
-# campaign plan through them, so they stay as they were before kernel #1
-# gained its routes: (bm, bn, bk, pm, pk, pn, cost_bytes), and the full
-# ranking at the SUMMA step shape
+# campaign plan through them: (bm, bn, bk, pm, pk, pn, cost_bytes, route),
+# and the full ranking at the SUMMA step shape.  The SUMMA step keeps its
+# 128 x 128 tile (so the carried state's layout) on the tensor-core route,
+# whose k moves in ring stages of 256 bytes (bk 64 fp32, 128 bf16, 256
+# int8); the campaign's 256^3 and the small SUMMA test blocks stay on
+# CUDA-core tiles.
 CARRY_PLANS = [
     ((3072, 3072, 3072), dict(in_dtype=torch.float32, out_bytes=4,
                               require_exact=True),
-     (128, 128, 16, 3072, 3072, 3072, 1889814528)),
+     (128, 128, 64, 3072, 3072, 3072, 1889814528, "mma")),
     ((3072, 3072, 3072), dict(in_dtype=torch.bfloat16, out_bytes=4,
                               require_exact=True),
-     (128, 128, 16, 3072, 3072, 3072, 983844864)),
+     (128, 128, 128, 3072, 3072, 3072, 983844864, "mma")),
     ((3072, 3072, 3072), dict(in_dtype=torch.int8, out_bytes=4,
                               require_exact=True),
-     (128, 128, 16, 3072, 3072, 3072, 530860032)),
+     (128, 128, 256, 3072, 3072, 3072, 530860032, "mma")),
     ((256, 256, 256), dict(require_exact=True),          # the campaign
-     (32, 32, 16, 256, 256, 256, 4786176)),
+     (32, 32, 16, 256, 256, 256, 4786176, "cuda_core")),
     ((128, 128, 128), dict(in_dtype=torch.float32, out_bytes=4,
                            require_exact=True),          # a SUMMA test block
-     (16, 32, 16, 128, 128, 128, 943104)),
-    ((8, 8, 8), dict(), (16, 32, 16, 16, 16, 32, 1312)),
+     (16, 32, 16, 128, 128, 128, 943104, "cuda_core")),
+    ((8, 8, 8), dict(), (16, 32, 16, 16, 16, 32, 1312, "cuda_core")),
     ((8, 8, 8), dict(require_exact=True), None),
-    ((200, 136, 328), dict(), (32, 32, 16, 224, 144, 352, 3045024)),
+    ((200, 136, 328), dict(), (32, 32, 16, 224, 144, 352, 3045024,
+                               "cuda_core")),
 ]
 
 
@@ -257,22 +262,25 @@ CARRY_PLANS = [
 def test_accumulate_plans_are_unchanged(shape, kw, want):
     plan = ops.pick_blocks(*shape, carry=True, **kw)
     got = None if plan is None else (plan.bm, plan.bn, plan.bk, plan.pm,
-                                     plan.pk, plan.pn, plan.cost_bytes)
+                                     plan.pk, plan.pn, plan.cost_bytes,
+                                     plan.route)
     assert got == want
     if plan is not None:
-        assert plan.route == "cuda_core" and plan.splits == 1
+        assert plan.route == kmm.route_of(plan.bm, plan.bn, carry=True)
+        assert plan.splits == 1
 
 
 def test_accumulate_rankings_are_unchanged():
-    ranked = [(p.bm, p.bn, p.cost_bytes) for p in ops.rank_blocks(
+    ranked = [(p.bm, p.bn, p.cost_bytes, p.route) for p in ops.rank_blocks(
         3072, 3072, 3072, in_dtype=torch.float32, out_bytes=4, carry=True,
         require_exact=True)]
     assert ranked == [
-        (128, 128, 1889814528), (64, 128, 2796982272),
-        (128, 64, 2796982272), (64, 64, 3704168448), (32, 128, 4611317760),
-        (128, 32, 4611317760), (32, 64, 5518540800), (64, 32, 5518540800),
-        (32, 32, 7332986880), (16, 128, 8239988736), (16, 64, 9147285504),
-        (16, 32, 10961879040)]
+        (128, 128, 1889814528, "mma"), (128, 64, 2796982272, "mma"),
+        (64, 128, 2796982272, "cuda_core"), (64, 64, 3704168448, "cuda_core"),
+        (32, 128, 4611317760, "cuda_core"), (128, 32, 4611317760, "cuda_core"),
+        (32, 64, 5518540800, "cuda_core"), (64, 32, 5518540800, "cuda_core"),
+        (32, 32, 7332986880, "cuda_core"), (16, 128, 8239988736, "cuda_core"),
+        (16, 64, 9147285504, "cuda_core"), (16, 32, 10961879040, "cuda_core")]
     ranked = [(p.bm, p.bn, p.cost_bytes) for p in ops.rank_blocks(
         256, 256, 256, carry=True, require_exact=True)]
     assert ranked == [
@@ -285,38 +293,16 @@ def test_accumulate_rankings_are_unchanged():
     assert ranked == [(16, 32, 515520), (32, 32, 384480)]
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> TF32 (10 mantissa bits), nearest with ties away from zero:
-    half a TF32 ulp added to the bits, the 13 low mantissa bits cleared."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _product_3xtf32(a, b):
-    """The kernel's 3xTF32 product in plain fp32: a = a_hi + a_lo and
-    b = b_hi + b_lo, each part rounded to TF32, the small terms first."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def _within(x, ref):
-    """chip_smoke.py's criterion: |x - ref| <= RTOL (|ref| + max|ref|)."""
-    x, ref = x.double(), ref.double()
-    tol = RTOL * ref.abs() + RTOL * float(ref.abs().max())
-    return bool(((x - ref).abs() <= tol).all())
-
-
 def test_tf32_rounding_is_nearest_ties_away():
     x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -12, 1.0 + 3 * 2 ** -12,
                       -(1.0 + 2 ** -11), 3.0e-3], dtype=torch.float32)
-    got = _tf32(x).tolist()
+    got = tf32(x).tolist()
     assert got[0] == 1.0
     assert got[1] == 1.0 + 2 ** -10          # a tie rounds away from zero
     assert got[2] == 1.0                     # under half an ulp: down
     assert got[3] == 1.0 + 2 ** -10          # over half an ulp: up
     assert got[4] == -(1.0 + 2 ** -10)
-    lo = x - _tf32(x)
+    lo = x - tf32(x)
     assert bool((lo.abs() <= 2 ** -11 * x.abs()).all())
 
 
@@ -334,8 +320,8 @@ def test_3xtf32_product_holds_the_fp32_tolerance(m, k, n_enc):
     w = torch.from_numpy((rs.standard_normal((k, n)) * k ** -0.5)
                          .astype(np.float32))
     w_enc = ag.encode_weight(w, cfg)
-    y_f = _product_3xtf32(x, w_enc)
-    assert _within(y_f, x @ w_enc)
+    y_f = product_3xtf32(x, w_enc)
+    assert within_rtol(y_f, x @ w_enc)
     residual = y_f @ ag._residual_weights(n, cfg.f, cfg.seed, "cpu")
     assert bool(ag._residual_ok(y_f[:, :n], residual, cfg))
 
@@ -348,8 +334,8 @@ def test_one_tf32_pass_misses_the_fp32_tolerance():
     b = torch.from_numpy((rs.standard_normal((4864, 898)) * 4864 ** -0.5)
                          .astype(np.float32))
     ref = a @ b
-    assert not _within(_tf32(a) @ _tf32(b), ref)
-    assert _within(_product_3xtf32(a, b), ref)
+    assert not within_rtol(tf32(a) @ tf32(b), ref)
+    assert within_rtol(product_3xtf32(a, b), ref)
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 896, 898), (5, 900, 130),

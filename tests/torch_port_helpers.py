@@ -35,3 +35,26 @@ def assert_close(got, want, *, scale=None, rtol=RTOL):
     if scale is None:
         scale = float(np.max(np.abs(want))) if want.size else 0.0
     np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale + 1e-30)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits), nearest with ties away from zero:
+    half a TF32 ulp added to the bits, the 13 low mantissa bits cleared
+    (the kernels' ``abft_mma.cuh::tf32_rna``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def product_3xtf32(a, b):
+    """The kernels' 3xTF32 product in plain fp32: a = a_hi + a_lo and
+    b = b_hi + b_lo, each part rounded to TF32, the small terms first."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def within_rtol(x, ref):
+    """chip_smoke.py's criterion: |x - ref| <= RTOL (|ref| + max|ref|)."""
+    x, ref = x.double(), ref.double()
+    tol = RTOL * ref.abs() + RTOL * float(ref.abs().max())
+    return bool(((x - ref).abs() <= tol).all())
