@@ -79,9 +79,12 @@ exits non-zero without printing a result):
                 256 x 1024 case, the chaos campaign's drill shape (2
                 heads, S 512, D 64, causal, fp32, bq = bk = 128, plain and
                 checked) and B.H = 65,540 heads of S 64, D 64 (past
-                grid.y's 65,535; plain and checked), with kernel, plain,
-                SDPA (where one call
-                computes the same function) and bound times; a clean checked
+                grid.y's 65,535; plain and checked), each row on the
+                tensor-core route and its planned tile (asserted), with
+                kernel, plain, SDPA in the same dtype (where one call
+                computes the same function) and bound times (fp32 at the
+                3xTF32 and the CUDA-core rate); every tile (D 64, 128,
+                256; fp32 and bf16) once at a small shape; a clean checked
                 run flags nothing; injects into acc and l before, on and
                 past the diagonal, a NaN into acc, and a NaN and a -1e4
                 into l (which leave l dead: the plain version flags those
@@ -1207,15 +1210,18 @@ def flash_pairs(sq, sk, causal, window):
 def flash_bound(bh, sq, sk, d, dtype, causal, window, checksum):
     """Least time of one forward: Q, K, V read once and O written once
     over HBM; 4 D operations per admitted (q, k) pair (q.k and p.v; 3 more
-    for the checksum's cs and l2) over the peak rate of the operand type
-    (fp32 at the CUDA-core rate, as the kernel runs it)."""
+    for the checksum's cs and l2, whatever the kernel's split costs) over
+    the tensor-core rate of the operand type (fp32 through 3xTF32).
+    Returns (ms, "bytes" or "operations", ms with fp32 operations at the
+    CUDA-core rate instead), as ``bound`` does for kernel #1."""
     item = 4 if dtype == "float32" else 2
     nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * item
     ops = bh * flash_pairs(sq, sk, causal, window) * (4 * d + 3 * checksum)
-    rate = CUDA_CORE_FP32 if dtype == "float32" else PEAK_OPS[dtype]
-    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / rate
+    t_bytes, t_ops = nbytes / H100_HBM_BPS, ops / PEAK_OPS[dtype]
+    t_cuda = ops / CUDA_CORE_FP32 if dtype == "float32" else t_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), \
+        1e3 * max(t_bytes, t_cuda)
 
 
 def flash_close(torch, x, ref, dtype):
@@ -1244,8 +1250,12 @@ def phase_flash(torch, record):
         kw = dict(scale=d ** -0.5, causal=causal, window=window,
                   softcap=softcap, bq=blk, bk=blk, checksum=checksum)
         got = kfa.flash_attention_cuda(q, k, v, **kw)
+        route = dict(kfa.last_route)
         want = kfa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        if route["route"] != "mma" or route["tile"] != kfa.tile_of(d, dt):
+            raise AssertionError(f"flash at {what} {name} ran {route}, not "
+                                 f"the tensor-core tile {kfa.tile_of(d, dt)}")
         o, po = (got, want) if not checksum else (got[0], want[0])
         err = float((o.double() - po.double()).abs().max())
         if not (torch.isfinite(o).all() and flash_close(torch, o, po, name)):
@@ -1264,25 +1274,72 @@ def phase_flash(torch, record):
         plain_ms = time_ms(
             torch, lambda: kfa.flash_attention_plain(q, k, v, **kw), 2,
             flush)
-        lib_ms = None
-        if causal and window is None and not softcap and sq == sk \
-                and name == "float32":
+        lib_ms = q4 = k4 = v4 = None
+        if causal and window is None and not softcap and sq == sk:
+            # SDPA in the same dtype on [B, H, S, D]: its fused kernels
+            # (flash for bf16, memory-efficient for fp32) take 4-D inputs
+            # (3-D ones fall back to its unfused math path) and put the
+            # heads in grid.y, so H stays under 65,536
+            b = next(b for b in range(1, bh + 1)
+                     if bh % b == 0 and bh // b < 65536)
+            q4, k4, v4 = (x.view(b, bh // b, -1, d) for x in (q, k, v))
             lib_ms = time_ms(torch, lambda: tnf.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=d ** -0.5), reps, flush)
-        b_ms, b_by = flash_bound(bh, sq, sk, d, name, causal, window,
-                                 checksum)
+                q4, k4, v4, is_causal=True, scale=d ** -0.5), reps, flush)
+        b_ms, b_by, b_cuda = flash_bound(bh, sq, sk, d, name, causal, window,
+                                         checksum)
         row = dict(what=what, bh=bh, sq=sq, sk=sk, d=d, dtype=name,
                    causal=causal, window=window, softcap=softcap,
-                   checksum=checksum, block=blk, max_abs_err=err, clean_residual=resid,
+                   checksum=checksum, block=blk, route=route["route"],
+                   tile=list(route["tile"]),
+                   copy=[route["copy_q"], route["copy_k"], route["copy_v"]],
+                   max_abs_err=err, clean_residual=resid,
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, cuda_core_bound_ms=b_cuda)
         rows.append(row)
         log("flash", json.dumps(row))
-        del q, k, v, got, want, o, po
+        del q, k, v, got, want, o, po, q4, k4, v4
         torch.cuda.empty_cache()
     record["flash_cases"] = rows
+    record["flash_widths"] = _flash_widths(torch, g, kfa)
     record["flash_drills"] = _flash_drills(torch, g, kfa)
     return rows
+
+
+def _flash_widths(torch, g, kfa):
+    """Every tile the kernel builds (each head width in fp32 and bf16) at
+    [2, 512, D], causal with a window of 100 and a softcap of 30, checked:
+    the tensor-core route on its planned tile, the output within
+    flash_close of the plain version, clean residuals under the check's
+    tolerance."""
+    out = []
+    for d in kfa.HEAD_DIMS:
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            q, k, v = (torch.randn((2, 512, d), generator=g, device="cuda")
+                       .to(dt) for _ in range(3))
+            kw = dict(scale=d ** -0.5, causal=True, window=100, softcap=30.0,
+                      bq=128, bk=128, checksum=True)
+            o, st = kfa.flash_attention_cuda(q, k, v, **kw)
+            route = dict(kfa.last_route)
+            po, _ = kfa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if route["route"] != "mma" or \
+                    route["tile"] != kfa.tile_of(d, dt) or \
+                    not flash_close(torch, o, po, name) or \
+                    not float(st.max()) <= kfa.FLASH_CHECK_TOL:
+                raise AssertionError(f"flash D={d} {name}: {route}, max "
+                                     f"|o - plain| "
+                                     f"{float((o.double() - po.double()).abs().max())}, "
+                                     f"residual {float(st.max())}")
+            out.append(dict(d=d, dtype=name, tile=list(route["tile"]),
+                            max_abs_err=float((o.double() - po.double())
+                                              .abs().max())))
+    log("flash", "every tile (D " + ", ".join(map(str, kfa.HEAD_DIMS))
+        + "; fp32 and bf16) on the tensor-core route, within flash_close "
+          "of the plain version, clean residuals: "
+        + "; ".join(f"{r['d']} {r['dtype']} {r['tile'][0]}x{r['tile'][1]}"
+                    for r in out))
+    return out
 
 
 def _flash_drills(torch, g, kfa):
@@ -1564,6 +1621,9 @@ def main():
                  if r["bound_by"] == "operations")
     # the accumulate kernel at the SUMMA step shape, fp32 as the SUMMA runs
     step = acc_rows[0]
+    # kernel #4's Qwen2-0.5B row in bf16, unchecked
+    bf16_row = next(r for r in flash_rows if r["what"] == "qwen2-0.5b"
+                    and r["dtype"] == "bfloat16" and not r["checksum"])
     kernels = {"kernels": [{
         "name": "abft_matmul",
         "route": "cuda",
@@ -1606,7 +1666,9 @@ def main():
     }, {
         # the Qwen2-0.5B attention at full width (4 x 14 heads, S 4096,
         # D 64, causal, fp32), the shape SDPA computes the same function
-        # at; the campaign's main path launches it at [2, 512, 64]
+        # at; the campaign's main path launches it at [2, 512, 64].  The
+        # bound is at the 3xTF32 rate; the CUDA-core bound and the bf16
+        # row (kernel, bound, SDPA) ride along
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1619,6 +1681,10 @@ def main():
         "bound_ms": flash_rows[0]["bound_ms"],
         "bound_by": flash_rows[0]["bound_by"],
         "library_ms": flash_rows[0]["library_ms"],
+        "cuda_core_bound_ms": flash_rows[0]["cuda_core_bound_ms"],
+        "bf16_ms": bf16_row["ms"],
+        "bf16_bound_ms": bf16_row["bound_ms"],
+        "bf16_library_ms": bf16_row["library_ms"],
     }]}
     record["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

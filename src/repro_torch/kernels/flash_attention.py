@@ -30,16 +30,21 @@ added to ``acc[row qi*bq, col 0]`` (target "acc") or ``l[row qi*bq]``
 (target "l") of bh 0 once keys ``[0, (kk+1)*bk)`` are folded into that
 row's state, whether or not that chunk holds a key the row may see.
 
-The kernel is ``csrc/flash_attention.cu``; its header says what bounds it
-and what its simple design leaves out.  Its tiling is its own: ``bq`` and
-``bk`` fix only the stats' granularity and the inject's coordinates, and
-the reference's ``sq % bq == 0 and sk % bk == 0`` contract is kept.  The
-reference's ``interpret`` and ``pipeline`` flags and the 128-lane padding
-of its stats are TPU details: the port's stats are ``[BH, Sq // bq, 2]``.
+The kernel is ``csrc/flash_attention.cu``: QK^T and P.V on tensor cores
+(3xTF32 for fp32, bf16 with P split into hi + lo), K and V through a
+cp.async ring, the checksums riding P.V as an extra column tile of V; its
+header says what bounds it and what the design leaves.  Its tiling is its
+own (``tile_of``: 64 or 128 rows a CTA, 16 to 64 keys a chunk by type and
+head dim): ``bq`` and ``bk`` fix only the stats' granularity and the inject's
+coordinates, and the reference's ``sq % bq == 0 and sk % bk == 0``
+contract is kept.  The reference's ``interpret`` and ``pipeline`` flags and
+the 128-lane padding of its stats are TPU details: the port's stats are
+``[BH, Sq // bq, 2]``.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor, and only there, it runs ``flash_attention_plain``.  ``launches``
-counts kernel launches and ``plain_calls`` plain-version calls.
+counts kernel launches and ``plain_calls`` plain-version calls;
+``last_route`` says how the last launch ran (route, tile, copy widths).
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ from repro_torch.chaos.faults import register_surface
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "flash_attention_checked", "FlashCheckReport", "FLASH_CHECK_TOL",
-           "NEG_INF", "reset_counts"]
+           "NEG_INF", "reset_counts", "tile_of"]
 
 NEG_INF = -1e30
 FLASH_CHECK_TOL = 1e-3
@@ -63,6 +68,8 @@ _TARGET = {None: 0, "acc": 1, "l": 2}
 
 launches = 0                     # kernel launches by flash_attention_cuda
 plain_calls = 0                  # calls of flash_attention_plain
+last_route: dict = {}            # route, tile and copy widths of the last
+                                 # kernel launch
 
 register_surface(
     "kernels.flash_attention", owner=__name__, protected=True,
@@ -80,6 +87,18 @@ register_surface(
 def reset_counts() -> None:
     global launches, plain_calls
     launches = plain_calls = 0
+
+
+def tile_of(d: int, dtype) -> Tuple[int, int]:
+    """The kernel's (rows a CTA, keys a chunk) for head dim ``d`` and
+    operand type ``dtype`` (``Cfg::BR``, ``Cfg::BC`` in the kernel): 16 rows
+    a warp, 8 warps for fp32 at D = 64 and bf16 at D = 256, else 4; fp32 64
+    keys at D = 64, 32 at 128, 16 at 256; bf16 64 keys, 32 at D = 256."""
+    f32 = torch.empty((), dtype=dtype).element_size() == 4
+    warps = 8 if (f32 and d == 64) or (not f32 and d == 256) else 4
+    keys = ({64: 64, 128: 32}.get(d, 16) if f32
+            else (64 if d <= 128 else 32))
+    return 16 * warps, keys
 
 
 def _check(q, k, v, bq: int, bk: int) -> None:
@@ -203,7 +222,8 @@ def _launcher():
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
                           ctypes.c_longlong, ctypes.c_longlong,
-                          ctypes.c_float, ctypes.c_void_p])
+                          ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -217,7 +237,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q.dtype, or ``(o, stats)`` with ``checksum=True``.  CUDA tensors
     launch the kernel on the current stream; CPU tensors run
     ``flash_attention_plain``."""
-    global launches
+    global launches, last_route
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window, softcap=softcap, bq=bq,
@@ -242,6 +262,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qi, kk, delta, target = inject if inject is not None \
             else (0, 0, 0.0, None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        info = (ctypes.c_int * 6)()
         rc = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             rows.data_ptr() if checksum else None, bh, sq, sk, d,
@@ -249,12 +270,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(window is not None),
             int(window) if window is not None else 0,
             float(softcap) if softcap else 0.0, _TARGET[target],
-            qi * bq, (kk + 1) * bk, delta, stream)
+            qi * bq, (kk + 1) * bk, delta, info, stream)
         if rc != 0:
             raise RuntimeError(f"flash_attention kernel launch failed: code "
                                f"{rc} (BH={bh}, sq={sq}, sk={sk}, d={d}, "
                                f"{q.dtype})")
         launches += 1
+        tile = (info[1], info[2])
+        if info[0] != 1 or tile != tile_of(d, q.dtype):
+            raise RuntimeError(f"flash_attention ran route {info[0]} tile "
+                               f"{tile}, planned mma {tile_of(d, q.dtype)}")
+        last_route = dict(route="mma", tile=tile, copy_q=info[3],
+                          copy_k=info[4], copy_v=info[5])
     if not checksum:
         return o
     # torch.amax keeps a NaN row residual (fmaxf would drop it)

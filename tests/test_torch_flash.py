@@ -20,7 +20,7 @@ from repro.kernels.flash_attention import (FLASH_CHECK_TOL as J_TOL,
                                            flash_attention_checked as j_checked,
                                            flash_attention_pallas)
 from repro_torch.kernels import flash_attention as F
-from torch_port_helpers import to_np
+from torch_port_helpers import flash_outside, product_3xtf32, tf32, to_np
 
 # the reference's own cases (tests/test_flash_kernel.py)
 CASES = [(True, None, None), (True, 384, None), (True, None, 50.0),
@@ -216,6 +216,192 @@ def test_stats_shape_and_block_contract(rs):
                                 scale=0.125)
 
 
+# ---- the CUDA kernel's arithmetic, as a plain-PyTorch twin ---------------
+#
+# The kernel (csrc/flash_attention.cu) runs QK^T and P.V on tensor cores:
+# fp32 operands through 3xTF32 (x = hi + lo, each rounded to TF32, the small
+# terms first), bf16 QK^T straight from bf16 Q and K with fp32 sums and P
+# split into bf16 hi + lo against exact bf16 V; each chunk's fp32 P.V is
+# summed from zero and added to acc in fp32; the checksums ride P.V as
+# the column tile [vsum_hi, vsum_lo, 1] of V in the operand type.  The
+# twin below repeats that arithmetic with exact fp32 sums (the order of a
+# sum over keys or d is the tensor core's own) and is held to
+# flash_attention_plain under chip_smoke.py's flash_close at 2 x 1024 x 64.
+
+TWIN_BH, TWIN_S = 2, 1024
+TWIN_CASES = {"causal": dict(causal=True, window=None, softcap=None),
+              "window+softcap": dict(causal=True, window=256, softcap=50.0)}
+
+
+def _twin_inputs(dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    a = [rs.standard_normal((TWIN_BH, TWIN_S, D)).astype(np.float32)
+         for _ in range(3)]
+    return a, [torch.from_numpy(x).to(dtype) for x in a]
+
+
+def _split_bf16(x):
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _twin_product(a, b, how):
+    """a @ b for fp32 operands as the kernel's tensor core forms it."""
+    if how == "3xtf32":
+        return product_3xtf32(a, b)
+    return tf32(a) @ tf32(b)                 # one TF32 pass
+
+
+def flash_twin(q, k, v, *, scale, causal, window, softcap, bc=64, bq=256,
+               qk="3xtf32", pv="3xtf32", p_bf16="split"):
+    """The kernel's forward on CPU tensors: ``(o, stats, cs, l2)`` with
+    stats [BH, Sq // bq, 2] as flash_attention_plain's.  fp32: ``qk`` and
+    ``pv`` are "3xtf32" or "tf32"; bf16: ``p_bf16`` is "split" (hi + lo)
+    or "single" (one bf16 rounding of P)."""
+    f32 = q.dtype == torch.float32
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    m = torch.full((bh, sq, 1), F.NEG_INF)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    aug = torch.zeros((bh, sq, 3))           # columns vsum_hi, vsum_lo, 1
+    q_pos = torch.arange(sq)[:, None]
+    for c0 in range(0, sk, bc):
+        kc, vc = k32[:, c0:c0 + bc], v32[:, c0:c0 + bc]
+        kt = kc.transpose(1, 2)
+        s = (_twin_product(q32, kt, qk) if f32 else q32 @ kt) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = F._mask(q_pos, c0 + torch.arange(kc.shape[1])[None, :],
+                       causal, window)
+        s = torch.where(mask, s, F.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        vsum = vc.sum(-1, keepdim=True)
+        if f32:
+            vh = tf32(vsum)
+            cols = torch.cat([vh, tf32(vsum - vh), torch.ones_like(vh)], -1)
+            part = _twin_product(p, vc, pv)
+            # B = cols is exact in TF32: the split P's two terms
+            ph = tf32(p)
+            apart = tf32(p - ph) @ cols + ph @ cols
+        else:
+            vh, vl = _split_bf16(vsum)
+            cols = torch.cat([vh, vl, torch.ones_like(vh)], -1)
+            if p_bf16 == "split":
+                ph, pl = _split_bf16(p)
+                part, apart = pl @ vc + ph @ vc, pl @ cols + ph @ cols
+            else:
+                ph = p.to(torch.bfloat16).float()
+                part, apart = ph @ vc, ph @ cols
+        acc = acc * corr + part
+        aug = aug * corr + apart
+    l_safe = torch.clamp_min(l, 1e-30)
+    o = acc / l_safe
+    cs, l2 = aug[..., :1] + aug[..., 1:2], aug[..., 2:]
+    live = l2 > 0.0
+    want = cs / l_safe
+    r_pv = torch.where(live, (o.sum(-1, keepdim=True) - want).abs()
+                       / (want.abs() + 1.0), 0.0)
+    r_l = torch.where(live, (l2 / l_safe - 1.0).abs(), 0.0)
+    rows = torch.cat([r_pv, r_l], -1)
+    stats = rows.view(bh, sq // bq, bq, 2).amax(2)
+    return o.to(q.dtype), stats, cs, l2
+
+
+def _twin_vs_plain(dtype, case, **how):
+    _, (q, k, v) = _twin_inputs(dtype)
+    kw = dict(scale=D ** -0.5, **TWIN_CASES[case])
+    o, stats, _, _ = flash_twin(q, k, v, **kw, **how)
+    want = F.flash_attention_plain(q, k, v, bq=256, bk=256, **kw)
+    return flash_outside(o, want, dtype), o, want, stats
+
+
+@pytest.mark.parametrize("case", list(TWIN_CASES))
+def test_plain_matches_reference_kernel_at_twin_size(case):
+    """The yardstick of the twin tests: flash_attention_plain against the
+    reference's interpret-mode kernel on the same 2 x 1024 x 64 inputs."""
+    a, (q, k, v) = _twin_inputs(torch.float32)
+    kw = dict(scale=D ** -0.5, bq=256, bk=256, **TWIN_CASES[case])
+    want = flash_attention_pallas(*(jnp.asarray(x) for x in a),
+                                  interpret=True, **kw)
+    _assert_out(F.flash_attention_plain(q, k, v, **kw), want, torch.float32)
+
+
+@pytest.mark.parametrize("case", list(TWIN_CASES))
+def test_twin_3xtf32_both_products_within_rtol(case):
+    outside, o, want, _ = _twin_vs_plain(torch.float32, case)
+    assert outside == 0
+    assert float((o - want).abs().max()) < 5e-6
+
+
+@pytest.mark.parametrize("case", list(TWIN_CASES))
+def test_twin_bf16_split_p_within_one_ulp(case):
+    outside, o, want, _ = _twin_vs_plain(torch.bfloat16, case)
+    assert outside == 0 and o.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(TWIN_CASES))
+def test_twin_checksum_columns_give_clean_residuals(dtype, case):
+    """cs and l2 out of the augmented V column tile: clean residuals (r_l
+    = |l2 / l - 1| and r_pv) well under FLASH_CHECK_TOL, and cs / l2, the
+    p-weighted mean of vsum, within 1e-4 of max |vsum| of its float64
+    value."""
+    _, (q, k, v) = _twin_inputs(dtype)
+    kw = dict(scale=D ** -0.5, **TWIN_CASES[case])
+    _, stats, cs, l2 = flash_twin(q, k, v, **kw)
+    assert float(stats.max()) < F.FLASH_CHECK_TOL / 10
+    # the same sums in float64 from the plain recurrence's own state
+    s = (q.double() @ k.double().transpose(1, 2)) * kw["scale"]
+    if kw["softcap"]:
+        s = kw["softcap"] * torch.tanh(s / kw["softcap"])
+    mask = F._mask(torch.arange(TWIN_S)[:, None],
+                   torch.arange(TWIN_S)[None, :], kw["causal"], kw["window"])
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    vsum = v.double().sum(-1, keepdim=True)
+    ref_cs, ref_l = p @ vsum, p.sum(-1, keepdim=True)
+    # the running state carries exp(m_final - m_row) against the float64
+    # sums: compare the ratios the epilogue reads
+    assert torch.allclose(cs.double() / l2.double(), ref_cs / ref_l,
+                          rtol=0, atol=1e-4 * float(vsum.abs().max()))
+
+
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_one_tf32_pass_in_either_product_misses_rtol(product):
+    """One TF32 pass (10-bit mantissas) in QK^T or in P.V leaves tens of
+    thousands of the 131,072 outputs outside RTOL (37,446 for QK^T and
+    34,905 for P.V on these inputs; 55,835 with both), which is what put
+    both fp32 products on 3xTF32."""
+    how = {product: "tf32"}
+    outside, _, _, _ = _twin_vs_plain(torch.float32, "causal", **how)
+    assert outside > 25_000, outside
+
+
+def test_one_bf16_rounding_of_p_misses_one_ulp():
+    """P rounded once to bf16 against exact bf16 V leaves thousands of the
+    outputs outside one bf16 ulp (11,852 of 131,072 on these inputs); hi +
+    lo (test above) leaves none."""
+    outside, _, _, _ = _twin_vs_plain(torch.bfloat16, "causal",
+                                      p_bf16="single")
+    assert outside > 8_000, outside
+
+
+def test_tile_table_matches_the_kernels():
+    """tile_of mirrors csrc/flash_attention.cu's Cfg (the wrapper checks
+    the launch's reported tile against it)."""
+    got = {(d, str(dt)[6:]): F.tile_of(d, dt) for d in F.HEAD_DIMS
+           for dt in (torch.float32, torch.bfloat16)}
+    assert got == {(64, "float32"): (128, 64), (64, "bfloat16"): (64, 64),
+                   (128, "float32"): (64, 32), (128, "bfloat16"): (64, 64),
+                   (256, "float32"): (64, 16), (256, "bfloat16"): (128, 32)}
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
@@ -235,6 +421,9 @@ def test_cuda_kernel_matches_plain_on_card():
             po, pst = F.flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             assert F.launches == launches + 1
+            # the tensor-core route on the tile the wrapper planned
+            assert F.last_route["route"] == "mma"
+            assert F.last_route["tile"] == F.tile_of(D, dtype)
             _assert_out(o.cpu(), po.cpu(), dtype)
             assert float(st.max()) <= F.FLASH_CHECK_TOL
             o, rep = F.flash_attention_checked(

@@ -58,3 +58,16 @@ def within_rtol(x, ref):
     x, ref = x.double(), ref.double()
     tol = RTOL * ref.abs() + RTOL * float(ref.abs().max())
     return bool(((x - ref).abs() <= tol).all())
+
+
+BF16_ULP = 2.0 ** -7   # one bf16 ulp, relative
+
+
+def flash_outside(x, ref, dtype) -> int:
+    """Elements of ``x`` outside chip_smoke.py's ``flash_close`` of ``ref``:
+    fp32 within RTOL (relative, plus RTOL of the largest |ref|); bf16
+    within one bf16 ulp of ref on top of that."""
+    x, ref = x.double(), ref.double()
+    rel = RTOL if dtype == torch.float32 else BF16_ULP
+    scale = float(ref.abs().max())
+    return int((~((x - ref).abs() <= rel * ref.abs() + RTOL * scale)).sum())
