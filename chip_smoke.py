@@ -7,8 +7,11 @@ entry point, run the paper's fault-tolerant SUMMA at the paper's size, and
 train Qwen2-0.5B at its published width through the port's fault-tolerant
 training entry point, with diskless recoveries, hold the checked
 flash-attention kernel against its plain version at the Qwen2-0.5B and
-Gemma2-2B attention shapes, and run the chaos campaign's kernel and layer
-drills through its CLI.
+Gemma2-2B attention shapes, run the chaos campaign over its train and
+serve workloads through its CLI, and drive the protected reductions and the
+at-rest scrub at full width: the verified unembed of the serving engine
+with an SDC drill and KV and params flips, and the protected train step
+under ElasticRuntime with an SDC and DRAM flips.
 
     python3 chip_smoke.py
 
@@ -58,10 +61,12 @@ exits non-zero without printing a result):
                 stress CLI for 8 iterations;
   8. encode   — the diskless encode kernel against its plain version at the
                 full-width train state's own views (the embedding in bf16
-                and fp32, a 4-D layer-group view, a [4, 224] norm view) and a
-                ragged p = 16, f = 3 case, with kernel, plain, torch.matmul
-                and bound times, and the same sums over one encode of the
-                whole state (42 leaves);
+                and fp32, a 4-D layer-group view, a [4, 224] norm view), a
+                ragged p = 16, f = 3 case, and the p = 1 views that
+                ElasticRuntime at 1 x 1 encodes (embedding, a layer group,
+                a norm; there the output is the state bit for bit), with
+                kernel, plain, torch.matmul and bound times, and the same
+                sums over one encode of the whole state (42 leaves);
   9. train    — repro_torch.launch.train.run at full width in bf16, ABFT
                 verify: 30 steps with two injected shard losses and a
                 diskless encode every 5 steps; kernel #3 launched once per
@@ -92,13 +97,42 @@ exits non-zero without printing a result):
  11. chaos    — kernels #4 and #2 against their plain versions on each of
                 the campaign's eight kernel drills (its inputs, tiles and
                 faults, clean and faulted calls); then
-                repro_torch.launch.chaos over the default space's train
-                workload (the slice's main path), counts zeroed just
-                before it: the ten kernel and layer drills with the
-                reference's outcomes and rungs, kernel #4 launched 4 and
-                kernel #2 21 times, no plain call, every other row skipped
-                with the slice it waits for, nothing missed, no false
-                alarm (the artifact and matrix in chiprun_out/chaos.*).
+                repro_torch.launch.chaos over the default space's train and
+                serve workloads, counts zeroed just before it: its 67 rows
+                with the outcome, rung and end state of the reference's
+                one-device campaign (CAMPAIGN_ROWS: 50 corrected, 3
+                detected, 7 clean sweeps, 7 skipped naming port slice 13;
+                episodes 9 corrected, 2 skipped), kernel #4 launched 4 and
+                kernel #2 21 times, kernel #3 once per encoded leaf of
+                every diskless encode and scrub verify, no plain call,
+                nothing missed, no false alarm (the artifact and matrix in
+                chiprun_out/chaos.*);
+ 12. serve-ft — repro_torch.launch.serve.run on Qwen2-0.5B at full width in
+                fp32 (the bit-flip model is on 32-bit words), ABFT verify
+                on kernel #1 (168 launches a pass, no plain call), 8
+                requests: the protected logits reduction ("correct") clean;
+                an SDC drill at decode step 3 (shard 0, delta 1e4)
+                detected, corrected and located, tokens identical to the
+                undrilled run; with the scrub every decode step, a KV flip
+                and a params flip (the campaign's _flip_engine_bit)
+                repaired, tokens identical, and the protected tokens equal
+                to the unprotected run's; the reduction's share of a decode
+                step from an unprotected and a protected engine on the same
+                weights and requests, stepped in turns, and the reduction
+                alone on CUDA events; the drilled step's recovery latency
+                and the scrub's wall;
+ 13. train-ft — ElasticRuntime (mesh 1 x 1) on Qwen2-0.5B at full width in
+                fp32, batch 16 x seq 128, the protected step (deferred
+                reduction, abft_reduce "correct", ABFT verify) with an
+                encode and a scrub every step for 6 steps: an SDC at step 2
+                flagged (abft_ok 0), a params flip at step 3 and an
+                optimizer-state flip at step 4 rolled back by the scrub,
+                the end state within TrainConfig.tol of the clean run's;
+                kernel #3 launched once per leaf (42) of each encode and
+                each verify, no plain call; the reduction's share of a step
+                from unprotected and protected steps on one state and batch
+                in turns, and the reduction alone on CUDA events; encode
+                and verify walls.
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -862,6 +896,15 @@ ENC_CASES = [        # (what, p, f, m, n, dtype): views the encode takes
      "bfloat16"),
     ("final_norm view [4, 224]", 4, 1, 1, 224, "bfloat16"),
     ("ragged, p = 16, f = 3", 16, 3, 1000, 999, "float32"),
+    # p = 1: the views of stack_view(state, 1), which ElasticRuntime at
+    # 1 x 1 encodes and verifies (phases 11 and 13); the checksum row is
+    # all ones, so the output is the state itself, bit for bit
+    ("p = 1 embedding view [1, 151936, 896], fp32", 1, 1, 151936, 896,
+     "float32"),
+    ("p = 1 embedding view, bf16", 1, 1, 151936, 896, "bfloat16"),
+    ("p = 1 mlp.gate.w group view [1, 24, 896 x 4864], fp32", 1, 1, 24,
+     896 * 4864, "float32"),
+    ("p = 1 final_norm view [1, 1, 896], fp32", 1, 1, 1, 896, "float32"),
 ]
 
 
@@ -919,6 +962,9 @@ def phase_encode(torch, record):
         if not bool((diff <= tol).all()):
             raise AssertionError(f"encode {what}: kernel and plain differ by "
                                  f"{err}, over the stated tolerance")
+        if p == 1 and not (torch.equal(got, want) and torch.equal(got, x)):
+            raise AssertionError(f"encode {what}: at p = 1 the kernel's "
+                                 "output is not the state bit for bit")
         del got, want, terms, tol, diff
         ms, plain_ms, lib_ms = enc_times(torch, x, a, flush, 10)
         b_ms, b_by = enc_bound(p, f, m, n, x.element_size())
@@ -1520,66 +1566,639 @@ def _campaign_pairs(torch):
     return out
 
 
+# every row of the reference's one-device campaign over the default space's
+# train and serve workloads (PYTHONPATH=src JAX_PLATFORMS=cpu python -m
+# repro.launch.chaos --space default --workload both), in its order: name,
+# outcome, rung, end state (None = within the promise, for the kernel drills
+# whose float repair may land bit-identical on the card)
+CAMPAIGN_ROWS = [
+    ('train:sdc_collective:s2', 'corrected', 'abft_inflight', 'within_tol'),
+    ('train:checksum_state_flip:s1', 'detected', None, 'bit_identical'),
+    ('train:checksum_state_flip:s1:bf16:seed1',
+     'detected', None, 'bit_identical'),
+    ('train:sdc_collective:s1:b20:int8',
+     'corrected', 'kernel:masked_recompute', 'bit_identical'),
+    ('train:flash_state_flip:s1', 'corrected', 'flash:recompute_tile', None),
+    ('train:norm_corruption:s2', 'corrected', 'recompute', 'bit_identical'),
+    ('train:gather_corruption:s2', 'corrected', 'recompute', 'bit_identical'),
+    ('train:dram_params:s2', 'corrected', 'scrub:diskless', 'bit_identical'),
+    ('train:dram_opt_state:s2:b29',
+     'corrected', 'scrub:diskless', 'bit_identical'),
+    ('train:shard_loss:s3', 'corrected', 'diskless', 'bit_identical'),
+    ('serve:sdc_collective:s1', 'corrected', 'abft_inflight', 'bit_identical'),
+    ('serve:dram_kv_cache:s2',
+     'corrected', 'scrub:kv_repair', 'bit_identical'),
+    ('train:sdc_collective:s4:d-30000:seed1',
+     'corrected', 'abft_inflight', 'within_tol'),
+    ('serve:sdc_collective:s3:sh1:d-30000:seed1',
+     'skipped', None, 'not_compared'),
+    ('serve:dram_params:s0', 'corrected', 'scrub:restore', 'bit_identical'),
+    ('train:flash_state_flip:s2:l:seed1',
+     'corrected', 'flash:recompute_tile', None),
+    ('train:checksum_state_flip:s2:b29:int8:seed2',
+     'detected', None, 'bit_identical'),
+    ('train:sdc_collective:s2:bf16:seed2',
+     'corrected', 'kernel:masked_recompute', None),
+    ('train:sdc_collective:s2:b28:seed3',
+     'corrected', 'kernel:masked_recompute', None),
+    ('train:shard_loss:s3:sh1:seed1', 'skipped', None, 'not_compared'),
+    ('train:pod_loss:s3:diskless', 'skipped', None, 'not_compared'),
+    ('train:pod_loss:s3:disk:seed1', 'skipped', None, 'not_compared'),
+    ('train:slow_pod:s1', 'skipped', None, 'not_compared'),
+    ('train:sdc+dram_burst::e0:sdc_collective',
+     'corrected', 'abft_inflight', 'not_compared'),
+    ('train:sdc+dram_burst::e1:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('train:sdc+dram_burst::e2:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('train:sdc+dram_burst::e3:dram_opt_state',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('episode:train:sdc+dram_burst',
+     'corrected', 'abft_inflight+scrub:diskless', 'within_tol'),
+    ('serve:sdc+kv_dram::e0:sdc_collective',
+     'corrected', 'abft_inflight', 'not_compared'),
+    ('serve:sdc+kv_dram::e1:dram_kv_cache',
+     'corrected', 'scrub:kv_repair', 'not_compared'),
+    ('serve:sdc+kv_dram::e2:dram_params',
+     'corrected', 'scrub:restore', 'not_compared'),
+    ('episode:serve:sdc+kv_dram',
+     'corrected', 'abft_inflight+scrub:kv_repair+scrub:restore',
+     'bit_identical'),
+    ('train:poisson250::e0:shard_loss',
+     'corrected', 'diskless', 'not_compared'),
+    ('episode:train:poisson250', 'corrected', 'diskless', 'bit_identical'),
+    ('serve:poisson250::e0:dram_kv_cache',
+     'corrected', 'scrub:kv_repair', 'not_compared'),
+    ('serve:poisson250::e1:sdc_collective',
+     'corrected', 'abft_inflight', 'not_compared'),
+    ('episode:serve:poisson250',
+     'corrected', 'abft_inflight+scrub:kv_repair', 'bit_identical'),
+    ('episode:train:dram+podloss', 'skipped', None, 'not_compared'),
+    ('episode:train:pod_repeat', 'skipped', None, 'not_compared'),
+    ('train:poisson125::e0:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('episode:train:poisson125',
+     'corrected', 'scrub:diskless', 'bit_identical'),
+    ('train:poisson250::e0:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('train:poisson250::e1:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('train:poisson250::e2:shard_loss',
+     'corrected', 'diskless', 'not_compared'),
+    ('train:poisson250::e3:sdc_collective',
+     'corrected', 'abft_inflight', 'not_compared'),
+    ('train:poisson250::e4:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('train:poisson250::e5:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('episode:train:poisson250',
+     'corrected', 'abft_inflight+diskless+scrub:diskless', 'within_tol'),
+    ('train:poisson500::e0:sdc_collective',
+     'corrected', 'abft_inflight', 'not_compared'),
+    ('train:poisson500::e1:dram_opt_state',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('train:poisson500::e2:shard_loss',
+     'corrected', 'diskless', 'not_compared'),
+    ('train:poisson500::e3:shard_loss',
+     'corrected', 'diskless', 'not_compared'),
+    ('train:poisson500::e4:sdc_collective',
+     'corrected', 'abft_inflight', 'not_compared'),
+    ('train:poisson500::e5:dram_opt_state',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('episode:train:poisson500',
+     'corrected', 'abft_inflight+diskless+scrub:diskless', 'within_tol'),
+    ('serve:poisson125::e0:dram_params',
+     'corrected', 'scrub:restore', 'not_compared'),
+    ('episode:serve:poisson125',
+     'corrected', 'scrub:restore', 'bit_identical'),
+    ('serve:poisson250::e0:dram_params',
+     'corrected', 'scrub:restore', 'not_compared'),
+    ('serve:poisson250::e1:dram_params',
+     'corrected', 'scrub:restore', 'not_compared'),
+    ('episode:serve:poisson250',
+     'corrected', 'scrub:restore', 'bit_identical'),
+    ('train:clean_sweep:1x1:plain', 'clean', None, 'bit_identical'),
+    ('train:clean_sweep:1x1:plain:7st', 'clean', None, 'bit_identical'),
+    ('train:clean_sweep:1x1:protected', 'clean', None, 'bit_identical'),
+    ('train:clean_sweep:1x1:protected:9st', 'clean', None, 'bit_identical'),
+    ('train:clean_sweep:1x1:scrub', 'clean', None, 'bit_identical'),
+    ('serve:clean_sweep:1x1', 'clean', None, 'bit_identical'),
+    ('serve:clean_sweep:1x1xscrub', 'clean', None, 'bit_identical'),
+]
+CAMPAIGN_BY_OUTCOME = {"corrected": 50, "absorbed": 0, "detected": 3,
+                       "missed": 0, "false_alarm": 0, "clean": 7,
+                       "skipped": 7}
+
+
+def _count_encodes(calls):
+    """Wrap `DisklessCheckpoint.encode` and `.verify` to count the leaves
+    each call hands kernel #3; returns the function that unwraps them."""
+    from repro_torch.ckpt.diskless import DisklessCheckpoint
+    from repro_torch.tree import tree_leaves
+    enc, ver = DisklessCheckpoint.encode, DisklessCheckpoint.verify
+
+    def leaves(dc, state):
+        return sum(1 for x in tree_leaves(state) if dc._encoded(x))
+
+    def encode(self, state, *a, **kw):
+        calls["encodes"] += 1
+        calls["leaves"] += leaves(self, state)
+        return enc(self, state, *a, **kw)
+
+    def verify(self, state, *a, **kw):
+        calls["verifies"] += 1
+        calls["leaves"] += leaves(self, state)
+        return ver(self, state, *a, **kw)
+
+    DisklessCheckpoint.encode, DisklessCheckpoint.verify = encode, verify
+
+    def undo():
+        DisklessCheckpoint.encode, DisklessCheckpoint.verify = enc, ver
+    return undo
+
+
 def phase_chaos(torch, record):
-    """The slice's main path: the chaos campaign's CLI over the default
-    space's train workload on the card, counts zeroed just before it."""
+    """The chaos campaign's CLI over the default space's train and serve
+    workloads on the card, counts zeroed just before it: every row the
+    reference's one-device campaign runs, with its outcome, rung and end
+    state, through ElasticRuntime (kernel #3 for every encode and scrub
+    verify), the protected serving engine and the kernel drills."""
     from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.kernels import checksum_encode as kenc
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.launch import chaos
 
     record["chaos_pairs"] = _campaign_pairs(torch)
     out = ROOT / "chiprun_out" / "chaos.json"
     out.parent.mkdir(exist_ok=True)
-    kmm.reset_counts()
-    kfa.reset_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):    # the matrix: to file
-        rc = chaos.main(["--space", "default", "--workload", "train",
-                         "--json", str(out), "--markdown",
-                         str(out.with_suffix(".md")), "--quiet"])
-    wall = time.perf_counter() - t0
-    counts = dict(flash=kfa.launches, flash_plain=kfa.plain_calls,
-                  acc=kmm.acc_launches, acc_plain=kmm.acc_plain_calls)
-    log("chaos", f"repro_torch.launch.chaos (default space, train) -> {rc} "
-                 f"in {wall:.2f} s; launches: kernel #4 {counts['flash']}, "
-                 f"kernel #2 {counts['acc']}; plain calls "
-                 f"{counts['flash_plain']} / {counts['acc_plain']}")
+    calls = dict(encodes=0, verifies=0, leaves=0)
+    undo = _count_encodes(calls)
+    try:
+        kmm.reset_counts()
+        kfa.reset_counts()
+        kenc.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # the matrix: file
+            rc = chaos.main(["--space", "default", "--workload", "both",
+                             "--json", str(out), "--markdown",
+                             str(out.with_suffix(".md")), "--quiet"])
+        wall = time.perf_counter() - t0
+        counts = dict(flash=kfa.launches, flash_plain=kfa.plain_calls,
+                      acc=kmm.acc_launches, acc_plain=kmm.acc_plain_calls,
+                      encode=kenc.launches, encode_plain=kenc.plain_calls)
+    finally:
+        undo()
+    log("chaos", f"repro_torch.launch.chaos (default space, train + serve) "
+                 f"-> {rc} in {wall:.2f} s; launches: kernel #4 "
+                 f"{counts['flash']}, kernel #2 {counts['acc']}, kernel #3 "
+                 f"{counts['encode']} ({calls['encodes']} encodes + "
+                 f"{calls['verifies']} scrub verifies); plain calls "
+                 f"{counts['flash_plain']} / {counts['acc_plain']} / "
+                 f"{counts['encode_plain']}")
+    # the port's uncovered ledger (solver, paged serving, pod topology)
+    # fails the gate's ledger clause without --check: rc stays 0
     if rc != 0:
         raise AssertionError(f"chaos CLI returned {rc}")
     # kernel #4: a clean and a checked run per flash spec (2); kernel #2:
     # three chained calls per state-flip spec and four (a warm repair) per
-    # data-flip spec (3 + 3)
-    if counts != dict(flash=4, flash_plain=0, acc=21, acc_plain=0):
-        raise AssertionError(f"the campaign did not run on kernels #4 and "
-                             f"#2 alone: {counts}")
+    # data-flip spec (3 + 3); kernel #3: one launch per encoded leaf of
+    # every encode and every scrub verify
+    want = dict(flash=4, flash_plain=0, acc=21, acc_plain=0,
+                encode=calls["leaves"], encode_plain=0)
+    if counts != want or not calls["verifies"]:
+        raise AssertionError(f"the campaign did not run on kernels #4, #2 "
+                             f"and #3 alone: {counts} (want {want})")
     d = json.loads(out.read_text())
     if not d["meta"]["device_name"] == torch.cuda.get_device_name(0):
         raise AssertionError(f"campaign meta {d['meta']}")
-    rows = {e["name"]: e for e in d["events"]}
-    for name, (outcome, rung, end) in CHAOS_ROWS.items():
-        e = rows[name]
+    events = d["events"]
+    if [e["name"] for e in events] != [r[0] for r in CAMPAIGN_ROWS]:
+        raise AssertionError(f"campaign rows {[e['name'] for e in events]}")
+    for e, (name, outcome, rung, end) in zip(events, CAMPAIGN_ROWS):
         ok_end = (e["end_state"] == end if end is not None
                   else e["end_state"] in ("bit_identical", "within_tol"))
         if e["outcome"] != outcome or e["rung"] != rung or not ok_end:
             raise AssertionError(f"{name}: {e['outcome']} {e['rung']} "
                                  f"{e['end_state']} ({e['note']})")
-        log("chaos", f"{name}: {e['outcome']}, rung {e['rung']}, "
-                     f"{e['end_state']} (max diff {e['max_abs_diff']})")
-    others = [e for e in d["events"] if e["name"] not in CHAOS_ROWS]
-    bad = [e["name"] for e in others
-           if e["outcome"] != "skipped" or "slice" not in e["note"]]
-    if bad or not any(e["kind"] == "clean_sweep" for e in others):
-        raise AssertionError(f"rows not skipped with a reason: {bad}")
+        if outcome == "skipped" and "slice 13" not in e["note"]:
+            raise AssertionError(f"{name} skipped without naming port slice "
+                                 f"13: {e['note']}")
+        if name in CHAOS_ROWS or outcome == "skipped":
+            log("chaos", f"{name}: {e['outcome']}, rung {e['rung']}, "
+                         f"{e['end_state']} (max diff {e['max_abs_diff']})"
+                         + (f": {e['note']}" if outcome == "skipped"
+                            else ""))
     summ = d["summary"]
-    if summ["missed_anywhere"] or summ["false_alarms"]:
-        raise AssertionError(f"missed {summ['missed_anywhere']}, false "
-                             f"alarms {summ['false_alarms']}")
-    log("chaos", f"{len(others)} other train rows (specs, episodes, the "
-                 "clean sweep) skipped with the slice they wait for; missed "
-                 "[], false alarms []")
+    if summ["by_outcome"] != CAMPAIGN_BY_OUTCOME \
+            or summ["missed_anywhere"] or summ["false_alarms"]:
+        raise AssertionError(f"by outcome {summ['by_outcome']}, missed "
+                             f"{summ['missed_anywhere']}, false alarms "
+                             f"{summ['false_alarms']}")
+    eps = {k: v for k, v in d["episodes"]["by_outcome"].items() if v}
+    if eps != {"corrected": 9, "skipped": 2}:
+        raise AssertionError(f"episodes {eps}")
+    log("chaos", f"{len(events)} rows as the reference's one-device "
+                 f"campaign: {summ['by_outcome']}; episodes {eps}; missed "
+                 f"[], false alarms []")
     record["chaos"] = dict(rc=rc, wall_s=wall, counts=counts,
-                           by_outcome=summ["by_outcome"])
+                           encode_calls=calls, by_outcome=summ["by_outcome"],
+                           episodes=eps)
     return counts
+
+
+# phases 12 and 13: the protected reductions and the at-rest scrub at full
+# width
+SERVE_FT_GEN = 16
+TRAIN_FT_STEPS = 6
+def _share_line(sh):
+    """One log line of `_pair_stats` and the reduction's own time."""
+    return (f"{sh['pairs']} pairs, reduce off {sh['off_ms']:.3f} ms, "
+            f"correct {sh['on_ms']:.3f} ms (medians); paired difference "
+            f"{sh['diff_ms']:+.3f} ms (order effect {sh['order_ms']:+.3f}; "
+            f"median {sh['diff_median_ms']:+.3f}, quartiles "
+            f"{sh['diff_q1_ms']:+.3f} / {sh['diff_q3_ms']:+.3f}, range "
+            f"{sh['diff_min_ms']:+.3f} / {sh['diff_max_ms']:+.3f}); the "
+            f"reduction alone {sh.get('reduce_ms', float('nan')):.3f} ms")
+
+
+# unprotected and protected train steps in blocks of STEP_BLOCK (the first
+# of each a warm-up), in this order: the two orders of a pair of blocks
+# equally often
+STEP_BLOCKS = ("off", "correct", "correct", "off",
+               "off", "correct", "correct", "off")
+STEP_BLOCK = 4
+
+
+def _pair_stats(off, on, off_first):
+    """Two series of walls (ms) taken in turns, pair i with the unprotected
+    one first where ``off_first[i]``: each one's median; the paired
+    differences on - off, their mean (the mean of each order's mean, which
+    cancels what the place in a pair adds: ``order_ms``), median,
+    quartiles and range."""
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+    d = [b - a for a, b in zip(off, on)]
+    d_off = mean([x for x, o in zip(d, off_first) if o])
+    d_on = mean([x for x, o in zip(d, off_first) if not o])
+    ds = sorted(d)
+    return dict(pairs=len(d), off_ms=med(off), on_ms=med(on),
+                diff_ms=(d_off + d_on) / 2, order_ms=(d_off - d_on) / 2,
+                diff_median_ms=med(d), diff_q1_ms=ds[len(d) // 4],
+                diff_q3_ms=ds[3 * len(d) // 4], diff_min_ms=ds[0],
+                diff_max_ms=ds[-1], off=list(off), on=list(on))
+
+
+def phase_serve_ft(torch, record, card, device="cuda", smoke=False):
+    """repro_torch.launch.serve.run on Qwen2-0.5B at full width in fp32 (the
+    bit-flip model is on 32-bit words), ABFT verify on kernel #1: the
+    protected logits reduction clean, with an SDC drill at decode step 3,
+    and with the at-rest scrub repairing a KV flip and a params flip (the
+    campaign's ``_flip_engine_bit``); token streams identical.  ``device``
+    and ``smoke`` let the phase run on the CPU at the smoke size."""
+    import numpy as np
+    from repro_torch.chaos.campaign import _flip_engine_bit
+    from repro_torch.chaos.faults import FaultSpec, SDCPlan
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.dist.collectives import abft_psum
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.launch.serve import run
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = smoke_config("qwen2-0.5b") if smoke else get_config("qwen2-0.5b")
+    per_pass = 7 * cfg.n_layers                     # 168 at full width
+    lens = np.random.RandomState(0).randint(16, 129, size=8).tolist()
+    base = dict(smoke=smoke, requests=8, slots=4, prompt_lens=lens,
+                gen=SERVE_FT_GEN, abft_mode="verify", abft_backend="cuda",
+                kernel_dtype="fp32", dtype="float32", device=device,
+                verbose=False)
+    runs = {}
+
+    def serve(what, on_step=None, **kw):
+        def on_warm(engine):
+            kmm.reset_counts()
+        finished, eng = run("qwen2-0.5b", on_warm=on_warm, on_step=on_step,
+                            **base, **kw)
+        st = eng.stats
+        n = per_pass * (st.prefills + st.decode_steps)
+        got = (kmm.launches, kmm.plain_calls)
+        if got != ((n, 0) if device == "cuda" else (0, n)):
+            raise AssertionError(f"{what}: kernel #1 launches / plain calls "
+                                 f"{got}, want {n} launches")
+        if len(finished) != 8 or any(len(r.output) != SERVE_FT_GEN
+                                     for r in finished):
+            raise AssertionError(f"{what}: not every request finished")
+        s = st.summary()
+        runs[what] = dict(summary=s, launches=got[0])
+        log("serve-ft", f"{what}: {st.decode_steps} decode steps, mean "
+                        f"decode step {s['clean_step_ms']:.3f} ms, "
+                        f"detections {s['detections']}, corrections "
+                        f"{s['corrections']}, kernel #1 launches {got[0]}")
+        return {r.rid: r.output for r in finished}, eng
+
+    toks_off, eng_off = serve("reduce off")
+    toks, eng = serve("reduce correct", abft_reduce="correct")
+    if eng.stats.detections:
+        raise AssertionError("a clean protected run reported a detection")
+    if toks != toks_off:
+        raise AssertionError("the protected run's tokens differ from the "
+                             "unprotected run's")
+    del eng
+    drilled, eng = serve("drill", abft_reduce="correct",
+                         drill=SDCPlan(((3, 0, 1e4),)))
+    evs = eng.stats.events
+    if drilled != toks or len(evs) != 1 or not (
+            evs[0].detected and evs[0].corrected and evs[0].row >= 0
+            and evs[0].col >= 0) or eng.stats.detections != 1:
+        raise AssertionError(f"SDC drill: tokens equal {drilled == toks}, "
+                             f"events {evs}")
+    drill = dataclasses.asdict(evs[0])
+    log("serve-ft", f"SDC drill at decode step 3 (shard 0, delta 1e4): "
+                    f"detected, corrected, located ({evs[0].row}, "
+                    f"{evs[0].col}); drilled step {1e3 * evs[0].wall_s:.3f} "
+                    f"ms, recovery latency {1e3 * evs[0].recovery_s:.3f} ms; "
+                    "tokens identical to the undrilled run")
+    del eng
+    flips = {2: FaultSpec(kind="dram_kv_cache", workload="serve", step=2,
+                          bit=30),
+             4: FaultSpec(kind="dram_params", workload="serve", step=4,
+                          bit=30)}
+    fired = []
+
+    def flip(engine, step):
+        if step in flips:
+            fired.append(_flip_engine_bit(engine, flips.pop(step)))
+
+    scrubbed, eng = serve("scrub", on_step=flip, abft_reduce="correct",
+                          scrub_every=1)
+    st = eng.stats
+    sev = [(e.step, e.domain, e.slot, e.repaired) for e in st.scrub_events]
+    if scrubbed != toks or len(fired) != 2 or sev != [
+            (2, "kv", 0, True), (4, "params", -1, True)] \
+            or st.scrub_checks != st.decode_steps:
+        raise AssertionError(f"scrub: tokens equal {scrubbed == toks}, "
+                             f"flips {fired}, events {st.scrub_events}")
+    scrub_ms = 1e3 * sum(st.scrub_s) / len(st.scrub_s)
+    log("serve-ft", f"scrub every decode step: {st.scrub_checks} checks, "
+                    f"{scrub_ms:.3f} ms each on average; the KV flip "
+                    f"({fired[0][0]}) rebuilt in slot 0 and the params flip "
+                    f"({fired[1][0]}) restored in "
+                    f"{1e3 * st.scrub_events[0].wall_s:.3f} / "
+                    f"{1e3 * st.scrub_events[1].wall_s:.3f} ms; tokens "
+                    "identical to the unscrubbed run")
+    for _, undo in fired:
+        undo()
+    del eng
+
+    # the reduction's share of a decode step: the unprotected engine and a
+    # protected one on its prepared weights serve the same requests, one
+    # decode step each in turns (the order swapped every step), no scrub
+    pair = {"off": eng_off, "correct": ServeEngine(
+        eng_off.cfg, eng_off.params, slots=4, max_len=eng_off.max_len,
+        abft_mode="verify", abft_backend="cuda", kernel_dtype="fp32",
+        abft_reduce="correct")}
+    pair["correct"].warm(prompt_len=lens[0])
+    eng_off.reset()
+    rs = np.random.RandomState(0)          # launch.serve.run's prompts
+    prompts = [rs.randint(0, eng_off.cfg.vocab_size, n).tolist()
+               for n in lens]
+    for e in pair.values():
+        for i, pr in enumerate(prompts):
+            e.submit(Request(rid=i, prompt=pr, max_new_tokens=SERVE_FT_GEN))
+    done = {k: [] for k in pair}
+    turn = 0
+    while any(any(e.active) or e.queue for e in pair.values()):
+        for k in (("off", "correct") if turn % 2 == 0
+                  else ("correct", "off")):
+            done[k] += pair[k].run(max_steps=1)
+        turn += 1
+    for k, fin in done.items():
+        if {r.rid: r.output for r in fin} != toks_off:
+            raise AssertionError(f"decode steps in turns: the {k} engine's "
+                                 "tokens differ from the first run's")
+    off_w = [1e3 * w for w in pair["off"].stats.decode_step_s]
+    share = _pair_stats(off_w,
+                        [1e3 * w for w in pair["correct"].stats.decode_step_s],
+                        [i % 2 == 0 for i in range(len(off_w))])
+    if device == "cuda":
+        # the reduction alone: abft_psum over the [1, slots, 1, V] partial
+        # logits of one decode step, as the verified unembed calls it
+        g = torch.Generator(device="cuda").manual_seed(12)
+        parts = torch.randn((1, 4, 1, eng_off.cfg.vocab_size), generator=g,
+                            device="cuda")
+        flush = torch.empty(32 * 2 ** 20, dtype=torch.float32,
+                            device="cuda")
+        share["reduce_ms"] = time_ms(torch, lambda: abft_psum(
+            parts, 0, f=2, mode="correct", with_info=True), 20, flush)
+        del parts, flush
+    del pair, eng_off
+    log("serve-ft", "decode step, in turns: " + _share_line(share)
+        + f"; tokens of the protected runs equal to the unprotected run's; "
+          f"{card}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    record["serve_ft"] = dict(
+        runs=runs, drill=drill, prompt_lens=lens, gen=SERVE_FT_GEN,
+        scrub_ms=scrub_ms, scrub_events=[dataclasses.asdict(e)
+                                         for e in st.scrub_events],
+        step_ms=share, tokens_equal_unprotected=True, card=card)
+
+
+def _max_diff(torch, a, b):
+    """(bit-identical, max |a - b|) over two trees of tensors."""
+    from repro_torch.tree import tree_leaves
+    same, worst = True, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if not torch.equal(x, y):
+            same = False
+            if x.is_floating_point():
+                worst = max(worst, float((x.double() - y.double()).abs()
+                                         .max()))
+    return same, worst
+
+
+def phase_train_ft(torch, record, card, device="cuda", smoke=False):
+    """ElasticRuntime (mesh 1 x 1) on Qwen2-0.5B at full width in fp32,
+    batch 16 x seq 128, the protected step (deferred reduction, abft_reduce
+    "correct", ABFT verify on kernel #1) with an encode and an at-rest scrub
+    every step: an SDC at step 2 flagged, a params flip at step 3 and an
+    optimizer-state flip at step 4 rolled back by the scrub, the end state
+    within TrainConfig.tol of the clean run's; kernel #3 launched once per
+    state leaf for each encode and each verify."""
+    from repro_torch.chaos.campaign import TrainConfig, _flip_state_leaf
+    from repro_torch.chaos.faults import FaultSpec
+    from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+    from repro_torch.dist.collectives import abft_psum_tree
+    from repro_torch.ft.runtime import ElasticRuntime, FTPolicy, stack_view
+    from repro_torch.kernels import checksum_encode as kenc
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import StepOptions, build_train_step
+    from repro_torch.tree import (stack_layers, tree_leaves, tree_map,
+                                  unstack_layers)
+
+    cfg = dataclasses.replace(
+        smoke_config("qwen2-0.5b") if smoke else get_config("qwen2-0.5b"),
+        dtype="float32")
+    shape = ShapeConfig("ft", 16 if smoke else 128, 8 if smoke else 16,
+                        "train")
+    adamw = AdamWConfig(lr=1e-3, total_steps=TRAIN_FT_STEPS, warmup_steps=1)
+    protected = StepOptions(remat=not smoke, abft_mode="verify",
+                            defer_grad_reduce=True, abft_reduce="correct")
+    policy = FTPolicy(diskless_every=1, disk_every=10 ** 6, scrub_every=1)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def loop(opts, steps, faults=False):
+        rt = ElasticRuntime(cfg, shape, (1, 1), adamw=adamw, opts=opts,
+                            policy=policy, device=device)
+        drill = build_train_step(
+            cfg, shape, adamw,
+            dataclasses.replace(opts, sdc_inject=(0, 1e4))) if faults \
+            else None
+        out = dict(oks=[], walls=[], scrub_s=[], reports=[], flips=[])
+        try:
+            state = rt.init_state(0)
+            n_float = sum(1 for x in tree_leaves(stack_view(state, 1))
+                          if x.is_floating_point())
+            kenc.reset_counts()
+            for i in range(steps):
+                rt.checkpoint(i, state)
+                if faults and i in (3, 4):
+                    kind, group = (("dram_params", "params") if i == 3
+                                   else ("dram_opt_state", "opt"))
+                    state, leaf = _flip_state_leaf(state, group, FaultSpec(
+                        kind=kind, workload="train", step=i, bit=30))
+                    out["flips"].append(leaf)
+                sync()
+                t0 = time.perf_counter()
+                state, rep = rt.scrub(i, state)
+                sync()
+                out["scrub_s"].append(time.perf_counter() - t0)
+                if rep is not None:
+                    out["reports"].append(dataclasses.asdict(rep))
+                if faults and i == 2:
+                    batch = rt.place_batch(i)
+                    sync()
+                    t0 = time.perf_counter()
+                    state, m = drill(state, batch)
+                    sync()
+                    out["walls"].append(time.perf_counter() - t0)
+                else:
+                    state, m = rt.train_step(i, state)
+                    out["walls"].append(rt.step_times[-1])
+                if "abft_ok" in m:
+                    out["oks"].append(float(m["abft_ok"]))
+            out.update(launches=kenc.launches, plain=kenc.plain_calls,
+                       encodes=len(rt.timings["encode"]),
+                       encode_s=list(rt.timings["encode"]), n_float=n_float,
+                       recoveries=dict(rt.recoveries), loss=float(m["loss"]))
+            return state, out
+        finally:
+            rt.close()
+
+    clean, c = loop(protected, TRAIN_FT_STEPS)
+    if c["oks"] != [1.0] * TRAIN_FT_STEPS or c["reports"]:
+        raise AssertionError(f"clean protected run: abft_ok {c['oks']}, "
+                             f"scrub trips {c['reports']}")
+    faulted, f = loop(protected, TRAIN_FT_STEPS, faults=True)
+    want = f["n_float"] * 2 * TRAIN_FT_STEPS
+    if f["encodes"] != TRAIN_FT_STEPS or (f["launches"], f["plain"]) != (
+            (want, 0) if device == "cuda" else (0, want)):
+        raise AssertionError(f"kernel #3: {f['launches']} launches, "
+                             f"{f['plain']} plain calls over "
+                             f"{f['encodes']} encodes + {TRAIN_FT_STEPS} "
+                             f"verifies of {f['n_float']} leaves")
+    oks = [1.0, 1.0, 0.0] + [1.0] * (TRAIN_FT_STEPS - 3)
+    trips = [r["step"] for r in f["reports"] if r["rolled_back"]]
+    if f["oks"] != oks or trips != [3, 4] or f["recoveries"]["scrub"] != 2:
+        raise AssertionError(f"faulted run: abft_ok {f['oks']}, scrub "
+                             f"trips {f['reports']}")
+    same, diff = _max_diff(torch, faulted, clean)
+    tol = TrainConfig().tol
+    if not diff <= tol:
+        raise AssertionError(f"end state {diff} from the clean run's > {tol}")
+    del faulted, clean
+    log("train-ft", f"{TRAIN_FT_STEPS} protected steps: SDC at step 2 "
+                    f"flagged (abft_ok {f['oks']}); flips {f['flips']} "
+                    f"rolled back by the scrub at steps {trips} (residuals "
+                    f"{[r['residual'] for r in f['reports']]}); end state "
+                    f"{'bit-identical to' if same else 'within tol of'} the "
+                    f"clean run's, max |diff| {diff:.3g} (tol {tol}); kernel "
+                    f"#3 {f['launches']} launches = {f['n_float']} leaves x "
+                    f"({f['encodes']} encodes + {TRAIN_FT_STEPS} verifies), "
+                    f"plain {f['plain']}")
+
+    # the reduction's share of a step: unprotected and protected steps on
+    # one state and batch in blocks (STEP_BLOCKS), each new state dropped;
+    # pair i is the i-th timed step of an unprotected block and of the
+    # protected block beside it
+    rt = ElasticRuntime(cfg, shape, (1, 1), adamw=adamw, opts=protected,
+                        policy=policy, device=device)
+    try:
+        state, batch = rt.init_state(0), rt.place_batch(0)
+        steps = {"off": build_train_step(
+            cfg, shape, adamw,
+            dataclasses.replace(protected, abft_reduce="off")),
+            "correct": build_train_step(cfg, shape, adamw, protected)}
+        step_w = {k: [] for k in steps}
+        for k in STEP_BLOCKS:
+            for j in range(STEP_BLOCK):
+                sync()
+                t0 = time.perf_counter()
+                out = steps[k](state, batch)
+                sync()
+                if j:
+                    step_w[k].append(1e3 * (time.perf_counter() - t0))
+                del out
+        # each pair of blocks holds one unprotected block
+        off_first = [STEP_BLOCKS[2 * (i // (STEP_BLOCK - 1))] == "off"
+                     for i in range(len(step_w["off"]))]
+        share = _pair_stats(step_w["off"], step_w["correct"], off_first)
+        if device == "cuda":
+            # the reduction alone, as the protected step makes it: the
+            # gradients stacked into the reference's leaves, abft_psum_tree
+            # over them, the result unstacked
+            g = torch.Generator(device="cuda").manual_seed(13)
+            grads = tree_map(lambda x: torch.randn(
+                x.shape, generator=g, device="cuda"), state["params"])
+
+            def reduce():
+                red, _ = abft_psum_tree(
+                    tree_map(lambda x: x[None], stack_layers(grads)), 0, 1,
+                    mode="correct")
+                return unstack_layers(red, grads)
+            flush = torch.empty(32 * 2 ** 20, dtype=torch.float32,
+                                device="cuda")
+            share["reduce_ms"] = time_ms(torch, reduce, 5, flush)
+            del grads, flush
+        del state, batch
+    finally:
+        rt.close()
+
+    def med(xs):
+        xs = sorted(xs[1:])
+        return xs[len(xs) // 2]
+
+    walls = dict(
+        step_pairs=share, drilled_step_s=f["walls"][2],
+        encode_s=med(c["encode_s"]), verify_s=med(c["scrub_s"]),
+        trip_s=[r["wall_s"] for r in f["reports"]])
+    log("train-ft", "step, in blocks: " + _share_line(share))
+    log("train-ft", "walls " + json.dumps(
+        {k: v for k, v in walls.items() if k != "step_pairs"}) + f"; {card}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    record["train_ft"] = dict(steps=TRAIN_FT_STEPS, oks=f["oks"],
+                              flips=f["flips"], reports=f["reports"],
+                              end_bit_identical=same, end_max_diff=diff,
+                              launches=f["launches"], n_float=f["n_float"],
+                              walls=walls, card=card)
+    return f["launches"]
 
 
 def main():
@@ -1610,6 +2229,8 @@ def main():
     enc_launches, enc_tot = phase_train(torch, record, f"{name} ({smi})")
     flash_rows = phase_flash(torch, record)
     chaos_counts = phase_chaos(torch, record)
+    phase_serve_ft(torch, record, f"{name} ({smi})")
+    ft_launches = phase_train_ft(torch, record, f"{name} ({smi})")
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -1663,6 +2284,11 @@ def main():
         "bound_ms": enc_tot["bound_ms"],
         "bound_by": enc_tot["bound_by"],
         "library_ms": enc_tot["library_ms"],
+        # the protected training phase: an encode and a scrub verify per
+        # step, one launch per leaf each; and the campaign's encodes and
+        # verifies
+        "train_ft_launches": ft_launches,
+        "chaos_launches": chaos_counts["encode"],
     }, {
         # the Qwen2-0.5B attention at full width (4 x 14 heads, S 4096,
         # D 64, causal, fp32), the shape SDPA computes the same function

@@ -15,9 +15,9 @@ PyTorch port: the counterpart of the reference package's
      for field those of the reference, so a campaign artifact of either
      package replays in the other.
   3. **The injectors**: `FailurePlan`/`FailureInjector` (shard erasure),
-     `SDCPlan` (the host-side SDC schedule a spec names; its injector
-     comes with the runtime that fires it) and `flip_bit`, the literal
-     bit-flip fault model on a tensor.
+     `SDCPlan`/`SDCInjector` (silent data corruption in a protected
+     reduction, with `scatter_delta`, the caller-side shard selection) and
+     `flip_bit`, the literal bit-flip fault model on a tensor.
 
 It imports no other module of the port but ``repro_torch.tree``, so every
 protection-domain module can import it at module scope without cycles.
@@ -37,7 +37,8 @@ __all__ = [
     "KINDS", "WORKLOADS", "RATE_KINDS", "Surface", "register_surface",
     "get_surface", "surfaces", "uncovered_surfaces", "ensure_registered",
     "kind_surface", "FaultSpec", "Episode", "FaultSpace",
-    "FailurePlan", "FailureInjector", "SDCPlan", "flip_bit",
+    "FailurePlan", "FailureInjector", "SDCPlan", "SDCInjector",
+    "flip_bit", "scatter_delta",
 ]
 
 
@@ -147,43 +148,43 @@ def ensure_registered() -> Dict[str, Surface]:
     for mod in ("repro_torch.kernels.ops",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.serve.engine", "repro_torch.models.layers",
-                "repro_torch.ckpt.diskless"):
+                "repro_torch.ckpt.diskless", "repro_torch.dist.collectives",
+                "repro_torch.ft.runtime"):
         importlib.import_module(mod)
     return dict(_REGISTRY)
 
 
 # state sitting in device memory between steps: the in-step checksums are
 # computed from inputs at call time, so a pre-corrupted value checksums
-# consistently (garbage in, checksummed garbage out).  The port has no
-# at-rest scrubber yet, so both surfaces stay on the uncovered ledger.
+# consistently (garbage in, checksummed garbage out).  These placeholders
+# are upgraded to protected by `ft.runtime`'s at-rest scrub on import.
 register_surface(
     "state.params_at_rest", owner="repro_torch.chaos.faults",
     protected=False,
-    note="resident params between steps; the at-rest scrub comes with the "
-         "serving-FT and elastic slices")
+    note="resident params between steps; ft.runtime registers the at-rest "
+         "scrub that protects them")
 register_surface(
     "state.opt_state_at_rest", owner="repro_torch.chaos.faults",
     protected=False,
-    note="optimizer moments between steps; the at-rest scrub comes with "
-         "the elastic slice")
+    note="optimizer moments between steps; ft.runtime registers the "
+         "at-rest scrub that protects them")
 
 # protection domains whose owning modules the port has not brought up yet.
 # A fault spec aimed at one of them is reported as a ``skipped`` campaign
 # row, and the row needs the surface; the owning module registers it
 # protected when its slice lands (a protected registration wins).
 for _name, _kinds, _slice in (
-        ("dist.collectives/abft_psum", ("sdc_collective",),
-         "the distribution + elastic-FT slice"),
         ("ft.runtime/topology", ("pod_loss", "slow_pod"),
-         "the distribution + elastic-FT slice (ElasticRuntime)"),
+         "port slice 13 (multi-process distribution and ElasticRuntime's "
+         "pod paths)"),
         ("serve.paged_kv/pages", ("dram_kv_cache",),
-         "the paged-serving slice"),
+         "port slice 9 (paged serving)"),
         ("solvers.subspace_cg/correction_sum", ("sdc_collective",),
-         "the solver slice"),
+         "port slice 10 (the subspace solver)"),
         ("solvers.subspace_cg/iterate_at_rest", ("dram_params",),
-         "the solver slice"),
+         "port slice 10 (the subspace solver)"),
         ("solvers.subspace_cg/subspaces", ("shard_loss", "pod_loss"),
-         "the solver slice")):
+         "port slice 10 (the subspace solver)")):
     register_surface(_name, owner="repro_torch.chaos.faults",
                      protected=False, kinds=_kinds,
                      note=f"not ported yet: comes with {_slice}")
@@ -774,10 +775,22 @@ class FailureInjector:
         return tree_map(hit, state)
 
 
+def scatter_delta(extent: int, shard, delta,
+                  device=None) -> torch.Tensor:
+    """``[extent]`` fp32 vector carrying `delta` at index `shard`, zero
+    elsewhere: the caller-side shard selection of a drill, handed to
+    `dist.collectives.abft_psum` as ``inject_local``.  An out-of-range
+    `shard` raises (the reference's scatter would drop it silently)."""
+    out = torch.zeros((extent,), dtype=torch.float32, device=device)
+    out[int(shard)] += float(delta)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Silent data corruption (SDC): the paper's bit-flip fault model as a
-# host-side schedule (the protected collectives that consume it come with
-# the distribution slice)
+# Silent data corruption (SDC): the paper's bit-flip fault model.  Unlike a
+# shard loss (erasure), an SDC leaves no platform signal: only the ABFT
+# checksums (core.abft_gemm in the matmuls, dist.collectives.abft_psum in
+# the reductions) can see it.
 # ---------------------------------------------------------------------------
 
 
@@ -814,3 +827,36 @@ class SDCPlan:
              float(magnitude * rng.choice([-1.0, 1.0])))
             for s in steps))
         return cls(ev)
+
+
+class SDCInjector:
+    """Drives an `SDCPlan`: `check(step)` fires each planned event once,
+    returning ``(shard, delta)`` for the consumer to thread into a
+    checksum-protected reduction (`train.step` through
+    ``StepOptions.sdc_inject``, `serve.engine` through its drilled decode).
+    The injection lands after the contribution's checksums are taken, so
+    only the checksums riding the reduction can see it."""
+
+    def __init__(self, plan: SDCPlan):
+        self.plan = plan
+        self._fired: List[Tuple[int, int, float]] = []
+
+    def _fire(self, step: int):
+        """Yield each unfired event planned for `step`, marking it fired as
+        it is taken."""
+        for (s, i, d) in self.plan.events:
+            if s == step and (s, i, d) not in self._fired:
+                self._fired.append((s, i, d))
+                yield i, d
+
+    def check(self, step: int) -> Optional[Tuple[int, float]]:
+        """``(shard, delta)`` if an SDC event fires at `step`, else None;
+        one event per call (several same-step events come out one call at
+        a time)."""
+        return next(self._fire(step), None)
+
+    def check_all(self, step: int) -> Tuple[Tuple[int, float], ...]:
+        """Fire and return every unfired event planned for `step`: each
+        payload lands in a different protected reduction of one step
+        (`dist.collectives.abft_psum_tree(inject=...)`)."""
+        return tuple(self._fire(step))

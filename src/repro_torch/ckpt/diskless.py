@@ -125,13 +125,20 @@ class DisklessCheckpoint:
         if self._enc is None:
             raise RuntimeError("no diskless checkpoint taken")
         fresh = tree_map(self._enc_leaf, state)
-        bad, worst = "", 0.0
+        paths, resid = [], []
         for (path, ny), oy in zip(tree_leaves_with_path(fresh),
                                   tree_leaves(self._enc)):
             n32 = torch.as_tensor(ny).float()
             o32 = torch.as_tensor(oy).float().to(n32.device)
-            r = float(torch.max(torch.abs(n32 - o32))
-                      / (torch.max(torch.abs(o32)) + 1.0))
+            resid.append(torch.max(torch.abs(n32 - o32))
+                         / (torch.max(torch.abs(o32)) + 1.0))
+            paths.append(path)
+        # every leaf's residual comes to the host in one transfer
+        dev = resid[0].device if resid else None
+        values = torch.stack([r.to(dev) for r in resid]).cpu().tolist() \
+            if resid else []
+        bad, worst = "", 0.0
+        for path, r in zip(paths, values):
             if math.isnan(r):
                 r = math.inf
             if r > worst:

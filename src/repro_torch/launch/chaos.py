@@ -2,17 +2,20 @@
 matrix.
 
 The campaign runs every spec and every multi-fault episode of the chosen
-space, classifies each event as detected / corrected / absorbed / missed /
-false-alarm, and writes the machine-readable artifact (``--json``) plus a
-rendered markdown matrix on stdout.  It runs on the GPU unless ``--device
-cpu`` is given; with no GPU it raises rather than falling back.  Specs and
-episodes whose runtime the port has not brought up yet are reported as
-``skipped`` rows naming the slice they wait for.
+space against live workloads (an `ElasticRuntime` train loop and a drilled
+`ServeEngine` on one device, and the kernel and layer drills), classifies
+each event as detected / corrected / absorbed / missed / false-alarm, and
+writes the machine-readable artifact (``--json``) plus a rendered markdown
+matrix on stdout.  It runs on the GPU unless ``--device cpu`` is given;
+with no GPU it raises rather than falling back.  Specs and episodes that
+need more than one device (pod faults) or a runtime the port has not
+brought up yet (solver, traffic) are reported as ``skipped`` rows naming
+the slice they wait for.
 
 Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.chaos --space default \\
-      --workload train --json chaos.json
+      --workload both --json chaos.json
   PYTHONPATH=src python -m repro_torch.launch.chaos --device cpu \\
       --space smoke --workload train
 
@@ -30,7 +33,7 @@ import argparse
 import json
 import sys
 
-from repro_torch.chaos.campaign import CampaignRunner
+from repro_torch.chaos.campaign import CampaignRunner, TrainConfig
 from repro_torch.chaos.faults import Episode, FaultSpace, FaultSpec
 
 WORKLOAD_SETS = {
@@ -84,6 +87,8 @@ def main(argv=None) -> int:
                     help="seeded without-replacement subsample of the space")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed for --sample")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="override train workload steps")
     ap.add_argument("--json", metavar="PATH", default=None,
                     help="write the machine-readable campaign artifact")
     ap.add_argument("--markdown", metavar="PATH", default=None,
@@ -113,7 +118,9 @@ def main(argv=None) -> int:
     if args.sample is not None:
         space = space.sample(args.sample, seed=args.seed)
     workloads = WORKLOAD_SETS[args.workload]
-    runner = CampaignRunner(space, verbose=not args.quiet,
+    train = TrainConfig() if args.steps is None else TrainConfig(
+        steps=args.steps)
+    runner = CampaignRunner(space, train=train, verbose=not args.quiet,
                             device=args.device)
     res = runner.run(workloads)
     md = res.markdown()

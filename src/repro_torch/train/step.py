@@ -9,12 +9,19 @@ global-norm clipping and AdamW.  The step is eager PyTorch: it returns
 state ``{"params", "opt": {"m", "v", "count"}, "step"}`` and metrics
 ``{"grad_norm", "lr", "loss"}``.
 
-Counterpart of the reference package's ``repro/train/step.py``.  Its
-multi-device options (deferred and ABFT-protected gradient reductions, SDC
-injection, gradient compression, ZeRO and FSDP) and the construction
-invariants raise ``NotImplementedError`` naming the slice that brings
-them; its prefill and serve steps have no counterpart, since the serving
-engine calls the model directly.
+The deferred gradient reduction runs at DP extent 1, as the reference's
+does on one device: ``defer_grad_reduce`` reduces once after the
+microbatches, and ``abft_reduce`` sends the gradients through the
+checksum-verified reduction (`dist.collectives.abft_psum_tree`) in the
+reference's leaf layout (each layout group's layers stacked into one
+leaf), with ``sdc_inject`` corrupting it mid-reduction; the result is
+``metrics["abft_ok"]``.
+
+Counterpart of the reference package's ``repro/train/step.py``.  Gradient
+compression, ZeRO and FSDP raise ``NotImplementedError`` naming port
+slice 13, the construction invariants naming port slice 12; its prefill and
+serve steps have no counterpart, since the serving engine calls the model
+directly.
 """
 from __future__ import annotations
 
@@ -26,14 +33,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.abft_gemm import ABFTConfig
+from repro_torch.dist.collectives import abft_psum_tree
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update)
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (stack_layers, tree_leaves, tree_map,
+                              tree_unflatten, unstack_layers)
 
 __all__ = ["StepOptions", "build_train_step", "init_state"]
 
-_DIST = "the distribution + elastic-FT slice of ROADMAP.md"
+_DIST = "port slice 13 (multi-process distribution) of ROADMAP.md"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,14 +60,20 @@ class StepOptions:
     # dtype-aware detection eps (core.abft_gemm).
     kernel_dtype: str = "fp32"
     aux_weight: float = 0.01
+    # reduce the gradients once, after the microbatches (DP extent 1)
+    defer_grad_reduce: bool = False
+    # checksum-protect that reduction (dist.collectives.abft_psum_tree):
+    # "verify" detects (metrics["abft_ok"]), "correct" also repairs a
+    # single corrupted element; needs defer_grad_reduce
+    abft_reduce: str = "off"       # off | verify | correct
+    # drill hook: (dp_shard, delta), or a tuple of such pairs (event j
+    # lands in the j-th protected reduction), corrupts the reduction
+    sdc_inject: Optional[Tuple] = None
     # not ported yet: each raises NotImplementedError in build_train_step
     grad_compression: str = "none"
-    defer_grad_reduce: bool = False
     zero1: bool = False
     zero2: bool = False
     fsdp: bool = False
-    abft_reduce: str = "off"
-    sdc_inject: Optional[Tuple] = None
     invariant_checks: bool = False
 
     @property
@@ -70,17 +85,32 @@ class StepOptions:
                           in_dtype=self.kernel_dtype)
 
 
-def _check_ported(opts: StepOptions) -> None:
+def _check_options(opts: StepOptions) -> None:
+    """The reference's option checks, then the options not ported yet."""
+    if opts.abft_reduce != "off" and (
+            not opts.defer_grad_reduce or opts.zero2
+            or opts.grad_compression != "none"):
+        raise ValueError(
+            "abft_reduce protects the deferred DP all-reduce: it requires "
+            "defer_grad_reduce=True and is incompatible with zero2 / "
+            f"grad_compression (got {opts})")
+    if opts.sdc_inject is not None and opts.abft_reduce == "off":
+        raise ValueError("sdc_inject corrupts the protected reduction — "
+                         "set abft_reduce to 'verify' or 'correct'")
+    if opts.invariant_checks and opts.defer_grad_reduce:
+        raise ValueError("invariant_checks rides the standard grad path; "
+                         "the deferred manual-DP region does not thread "
+                         "the invariant flags")
+    if opts.abft_reduce not in ("off", "verify", "correct"):
+        raise ValueError(f"unknown abft_reduce {opts.abft_reduce!r}")
     later = {
         "grad_compression": (opts.grad_compression != "none", _DIST),
-        "defer_grad_reduce": (opts.defer_grad_reduce, _DIST),
         "zero1": (opts.zero1, _DIST),
         "zero2": (opts.zero2, _DIST),
         "fsdp": (opts.fsdp, _DIST),
-        "abft_reduce": (opts.abft_reduce != "off", _DIST),
-        "sdc_inject": (opts.sdc_inject is not None, _DIST),
         "invariant_checks": (opts.invariant_checks,
-                             "the protected-LM slice of ROADMAP.md"),
+                             "port slice 12 (the protected LM) of "
+                             "ROADMAP.md"),
     }
     for name, (on, where) in later.items():
         if on:
@@ -107,7 +137,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     """Returns ``step_fn(state, batch) -> (new_state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` [global_batch, seq_len] (numpy arrays
     or tensors)."""
-    _check_ported(opts)
+    _check_options(opts)
     m = max(opts.microbatches, 1)
     if shape.global_batch % m:
         raise ValueError(f"{m} microbatches do not divide the global batch "
@@ -143,10 +173,23 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         tokens = _as_tokens(batch["tokens"], dev)
         labels = _as_tokens(batch["labels"], dev)
         loss, grads = accumulate(params, tokens, labels)
+        reduce_ok = None
+        if opts.abft_reduce != "off":
+            # the reference's leaves: one stacked [R, ...] leaf per layout
+            # group's param, so that event j of sdc_inject lands in the
+            # same reduction, on a grid of the same size, as there
+            stacked = stack_layers(grads)
+            reduced, reduce_ok = abft_psum_tree(
+                tree_map(lambda g: g[None], stacked), 0, 1,
+                mode=opts.abft_reduce, inject=opts.sdc_inject)
+            grads = unstack_layers(reduced, grads)
         new_params, new_opt, metrics = adamw_update(grads, state["opt"],
                                                     params, adamw)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
-        return new_state, dict(metrics, loss=loss)
+        metrics = dict(metrics, loss=loss)
+        if reduce_ok is not None:
+            metrics["abft_ok"] = reduce_ok.float()
+        return new_state, metrics
 
     return step_fn

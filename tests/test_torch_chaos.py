@@ -334,27 +334,45 @@ def test_drills_match_the_committed_campaign():
     assert seen == 5
 
 
+# the rows that still skip on one device, with the slice they wait for;
+# the train and serve runtimes that run the other rows are held against the
+# reference in tests/test_torch_chaos_ft.py
+STILL_SKIPPED = ("serve:sdc_collective:s3:sh1:d-30000:seed1",
+                 "train:shard_loss:s3:sh1:seed1",
+                 "train:pod_loss:s3:diskless", "train:pod_loss:s3:disk:seed1",
+                 "train:slow_pod:s1")
+STILL_SKIPPED_EPISODES = ("train:dram+podloss", "train:pod_repeat")
+
+
 def test_skipped_handlers_name_their_slice():
     runner = campaign.CampaignRunner(faults.FaultSpace.default(),
                                      device="cpu")
-    res = runner.run(("train", "serve", "solver", "traffic"))
-    rows = {r.name: r for r in res.results}
-    ran = [r for r in res.results if r.outcome != "skipped"]
-    assert sorted(r.name for r in ran) == sorted(s.name for s in DRILL_SPECS)
-    for r in res.results:
-        if r.outcome == "skipped":
-            assert "slice" in r.note and r.end_state == "not_compared"
-    assert rows["train:clean_sweep:1x1:protected"].outcome == "skipped"
-    for wl in ("serve", "solver", "traffic"):
-        assert [r for r in res.results if r.kind == "clean_sweep"
-                and r.workload == wl][0].outcome == "skipped"
+    res = runner.run(("solver", "traffic"))
+    assert res.results and all(
+        r.outcome == "skipped" and "slice" in r.note
+        and r.end_state == "not_compared" for r in res.results)
+    assert {r.name for r in res.results if r.kind == "clean_sweep"} == \
+        {"solver:clean_sweep", "traffic:clean_sweep:paged"}
+    assert sorted(r.name for r in res.results if r.spec and
+                  r.kind not in ("episode", "clean_sweep")) == sorted(
+        s.name for s in faults.FaultSpace.default().specs
+        if s.workload in ("solver", "traffic"))
     d = res.to_dict()
     assert d["summary"]["missed_anywhere"] == []
     assert d["summary"]["false_alarms"] == []
     assert d["episodes"]["not_corrected"] == []
-    assert len(d["episodes"]["skipped"]) == len(
-        faults.FaultSpace.default().episodes)
+    assert len(d["episodes"]["skipped"]) == sum(
+        1 for ep in faults.FaultSpace.default().episodes
+        if ep.workload == "solver")
     assert res.meta["backend"] == "cpu" and res.meta["n_devices"] == 1
+    specs = {s.name: s for s in faults.FaultSpace.default().specs}
+    for name in STILL_SKIPPED:
+        with pytest.raises(campaign._Skip, match="slice 13"):
+            runner._run_spec(specs[name])
+    eps = {ep.name: ep for ep in faults.FaultSpace.default().episodes}
+    for name in STILL_SKIPPED_EPISODES:
+        with pytest.raises(campaign._Skip, match="slice 13"):
+            runner._run_episode(eps[name])
 
 
 def test_acc_plan_tiles_the_drill_exactly():
@@ -390,16 +408,22 @@ def test_cli_smoke_on_cpu(tmp_path, capsys):
     assert d["schema"] == jreport.SCHEMA and d["space"] == "smoke"
     smoke_train = [s for s in faults.FaultSpace.smoke().specs
                    if s.workload == "train"]
+    # every smoke train spec runs on one device; the two smoke train
+    # episodes' space is not this one, so nothing is skipped
     skipped = sorted(e["name"] for e in d["events"]
                      if e["outcome"] == "skipped" and e["spec"])
-    assert skipped == sorted(s.name for s in smoke_train if not _drilled(s))
+    assert skipped == []
+    assert d["summary"]["by_outcome"]["corrected"] == sum(
+        1 for s in smoke_train if s.kind != "checksum_state_flip")
     assert d["summary"]["missed_anywhere"] == []
     assert d["summary"]["false_alarms"] == []
     assert "# Chaos campaign `smoke`" in capsys.readouterr().out
     # the replay path rebuilds the same space from the artifact
     space = cli.space_from_artifact(d)
     assert [s.name for s in space] == [s.name for s in smoke_train]
-    # the reference's gate, unchanged: skipped rows fail it
+    # the reference's gate, unchanged: the uncovered ledger (the solver,
+    # paged-serving and pod surfaces still unported) fails it
+    assert d["uncovered_surfaces"]
     assert cli.main(["--device", "cpu", "--space", "smoke", "--workload",
                      "train", "--check", "--quiet"]) == 1
 

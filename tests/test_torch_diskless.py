@@ -310,8 +310,6 @@ def test_runtime_recovery_ladder(rs, tmp_path):
     assert len(rt.timings["encode"]) == 1 and len(rt.timings["recover"]) == 2
     with pytest.raises(RuntimeError):
         FTRuntime(p, FTPolicy(f=1)).recover(ts, [0])
-    with pytest.raises(NotImplementedError):
-        FTRuntime(p, FTPolicy(), sdc_injector=object())
 
 
 def test_runtime_step_drains_every_injector(rs):

@@ -70,10 +70,10 @@ def test_engine_reset_and_unported_options():
     eng.warm(prompt_len=4)
     assert eng.stats.prefills == eng.stats.decode_steps == 0
     assert eng.cache["groups"][0]["b0"]["index"].shape == (2, 2)
-    for kw in ({"mesh": object()}, {"abft_reduce": "verify"},
-               {"scrub_every": 4}):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, params, **kw)
+    # abft_reduce, sdc and scrub_every are ported
+    # (tests/test_torch_serve_ft.py); a mesh is not
+    with pytest.raises(NotImplementedError):
+        ServeEngine(cfg, params, mesh=object())
 
 
 def test_cli_reaches_published_width(monkeypatch):
