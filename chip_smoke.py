@@ -11,7 +11,11 @@ Gemma2-2B attention shapes, run the chaos campaign over its train and
 serve workloads through its CLI, and drive the protected reductions and the
 at-rest scrub at full width: the verified unembed of the serving engine
 with an SDC drill and KV and params flips, and the protected train step
-under ElasticRuntime with an SDC and DRAM flips.
+under ElasticRuntime with an SDC and DRAM flips, and serve an open-loop
+traffic trace at full width on the paged engine (page checksums on the
+device, SLO scheduler, prefix cache, chunked prefill) clean and drilled,
+against the contiguous engine, with the traffic campaign and the
+telemetry recorder.
 
     python3 chip_smoke.py
 
@@ -132,7 +136,28 @@ exits non-zero without printing a result):
                 each verify, no plain call; the reduction's share of a step
                 from unprotected and protected steps on one state and batch
                 in turns, and the reduction alone on CUDA events; encode
-                and verify walls.
+                and verify walls;
+ 14. traffic  — PagedServeEngine on Qwen2-0.5B at full width in fp32 (8
+                slots of 2048 tokens in pages of 16: two K/V pools of
+                403 MB with their float64 page checksums on the card), ABFT
+                verify on kernel #1, the protected logits reduction, a page
+                scrub every decode step, chunked prefill of 256, the prefix
+                cache and the SLO scheduler, replaying serve.traffic's
+                open-loop trace of 24 requests behind a 256-token system
+                prompt: (a) clean, kernel #1 launched 168 times a decode
+                step and a prefill pass, no plain call, counts zeroed just
+                before; (b) the same trace under two SDCs on the logits
+                reduction and two page flips at the executed steps
+                launch/obs.py picks, 4/4 detected and corrected, tokens
+                equal to (a)'s; (c) unchunked, no prefix cache or
+                scheduler, against the contiguous ServeEngine on the same
+                weights (paged, contiguous, contiguous, paged), tokens
+                identical, whole-step medians and the gather and write-back
+                on their own; (d) the chaos CLI over the traffic workload
+                (rows equal to its CPU run's) and `launch.obs record
+                --check` (4 lifecycles, 0 dropped, 0 missed, overhead under
+                2 %); p50/p99 TTFT, tokens/s, the page scrub's wall, prefix
+                hits and pool bytes printed.
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -224,6 +249,37 @@ def bound(torch, m, k, n, f, in_dtype, out_bytes, plan):
         1e3 * max(t_bytes, t_cuda)
 
 
+def hold_oneshot(torch, kmm, args, kw, got):
+    """Kernel #1's outputs ``got`` on ``args`` = (a, b, wm, wn) against its
+    plain version on the same inputs -> (max |c - plain|, checksum column
+    and row errors).  c within ``within`` of the plain c (int8: bit-exact);
+    the checksums are sums of terms |c| |w| and the residual direction
+    ([w_r; -I]) cancels them, so their tolerance scales with the terms."""
+    a, b, wm, wn = args
+    c, ccol, crow = got
+    what = (tuple(a.shape), tuple(b.shape), a.dtype)
+    plain_kw = {key: v for key, v in kw.items() if key != "splits"}
+    cp, ccolp, crowp = kmm.abft_matmul_plain(a, b, wm, wn, **plain_kw)
+    c32, cp32 = c.double(), cp.double()
+    err_c = float((c32 - cp32).abs().max())
+    if a.dtype == torch.int8:
+        if not torch.equal(c, cp):
+            raise AssertionError(f"int8 c not bit-exact at {what}")
+    elif not within(c32, cp32, float(cp32.abs().max())):
+        raise AssertionError(f"c differs at {what}: {err_c}")
+    cs_col, cs_colp = ccol.sum(0).double(), ccolp.sum(0).double()
+    cs_row, cs_rowp = crow.sum(0).double(), crowp.sum(0).double()
+    terms_col = float((wm.abs().double() @ cp32.abs()).max())
+    terms_row = float((cp32.abs() @ wn.abs().double()).max())
+    err_col = float((cs_col - cs_colp).abs().max())
+    err_row = float((cs_row - cs_rowp).abs().max())
+    if not (within(cs_col, cs_colp, terms_col)
+            and within(cs_row, cs_rowp, terms_row)):
+        raise AssertionError(f"checksums differ at {what}: "
+                             f"{err_col} / {err_row}")
+    return err_c, err_col, err_row
+
+
 def kernel_cases(torch):
     """(m, k, n, projections per served layer, dtype, set) of phase 3: the
     serving shapes at decode and prefill (fp32, bf16), one int8 shape, the
@@ -272,32 +328,14 @@ def phase_kernel(torch, record):
         c, ccol, crow = kmm.abft_matmul_cuda(a, b, wm, wn, **kw)
         route = dict(kmm.last_route)
         again = kmm.abft_matmul_cuda(a, b, wm, wn, **kw)
-        cp, ccolp, crowp = kmm.abft_matmul_plain(a, b, wm, wn, **kw)
         torch.cuda.synchronize()
         if route["route"] != plan.route or route["splits"] != plan.splits:
             raise AssertionError(f"{(m, k, n, dt)} ran {route}, planned "
                                  f"{plan.route} with {plan.splits} splits")
         if not all(torch.equal(x, y) for x, y in zip((c, ccol, crow), again)):
             raise AssertionError(f"two calls differ at {(m, k, n, dt)}")
-        c32, cp32 = c.double(), cp.double()
-        err_c = float((c32 - cp32).abs().max())
-        if dt == torch.int8:
-            if not torch.equal(c, cp):
-                raise AssertionError(f"int8 c not bit-exact at {(m, k, n)}")
-        elif not within(c32, cp32, float(cp32.abs().max())):
-            raise AssertionError(f"c differs at {(m, k, n, dt)}: {err_c}")
-        # the checksums are sums of terms |c| |w|; the residual direction
-        # ([w_r; -I]) cancels them, so its tolerance scales with the terms
-        cs_col, cs_colp = ccol.sum(0).double(), ccolp.sum(0).double()
-        cs_row, cs_rowp = crow.sum(0).double(), crowp.sum(0).double()
-        terms_col = float((wm.abs().double() @ cp32.abs()).max())
-        terms_row = float((cp32.abs() @ wn.abs().double()).max())
-        err_col = float((cs_col - cs_colp).abs().max())
-        err_row = float((cs_row - cs_rowp).abs().max())
-        if not (within(cs_col, cs_colp, terms_col)
-                and within(cs_row, cs_rowp, terms_row)):
-            raise AssertionError(f"checksums differ at {(m, k, n, dt)}: "
-                                 f"{err_col} / {err_row}")
+        err_c, err_col, err_row = hold_oneshot(
+            torch, kmm, (a, b, wm, wn), kw, (c, ccol, crow))
         row = dict(m=m, k=k, n=n, dtype=str(dt).replace("torch.", ""),
                    set=what, per_layer=mult, tile=[plan.bm, plan.bn],
                    route=route["route"], splits=route["splits"],
@@ -319,7 +357,7 @@ def phase_kernel(torch, record):
             bound(torch, m, k, n, 2, dt, out.itemsize, plan)
         rows.append(row)
         log("kernel", json.dumps(row))
-        del a, b, c, ccol, crow, again, cp, ccolp, crowp
+        del a, b, c, ccol, crow, again
     record["kernel_cases"] = rows
     return rows
 
@@ -1755,7 +1793,7 @@ def phase_chaos(torch, record):
                  f"{calls['verifies']} scrub verifies); plain calls "
                  f"{counts['flash_plain']} / {counts['acc_plain']} / "
                  f"{counts['encode_plain']}")
-    # the port's uncovered ledger (solver, paged serving, pod topology)
+    # the port's uncovered ledger (solver and pod surfaces)
     # fails the gate's ledger clause without --check: rc stays 0
     if rc != 0:
         raise AssertionError(f"chaos CLI returned {rc}")
@@ -2201,6 +2239,333 @@ def phase_train_ft(torch, record, card, device="cuda", smoke=False):
     return f["launches"]
 
 
+# phase 14: paged serving under traffic at full width
+TRAFFIC_FULL = dict(n_requests=24, vocab=151936, arrival="open",
+                    rate_per_step=0.25, zipf_a=1.8, prompt_min=288,
+                    prompt_max=1536, out_min=8, out_max=64,
+                    shared_prefix_len=256, seed=9)
+TRAFFIC_SMOKE = dict(TRAFFIC_FULL, vocab=512, prompt_min=18, prompt_max=96,
+                     out_min=2, out_max=8, shared_prefix_len=16)
+
+
+def _timed_call(torch, eng, name, walls, device):
+    """Append the wall of every call of ``eng.<name>`` (a method without a
+    result) to ``walls``, device synchronized before and after."""
+    inner = getattr(eng, name)
+
+    def timed(*args):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(*args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    setattr(eng, name, timed)
+
+
+def _count_forwards(eng):
+    """Counts the paged engine's prefill passes (whole prompts and
+    chunks): kernel #1 runs 7 projections a layer in each."""
+    n = {"forwards": 0}
+    for name in ("_prefill_impl", "_chunk_forward"):
+        inner = getattr(eng, name)
+
+        def wrap(*a, _inner=inner, **kw):
+            n["forwards"] += 1
+            return _inner(*a, **kw)
+
+        setattr(eng, name, wrap)
+    return n
+
+
+@contextlib.contextmanager
+def _capture_oneshot(kmm, captured):
+    """While the block runs, keep in ``captured`` the operands of kernel
+    #1's first call at each shape and tile (the launches still count)."""
+    real = kmm.abft_matmul_cuda
+
+    def capture(a, b, wm, wn, **kw):
+        key = (tuple(a.shape), tuple(b.shape), a.dtype,
+               tuple(sorted(kw.items(), key=lambda it: it[0])))
+        if key not in captured:
+            captured[key] = ((a.clone(), b, wm, wn), kw)
+        return real(a, b, wm, wn, **kw)
+
+    kmm.abft_matmul_cuda = capture
+    try:
+        yield captured
+    finally:
+        kmm.abft_matmul_cuda = real
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def phase_traffic(torch, record, card, device="cuda", smoke=False):
+    """Paged serving under traffic: PagedServeEngine on Qwen2-0.5B at full
+    width in fp32 (the page flips flip 32-bit words), ABFT verify on kernel
+    #1, the protected logits reduction ("correct"), a page scrub every
+    decode step, 8 slots of 2048 tokens in pages of 16, chunked prefill of
+    256, the prefix cache and the SLO scheduler, replaying an open-loop
+    trace of 24 requests behind a 256-token system prompt through
+    serve.traffic.run_trace: (a) clean, (b) under two SDCs on the logits
+    reduction and two page flips (token streams equal, 4/4 detected and
+    corrected), (c) without chunking, prefix cache or scheduler against the
+    contiguous ServeEngine on the same weights (token streams identical;
+    the whole-step medians give the cost of paging), (d) the chaos CLI
+    over the traffic workload (the CPU run's rows) and the obs recorder
+    with its gate.  ``device`` and ``smoke`` rehearse it on the CPU."""
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.ft.failures import SDCInjector, SDCPlan
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.launch import chaos
+    from repro_torch.launch import obs as obs_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+    from repro_torch.serve.scheduler import SchedPolicy, SLOScheduler
+    from repro_torch.serve.traffic import (TrafficConfig, compare,
+                                           make_trace, run_trace)
+
+    cfg = dataclasses.replace(
+        smoke_config("qwen2-0.5b") if smoke else get_config("qwen2-0.5b"),
+        dtype="float32")
+    per_pass = 7 * cfg.n_layers                     # 168 at full width
+    tcfg = TrafficConfig(**(TRAFFIC_SMOKE if smoke else TRAFFIC_FULL))
+    trace = make_trace(tcfg)
+    n = tcfg.n_requests
+    geo = dict(slots=4, max_len=128, page_size=8, chunk_prefill=16) \
+        if smoke else dict(slots=8, max_len=2048, page_size=16,
+                           chunk_prefill=256)
+    abft = dict(abft_mode="verify", abft_backend="cuda",
+                kernel_dtype="fp32", abft_reduce="correct")
+    params = tf.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg)
+
+    def paged(sdc=None, **kw):
+        kw = {**dict(geo, prefix_cache=True, scrub_every=1,
+                     scheduler=SLOScheduler(SchedPolicy(max_queue=4 * n))),
+              **kw}
+        eng = PagedServeEngine(cfg, params, sdc=sdc, **abft, **kw)
+        eng.warm(prompt_len=8, decode_steps=2)
+        eng.reset()
+        return eng
+
+    # (a) the clean replay: the main path, counts zeroed just before it
+    eng = paged()
+    params = eng.params          # prepared once (encoded weights), shared
+    fwd = _count_forwards(eng)
+    seen = []
+    kmm.reset_counts()
+    clean = run_trace(eng, trace, on_step=lambda e, s: seen.append(s))
+    launches, plain = kmm.launches, kmm.plain_calls
+    want = per_pass * (len(seen) + fwd["forwards"])
+    if (launches, plain) != ((want, 0) if device == "cuda" else (0, want)):
+        raise AssertionError(f"kernel #1 launches / plain calls "
+                             f"{(launches, plain)}, want {want} launches "
+                             f"({len(seen)} decode steps + "
+                             f"{fwd['forwards']} prefill passes)")
+    if clean.n_finished != n or clean.detections or clean.n_rejected:
+        raise AssertionError(f"clean replay: {clean.asdict()}")
+    kv = eng.kv
+    if not all(t.device.type == device for t in
+               list(kv.pools.values()) + list(kv._fp.values())
+               + list(kv._esum.values())):
+        raise AssertionError("the page pools or their checksums left the "
+                             "device")
+    kv.check_invariants()
+    if not kv.checksums_consistent():
+        raise AssertionError("page checksums inconsistent after the replay")
+    pool_bytes = sum(p.numel() * p.element_size() for p in kv.pools.values())
+    scrub_ms = [1e3 * w for w in eng.stats.scrub_s]
+    # the pages' share of a scrub: their flags alone, brought to the host
+    # in one transfer as the scrub brings them
+    page_ms = []
+    for _ in range(20):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv.trip_flags().cpu()
+        page_ms.append(1e3 * (time.perf_counter() - t0))
+    a = dict(clean.asdict(), executed_steps=len(seen),
+             prefill_passes=fwd["forwards"], launches=launches,
+             scrub_ms_median=_median(scrub_ms),
+             scrub_ms_mean=sum(scrub_ms) / len(scrub_ms),
+             page_flags_ms_median=_median(page_ms),
+             kv_stats=dataclasses.asdict(kv.stats), pool_bytes=pool_bytes)
+    log("traffic", f"(a) clean: {n}/{n} requests, {len(seen)} decode steps, "
+                   f"{fwd['forwards']} prefill passes, p50 / p99 TTFT "
+                   f"{clean.p50_ttft_ms:.1f} / {clean.p99_ttft_ms:.1f} ms, "
+                   f"{clean.tok_per_s:.1f} tok/s, the whole scrub (params' "
+                   f"sums and page pools, one transfer) "
+                   f"{a['scrub_ms_median']:.3f} ms a step (median), the page "
+                   f"flags alone {a['page_flags_ms_median']:.3f} ms "
+                   f"(median of 20), prefix "
+                   f"hits {clean.prefix_hits}, pools {pool_bytes / 1e6:.1f} "
+                   f"MB, kernel #1 launches {launches} = {per_pass} x "
+                   f"({len(seen)} + {fwd['forwards']}), plain {plain}")
+    del eng, kv
+
+    # (b) the same trace under two SDCs and two page flips, at executed
+    # steps picked as launch/obs.py picks them
+    sdc_steps = (seen[len(seen) // 3], seen[len(seen) // 2])
+    dram_steps = [seen[2 * len(seen) // 3], seen[(5 * len(seen)) // 6]]
+    flips = []
+
+    def dram(e, step):
+        if step in dram_steps and len(flips) < len(dram_steps):
+            live = e.kv.live_pages()
+            key = next(iter(e.kv.pools))
+            phys = live[len(flips) % len(live)]
+            e.kv.corrupt_page(key, phys)
+            flips.append((step, key, phys))
+
+    eng = paged(sdc=SDCInjector(SDCPlan(tuple((s, 0, 1e4)
+                                              for s in sdc_steps))))
+    captured = {}           # kernel #1's operands on (b)'s and (c)'s path
+    with _capture_oneshot(kmm, captured):
+        fault = run_trace(eng, trace, on_step=dram)
+    slo = compare(clean, fault, expected_faults=4)
+    page_evs = [(e.step, e.leaf, e.page) for e in eng.stats.scrub_events]
+    if (fault.outputs != clean.outputs or len(flips) != 2
+            or slo["faults_missed"] or slo["faults_detected"] != 4
+            or slo["faults_corrected"] != 4 or fault.sdc_corrected != 2
+            or page_evs != [f for f in flips]):
+        raise AssertionError(f"drilled replay: tokens equal "
+                             f"{fault.outputs == clean.outputs}, flips "
+                             f"{flips}, page repairs {page_evs}, {slo}")
+    eng.kv.check_invariants()
+    b = dict(fault.asdict(), slo=slo, sdc_steps=list(sdc_steps),
+             flips=flips, events=[dataclasses.asdict(e)
+                                  for e in eng.stats.events])
+    log("traffic", f"(b) drilled: SDCs at decode steps {list(sdc_steps)} "
+                   f"and page flips {[(s, p) for s, _, p in flips]}: 4/4 "
+                   f"detected and corrected, tokens identical to (a); p50 / "
+                   f"p99 TTFT {fault.p50_ttft_ms:.1f} / "
+                   f"{fault.p99_ttft_ms:.1f} ms, {fault.tok_per_s:.1f} "
+                   f"tok/s")
+    del eng
+
+    # (c) parity: no chunking, prefix cache or scheduler, no scrub, against
+    # the contiguous engine on the same prepared weights, in the order
+    # paged, contiguous, contiguous, paged; whole steps timed, and the
+    # paged engine's gather and write-back on their own
+    walls = {"paged": [], "contiguous": []}
+    paging = {"_pre_decode": [], "_post_decode": []}
+    outs = []
+    for name in ("paged", "contiguous", "contiguous", "paged"):
+        if name == "paged":
+            e = paged(chunk_prefill=0, prefix_cache=False, scheduler=None,
+                      scrub_every=0)
+            for hook, ws in paging.items():
+                _timed_call(torch, e, hook, ws, device)
+        else:
+            e = ServeEngine(cfg, params, slots=geo["slots"],
+                            max_len=geo["max_len"], **abft)
+            e.warm(prompt_len=8, decode_steps=2)
+            e.reset()
+        _timed_call(torch, e, "_step", walls[name], device)
+        with _capture_oneshot(kmm, captured):
+            outs.append(run_trace(e, trace).outputs)
+        del e
+    if any(o != outs[0] for o in outs):
+        raise AssertionError("(c): the paged engine's tokens differ from the "
+                             "contiguous engine's")
+    med = {k: 1e3 * _median(w) for k, w in walls.items()}
+    gather_ms = 1e3 * _median(paging["_pre_decode"])
+    write_ms = 1e3 * _median(paging["_post_decode"])
+    c = dict(step_ms=med, step_diff_ms=med["paged"] - med["contiguous"],
+             gather_ms=gather_ms, write_back_ms=write_ms,
+             steps={k: len(w) for k, w in walls.items()},
+             same_as_a=outs[0] == clean.outputs)
+    log("traffic", f"(c) parity, runs paged / contiguous / contiguous / "
+                   f"paged: tokens identical; whole decode step (median of "
+                   f"{len(walls['paged'])}) paged {med['paged']:.3f} ms, "
+                   f"contiguous {med['contiguous']:.3f} ms, difference "
+                   f"{c['step_diff_ms']:+.3f} ms; the paging itself: gather "
+                   f"{gather_ms:.3f} ms + write-back and page re-arm "
+                   f"{write_ms:.3f} ms a step (medians); (a)'s chunked, "
+                   f"prefix-cached tokens "
+                   f"{'equal' if c['same_as_a'] else 'differ from'} these")
+
+    # kernel #1 against its plain version on the operands (b) and (c) gave
+    # it: decode (m = slots), prefill chunks, suffix and whole-prompt
+    # buckets, at every projection's k and n (outside the counted run)
+    held = []
+    for args, kw in captured.values():
+        errs = hold_oneshot(torch, kmm, args, kw,
+                            kmm.abft_matmul_cuda(*args, **kw))
+        held.append(dict(m=args[0].shape[0], k=args[0].shape[1],
+                         n=args[1].shape[1], tile=[kw["bm"], kw["bn"]],
+                         splits=kw.get("splits"), max_abs_err=errs[0],
+                         err_cs_col=errs[1], err_cs_row=errs[2]))
+    ms = sorted({h["m"] for h in held})
+    if not {geo["slots"], geo["chunk_prefill"]} <= set(ms):
+        raise AssertionError(f"kernel #1 operands captured at m {ms}, not at "
+                             f"decode's {geo['slots']} and a chunk's "
+                             f"{geo['chunk_prefill']}")
+    held_err = max(h["max_abs_err"] for h in held)
+    c["kernel_held"] = held
+    log("traffic", f"kernel #1 held against its plain version on the "
+                   f"operands of {len(held)} shapes and tiles of (b) and (c) "
+                   f"(m in {ms}; k, n of every projection): c, checksum "
+                   f"columns and residuals within RTOL {RTOL:g}, max |c - "
+                   f"plain| {held_err:.3g}")
+    del captured
+
+    # (d) the two CLIs on the device: the chaos campaign's traffic rows as
+    # the CPU run's, and the obs recorder with its gate
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    rows = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        path = out / f"traffic_{dev}.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = chaos.main(["--device", dev, "--space", "traffic-smoke",
+                             "--workload", "traffic", "--json", str(path),
+                             "--quiet"])
+        d = json.loads(path.read_text())
+        rows[dev] = [(e["name"], e["outcome"], e["rung"], e["end_state"])
+                     for e in d["events"]]
+        if rc != 0 or d["summary"]["missed_anywhere"] \
+                or d["summary"]["false_alarms"]:
+            raise AssertionError(f"traffic campaign on {dev}: rc {rc}, "
+                                 f"{d['summary']}")
+    if rows[device] != rows["cpu"] or [r[1] for r in rows[device]] != \
+            ["corrected"] * 5 + ["clean"]:
+        raise AssertionError(f"traffic campaign rows {rows}")
+    log("traffic", f"(d) chaos CLI, traffic-smoke: {len(rows[device])} rows "
+                   f"as the CPU run's (5 corrected, the sweep clean, none "
+                   f"skipped)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        obs_cli.main(["record", "--device", device, "--check", "--json",
+                      str(out / "obs.json")])
+    r = json.loads((out / "obs.json").read_text())
+    ov = r["overhead"]
+    log("traffic", f"(d) obs record --check: {r['n_complete_lifecycles']} "
+                   f"complete lifecycles, {r['dropped_events']} dropped, "
+                   f"faults missed {r['slo_under_fault']['faults_missed']}, "
+                   f"overhead {ov['overhead_pct']:+.2f} % (summed on "
+                   f"{ov['obs_on_s']:.4f} s over summed off "
+                   f"{ov['obs_off_s']:.4f} s, {ov['pairs']} interval pairs "
+                   f"over {ov['repeats']} replays; median pair "
+                   f"{ov['median_pair_pct']:+.2f} %; budget "
+                   f"{ov['budget_pct']} %); {card}")
+    record["traffic"] = dict(
+        config=dataclasses.asdict(tcfg), engine=geo, clean=a, drilled=b,
+        parity=c, campaign_rows=rows[device],
+        obs=dict(overhead=ov, n_complete=r["n_complete_lifecycles"],
+                 dropped=r["dropped_events"], backend=r["config"]["backend"]),
+        card=card)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches, held_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2231,6 +2596,8 @@ def main():
     chaos_counts = phase_chaos(torch, record)
     phase_serve_ft(torch, record, f"{name} ({smi})")
     ft_launches = phase_train_ft(torch, record, f"{name} ({smi})")
+    traffic_launches, traffic_err = phase_traffic(torch, record,
+                                                  f"{name} ({smi})")
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -2251,13 +2618,16 @@ def main():
         "source": "src/repro_torch/kernels/csrc/abft_matmul.cu",
         "replaces": "src/repro/kernels/abft_matmul.py:285",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        # phase 3's cases and the operands phase 14's engines gave it
+        "max_abs_err": max([r["max_abs_err"] for r in rows] + [traffic_err]),
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if by_ops >= tot["bound_ms"] / 2
                     else "bytes",
         "library_ms": tot["library_ms"],
+        # phase 14: the paged engine's clean replay of the traffic trace
+        "traffic_launches": traffic_launches,
     }, {
         "name": "abft_matmul_acc",
         "route": "cuda",

@@ -26,6 +26,10 @@ campaign runs on one device, from the same ``np.random.RandomState`` draws:
   * the serve workload: a drilled `serve.engine.ServeEngine` (model extent
     1) with SDC in the verified unembed's reduction and KV-cache and params
     flips under its scrub;
+  * the traffic workload: the paged `serve.engine.PagedServeEngine`
+    replaying a small open-loop trace (`serve.traffic`) with SDC in the
+    same reduction, page flips repaired by the page-granular scrub and
+    params flips;
   * multi-fault episodes of both, and the clean sweeps of every golden;
   * the kernel and layer drills: carried-state and carried-data flips on
     ``ops.abft_matmul_acc`` at 256³ (kernel #2 on a CUDA tensor), flash
@@ -34,9 +38,9 @@ campaign runs on one device, from the same ``np.random.RandomState`` draws:
     ``models/layers.py``.
 
 Pod-loss and slow-pod faults need a pod mesh and the pod paths of port
-slice 13; the solver workload comes with port slice 10 and the traffic
-workload (``PagedServeEngine``) with port slice 9.  Their rows are
-``skipped`` and name the slice.
+slice 13; the solver workload comes with port slice 10.  Their rows are
+``skipped`` and name the slice.  Traffic episodes are ``skipped`` as in
+the reference (it has no traffic episode adapter).
 """
 from __future__ import annotations
 
@@ -57,13 +61,12 @@ from repro_torch.chaos.faults import (Episode, FailureInjector,
 from repro_torch.tree import (keystr, stacked_leaves_with_path, tree_leaves,
                               tree_map, tree_replace)
 
-__all__ = ["TrainConfig", "ServeConfig", "FaultResult", "CampaignResult",
-           "CampaignRunner", "classify", "episode_outcome"]
+__all__ = ["TrainConfig", "ServeConfig", "TrafficConfig", "FaultResult",
+           "CampaignResult", "CampaignRunner", "classify", "episode_outcome"]
 
 # the slices that bring the runtimes the skipped handlers need
 _ELASTIC = ("port slice 13 (multi-process distribution and "
             "ElasticRuntime's pod paths)")
-_PAGED = "port slice 9 (paged serving: PagedServeEngine)"
 _SOLVER = "port slice 10 (the subspace solver: RedundantSubspaceCG)"
 
 
@@ -98,6 +101,27 @@ class ServeConfig:
     max_new_tokens: int = 5
     mesh: Tuple[int, int] = (4, 2)          # (data, model) where the
     #                                         devices exist; else (1, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrafficConfig:
+    """The traffic workload under drill: the PAGED serving engine replaying
+    a small open-loop trace (`serve.traffic`), so dram_kv_cache faults land
+    in the page pools and are erasure-repaired at page granularity.
+    ``spec.step`` indexes the clean replay's EXECUTED decode steps
+    (open-loop idle gaps skip step numbers, so raw step numbers could name
+    a step that never runs)."""
+    arch: str = "qwen2-0.5b"
+    slots: int = 4
+    max_len: int = 64
+    page_size: int = 8
+    chunk_prefill: int = 16
+    n_requests: int = 10
+    rate_per_step: float = 0.6
+    prompt_max: int = 24
+    out_max: int = 6
+    shared_prefix_len: int = 16
+    trace_seed: int = 9
 
 
 @dataclasses.dataclass
@@ -234,19 +258,23 @@ def _sync(device: torch.device) -> None:
 class CampaignRunner:
     def __init__(self, space: FaultSpace, *,
                  train: Optional[TrainConfig] = None,
-                 serve: Optional[ServeConfig] = None, verbose: bool = False,
-                 device="cuda"):
+                 serve: Optional[ServeConfig] = None,
+                 traffic: Optional[TrafficConfig] = None,
+                 verbose: bool = False, device="cuda"):
         from repro_torch.launch.serve import resolve_device
         ensure_registered()
         self.space = space
         self.train = train or TrainConfig()
         self.serve = serve or ServeConfig()
+        self.traffic = traffic or TrafficConfig()
         self.verbose = verbose
         self.device = resolve_device(str(device))
         self._train_golden: Dict[tuple, dict] = {}
         self._serve_golden: Dict[tuple, dict] = {}
         self._serve_eng = None        # the warmed drill-free engine, reused
         self._serve_scrub_eng = None  # ditto with the at-rest scrubber on
+        self._traffic_golden: Optional[dict] = None
+        self._traffic_eng = None      # the warmed drill-free paged engine
         self._tmp = tempfile.TemporaryDirectory(prefix="chaos-ckpt-")
 
     def _log(self, msg: str):
@@ -296,6 +324,7 @@ class CampaignRunner:
             # runner stays reusable
             self._serve_eng = None
             self._serve_scrub_eng = None
+            self._traffic_eng = None
             self._tmp.cleanup()
             self._tmp = tempfile.TemporaryDirectory(prefix="chaos-ckpt-")
         for res in results:
@@ -314,6 +343,7 @@ class CampaignRunner:
             "n_devices": torch.cuda.device_count() if cuda else 1,
             "train": dataclasses.asdict(self.train),
             "serve": dataclasses.asdict(self.serve),
+            "traffic": dataclasses.asdict(self.traffic),
             "n_episodes": sum(1 for ep in self.space.episodes
                               if ep.workload in workloads),
             "wall_s": time.time() - t0,
@@ -371,9 +401,6 @@ class CampaignRunner:
             note=note, recovery_warm_s=warm_s, recovery_compile_s=compile_s)
 
     # -- workloads the port has not brought up --------------------------------
-
-    def _run_traffic(self, spec: FaultSpec) -> FaultResult:
-        raise _Skip(f"the traffic drills need {_PAGED}")
 
     def _run_solver(self, spec: FaultSpec) -> FaultResult:
         raise _Skip(f"the solver drills need {_SOLVER}")
@@ -1044,6 +1071,183 @@ class CampaignRunner:
                      f"{'unchanged' if end_state == 'bit_identical' else 'diverged'}")
         raise ValueError(f"unhandled serve kind {spec.kind!r}")
 
+    # -- traffic workload (paged engine under an open-loop trace) -------------
+
+    def _traffic_trace(self):
+        from repro_torch.configs.base import smoke_config
+        from repro_torch.serve.traffic import TrafficConfig as TraceConfig
+        from repro_torch.serve.traffic import make_trace
+        t = self.traffic
+        cfg = smoke_config(t.arch)
+        return cfg, make_trace(TraceConfig(
+            n_requests=t.n_requests, vocab=cfg.vocab_size, arrival="open",
+            rate_per_step=t.rate_per_step, prompt_max=t.prompt_max,
+            out_max=t.out_max, shared_prefix_len=t.shared_prefix_len,
+            seed=t.trace_seed))
+
+    def _traffic_engine(self, sdc=None):
+        from repro_torch.models import transformer as tf
+        from repro_torch.serve.engine import PagedServeEngine
+        from repro_torch.serve.scheduler import SchedPolicy, SLOScheduler
+
+        cfg, trace = self._traffic_trace()
+        if sdc is None and self._traffic_eng is not None:
+            self._traffic_eng.reset()
+            return self._traffic_eng, trace
+        t = self.traffic
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        params = tf.init_params(gen, cfg)
+        eng = PagedServeEngine(
+            cfg, params, slots=t.slots, max_len=t.max_len,
+            page_size=t.page_size, chunk_prefill=t.chunk_prefill,
+            prefix_cache=True, scrub_every=1, abft_reduce="correct",
+            sdc=sdc,
+            scheduler=SLOScheduler(SchedPolicy(max_queue=4 * t.n_requests)))
+        eng.warm(prompt_len=8, decode_steps=2)
+        eng.reset()
+        if sdc is None:
+            self._traffic_eng = eng
+        return eng, trace
+
+    def _golden_traffic(self) -> dict:
+        """Clean replay of the traffic trace on the paged engine, cached.
+        Records the EXECUTED decode steps: open-loop idle gaps fast-forward
+        the step clock, so a drill schedule in raw step numbers could name
+        a step that never runs — specs index this list instead."""
+        from repro_torch.serve.traffic import run_trace
+        if self._traffic_golden is not None:
+            return self._traffic_golden
+        self._log("golden traffic (paged engine, open loop)")
+        eng, trace = self._traffic_engine()
+        seen: List[int] = []
+        rep = run_trace(eng, trace, on_step=lambda e, s: seen.append(s))
+        self._traffic_golden = {
+            "outputs": rep.outputs, "report": rep.asdict(),
+            "detections": rep.detections, "seen": seen, "trace": trace}
+        return self._traffic_golden
+
+    def _run_traffic(self, spec: FaultSpec) -> FaultResult:
+        from repro_torch.serve.traffic import run_trace
+        golden = self._golden_traffic()
+        seen = golden["seen"]
+        if spec.step >= len(seen):
+            raise _Skip(f"executed-step index {spec.step} out of range "
+                        f"(clean replay ran {len(seen)} decode steps)")
+        fire = seen[spec.step]
+        if spec.kind == "sdc_collective":
+            if spec.shard != 0:
+                raise _Skip("traffic engine runs meshless (model extent 1)")
+            eng, trace = self._traffic_engine(
+                sdc=SDCInjector(SDCPlan(((fire, 0, spec.delta),))))
+            rep = run_trace(eng, trace)
+            st = eng.stats
+            if not st.events:
+                raise _Skip(f"planned SDC at decode step {fire} never "
+                            f"fired ({st.decode_steps} decode steps ran)")
+            detected = st.detections > 0
+            corrected = st.corrections > 0 and all(
+                e.corrected for e in st.events)
+            end_state = ("bit_identical"
+                         if rep.outputs == golden["outputs"] else "diverged")
+            lat = st.recovery_latency_s() if detected else None
+            return self._result(
+                spec, detected=detected, corrected=corrected,
+                rung="abft_inflight" if detected else None,
+                latency=lat,
+                warm_s=lat, compile_s=0.0 if lat is not None else None,
+                end_state=end_state,
+                max_abs_diff=0.0 if end_state == "bit_identical" else None,
+                note=f"{st.detections} detection(s) over {st.decode_steps} "
+                     f"decode steps under load; located "
+                     + ", ".join(f"(r{e.row},c{e.col})" for e in st.events))
+        if spec.kind in ("dram_kv_cache", "dram_params"):
+            eng, trace = self._traffic_engine()
+            fired = {}
+
+            def on_step(engine, step):
+                if step == fire and not fired:
+                    if spec.kind == "dram_kv_cache":
+                        kv = engine.kv
+                        live = kv.live_pages()
+                        phys = spec.page if spec.page >= 0 else \
+                            (live[0] if live else 1)
+                        key = sorted(kv.pools)[spec.seed % len(kv.pools)]
+                        kv.corrupt_page(key, phys, bit=spec.bit)
+                        fired["leaf"] = f"{key}[page {phys}]"
+                        fired["undo"] = lambda: None  # reset() rebuilds kv
+                        fired["page"] = phys
+                    else:
+                        fired["leaf"], fired["undo"] = _flip_engine_bit(
+                            engine, spec)
+
+            try:
+                rep = run_trace(eng, trace, on_step=on_step)
+            finally:
+                if "undo" in fired:
+                    fired["undo"]()   # shared engine: restore params leaf
+            st = eng.stats
+            if not fired:
+                raise _Skip(f"flip step {fire} never reached "
+                            f"({st.decode_steps} decode steps ran)")
+            if spec.kind == "dram_kv_cache":
+                evs = [e for e in st.scrub_events if e.domain == "kv"]
+                rung = "scrub:page_repair"
+            else:
+                evs = [e for e in st.scrub_events if e.domain != "kv"]
+                rung = "scrub:restore"
+            detected = bool(evs)
+            corrected = detected and all(e.repaired for e in evs)
+            end_state = ("bit_identical"
+                         if rep.outputs == golden["outputs"] else "diverged")
+            pages = sorted({e.page for e in evs if e.page >= 0})
+            latency = (sum(e.wall_s for e in evs) / len(evs)
+                       if evs else None)
+            warm = None
+            if detected and corrected:
+                # warm re-measure: the page repair rewrites the page and
+                # the params repair the leaf, so the cached traffic engine
+                # stays clean
+                if spec.kind == "dram_kv_cache":
+                    kv = eng.kv
+                    live = kv.live_pages()
+                    if live:
+                        key = sorted(kv.pools)[spec.seed % len(kv.pools)]
+                        kv.corrupt_page(key, live[0], bit=spec.bit)
+                        t0 = time.perf_counter()
+                        if kv.scrub():
+                            _sync(self.device)
+                            warm = time.perf_counter() - t0
+                else:
+                    _, undo2 = _flip_engine_bit(eng, spec)
+                    n0 = len(st.scrub_events)
+                    eng._scrub_check()
+                    evs2 = [e for e in st.scrub_events[n0:]
+                            if e.repaired and e.domain != "kv"]
+                    if evs2:
+                        warm = sum(e.wall_s for e in evs2) / len(evs2)
+                    else:
+                        undo2()
+            return self._result(
+                spec, detected=detected, corrected=corrected,
+                rung=rung if detected else None,
+                latency=latency,
+                warm_s=warm,
+                compile_s=(max(latency - warm, 0.0)
+                           if latency is not None and warm is not None
+                           else None),
+                end_state=end_state,
+                max_abs_diff=0.0 if end_state == "bit_identical" else None,
+                note=f"bit {spec.bit} flipped in {fired.get('leaf')!r} at "
+                     f"decode step {fire}; scrub repaired "
+                     + (f"page(s) {pages} of "
+                        + ", ".join(sorted({e.leaf for e in evs}))
+                        if evs and spec.kind == "dram_kv_cache" else
+                        ", ".join(f"{e.domain}:{e.leaf}" for e in evs)
+                        or "never tripped")
+                     + f"; token streams "
+                     f"{'bit-identical' if end_state == 'bit_identical' else 'diverged'}")
+        raise ValueError(f"unhandled traffic kind {spec.kind!r}")
+
     # -- multi-fault episodes -------------------------------------------------
 
     def _run_episode(self, ep: Episode) -> List[FaultResult]:
@@ -1055,7 +1259,8 @@ class CampaignRunner:
         if ep.workload == "serve":
             return self._episode_serve(ep)
         if ep.workload == "traffic":
-            raise _Skip(f"traffic episodes need {_PAGED}")
+            raise _Skip("no traffic episode adapter (single faults only; "
+                        "the SLO story is bench_traffic's)")
         raise _Skip(f"solver episodes need {_SOLVER}")
 
     @staticmethod
@@ -1331,15 +1536,16 @@ class CampaignRunner:
     # -- clean sweeps ---------------------------------------------------------
 
     def _clean_rows(self, workloads) -> List[FaultResult]:
-        """Every golden run as a clean-sweep row; the solver and traffic
-        workloads, whose goldens are not ported, as ``skipped`` rows
-        naming their slice."""
+        """Every golden run as a clean-sweep row; the solver workload, whose
+        golden is not ported, as a ``skipped`` row naming its slice."""
         rows = []
         if "train" in workloads and not self._train_golden:
             # no train spec ran: still sweep the base protected config
             self._golden_train((1, 1), ("data", "model"), "protected")
         if "serve" in workloads and not self._serve_golden:
             self._golden_serve()
+        if "traffic" in workloads and self._traffic_golden is None:
+            self._golden_traffic()
         for (shape, tag, steps), g in sorted(self._train_golden.items()):
             detected = g["detections"] > 0
             outcome = classify(injected=False, detected=detected,
@@ -1392,20 +1598,38 @@ class CampaignRunner:
                 end_state="bit_identical", max_abs_diff=0.0,
                 wall_s=g["stats"]["decode_s"] + g["stats"]["prefill_s"],
                 note=note))
-        sweeps = (
-            ("solver", "solver:clean_sweep",
-             "solvers.subspace_cg/correction_sum", _SOLVER),
-            ("traffic", "traffic:clean_sweep:paged", "serve.paged_kv/pages",
-             _PAGED),
-        )
-        rows.extend(FaultResult(
-            name=name, workload=wl, kind="clean_sweep", surface=surface,
-            protected=True, promise="none", outcome="skipped",
-            detected=False, corrected=False, rung=None,
-            recovery_latency_s=None, end_state="not_compared",
-            max_abs_diff=None, wall_s=0.0,
-            note=f"the {wl} golden run is not ported: comes with {why}")
-            for wl, name, surface, why in sweeps if wl in workloads)
+        if self._traffic_golden is not None:
+            g = self._traffic_golden
+            r = g["report"]
+            detected = g["detections"] > 0
+            rows.append(FaultResult(
+                name="traffic:clean_sweep:paged", workload="traffic",
+                kind="clean_sweep", surface="serve.paged_kv/pages",
+                protected=True, promise="none",
+                outcome=classify(injected=False, detected=detected,
+                                 corrected=False,
+                                 end_state="bit_identical",
+                                 promise="none"),
+                detected=detected, corrected=False, rung=None,
+                recovery_latency_s=None, end_state="bit_identical",
+                max_abs_diff=0.0, wall_s=r["wall_s"],
+                note=f"{g['detections']} detection(s) over "
+                     f"{r['decode_steps']} decode steps of open-loop load "
+                     f"({r['n_finished']}/{r['n_requests']} finished, "
+                     f"{r['scrub_checks']} page scrubs, "
+                     f"{r['prefix_hits']} prefix hits, "
+                     f"p99 TTFT {r['p99_ttft_ms']:.1f} ms)"))
+        if "solver" in workloads:
+            rows.append(FaultResult(
+                name="solver:clean_sweep", workload="solver",
+                kind="clean_sweep",
+                surface="solvers.subspace_cg/correction_sum",
+                protected=True, promise="none", outcome="skipped",
+                detected=False, corrected=False, rung=None,
+                recovery_latency_s=None, end_state="not_compared",
+                max_abs_diff=None, wall_s=0.0,
+                note=f"the solver golden run is not ported: comes with "
+                     f"{_SOLVER}"))
         return rows
 
 class _Skip(Exception):

@@ -147,7 +147,8 @@ def ensure_registered() -> Dict[str, Surface]:
     import importlib
     for mod in ("repro_torch.kernels.ops",
                 "repro_torch.kernels.flash_attention",
-                "repro_torch.serve.engine", "repro_torch.models.layers",
+                "repro_torch.serve.engine", "repro_torch.serve.paged_kv",
+                "repro_torch.models.layers",
                 "repro_torch.ckpt.diskless", "repro_torch.dist.collectives",
                 "repro_torch.ft.runtime"):
         importlib.import_module(mod)
@@ -177,8 +178,6 @@ for _name, _kinds, _slice in (
         ("ft.runtime/topology", ("pod_loss", "slow_pod"),
          "port slice 13 (multi-process distribution and ElasticRuntime's "
          "pod paths)"),
-        ("serve.paged_kv/pages", ("dram_kv_cache",),
-         "port slice 9 (paged serving)"),
         ("solvers.subspace_cg/correction_sum", ("sdc_collective",),
          "port slice 10 (the subspace solver)"),
         ("solvers.subspace_cg/iterate_at_rest", ("dram_params",),

@@ -2,15 +2,17 @@
 matrix.
 
 The campaign runs every spec and every multi-fault episode of the chosen
-space against live workloads (an `ElasticRuntime` train loop and a drilled
-`ServeEngine` on one device, and the kernel and layer drills), classifies
+space against live workloads (an `ElasticRuntime` train loop, a drilled
+`ServeEngine` and, for ``--workload traffic``, a `PagedServeEngine`
+replaying an open-loop trace, on one device, and the kernel and layer
+drills), classifies
 each event as detected / corrected / absorbed / missed / false-alarm, and
 writes the machine-readable artifact (``--json``) plus a rendered markdown
 matrix on stdout.  It runs on the GPU unless ``--device cpu`` is given;
 with no GPU it raises rather than falling back.  Specs and episodes that
 need more than one device (pod faults) or a runtime the port has not
-brought up yet (solver, traffic) are reported as ``skipped`` rows naming
-the slice they wait for.
+brought up yet (the solver) are reported as ``skipped`` rows naming the
+slice they wait for.
 
 Usage:
 
@@ -18,6 +20,8 @@ Usage:
       --workload both --json chaos.json
   PYTHONPATH=src python -m repro_torch.launch.chaos --device cpu \\
       --space smoke --workload train
+  PYTHONPATH=src python -m repro_torch.launch.chaos --device cpu \\
+      --space traffic-smoke --workload traffic
 
   # re-run a recorded campaign exactly (same kinds, targets, seeds)
   PYTHONPATH=src python -m repro_torch.launch.chaos --replay CAMPAIGN.json

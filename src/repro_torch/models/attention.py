@@ -154,10 +154,16 @@ def attn_apply(
             ck[:, cols] = k.to(ck.dtype)
             cv[:, cols] = v.to(cv.dtype)
         else:
-            # continuous batching: per-slot write positions (sq == 1)
+            # continuous batching: per-slot write positions (sq == 1).  An
+            # idle slot's index keeps counting past the cache; its write is
+            # dropped, as the reference's out-of-bounds scatter drops it
             rows = torch.arange(b, device=idx.device)
-            ck[rows, idx] = k[:, 0].to(ck.dtype)
-            cv[rows, idx] = v[:, 0].to(cv.dtype)
+            keep = (idx < ck.shape[1])[:, None, None]
+            at = idx.clamp(max=ck.shape[1] - 1)
+            ck[rows, at] = torch.where(keep, k[:, 0].to(ck.dtype),
+                                       ck[rows, at])
+            cv[rows, at] = torch.where(keep, v[:, 0].to(cv.dtype),
+                                       cv[rows, at])
         new_cache = {"k": ck, "v": cv, "index": idx + sq}
         k, v = ck, cv
         k_pos = torch.arange(ck.shape[1], device=x.device)

@@ -38,8 +38,10 @@ change), and the tied unembedding gets an fp32 copy of the table under
 ``table_f32``.  Both keep per-call casts of the weights off the step, and
 the scrub covers them as params leaves of their own.
 
-``mesh`` sharding (a model extent above 1) comes with port slice 13 and
-``PagedServeEngine`` with port slice 9.
+`PagedServeEngine` serves from a paged KV cache (`serve.paged_kv`) with
+page-granular checksums, prefix caching, chunked prefill and an optional
+SLO scheduler (`serve.scheduler`).  ``mesh`` sharding (a model extent
+above 1) comes with port slice 13.
 """
 from __future__ import annotations
 
@@ -63,8 +65,8 @@ from repro_torch.train.step import StepOptions
 from repro_torch.tree import (keystr, stacked_leaves_with_path, tree_get,
                               tree_leaves_with_path)
 
-__all__ = ["Request", "ServeEngine", "EngineStats", "SDCEvent",
-           "ScrubEvent"]
+__all__ = ["Request", "ServeEngine", "PagedServeEngine", "EngineStats",
+           "SDCEvent", "ScrubEvent"]
 
 # the protection domains this module owns (chaos campaigns drill them)
 register_surface(
@@ -302,7 +304,7 @@ class ServeEngine:
         for _ in range(max_steps):
             self._admit()
             if not any(self.active):
-                if not self.queue:
+                if not self._pending():
                     break
                 continue
             if on_step is not None:
@@ -442,8 +444,9 @@ class ServeEngine:
             rep = obs.counter("repro_scrub_repairs_total",
                               "at-rest scrub repairs")
             for e in events:
-                rung = ("scrub:kv_repair" if e.domain == "kv"
-                        else "scrub:restore")
+                rung = ("scrub:page_repair" if e.page >= 0 else
+                        "scrub:kv_repair" if e.domain == "kv" else
+                        "scrub:restore")
                 det.inc(surface="serve.scrub/" + e.domain)
                 obs.event("fault/detect", step=step,
                           surface="serve.scrub/" + e.domain,
@@ -456,35 +459,40 @@ class ServeEngine:
 
     def _scrub_flags(self):
         """The trip flags of one scrub, computed on the device and brought
-        to the host together: ``({kv key: [slots] bool}, {params key:
-        bool})``.  A KV slot trips where its fingerprint moved by more than
-        1e-4 of the leaf's largest armed fingerprint (+1), a params leaf
-        where its sum moved by more than 1e-4 of its armed sum (+1); NaN
-        counts as tripped."""
-        flags = []
-        kv_keys = list(self._kv_sums)
-        for key in kv_keys:
-            path, fp_a, _ = self._kv_sums[key]
-            x = tree_get(self.cache, path)
-            fp = x.float().sum(dim=tuple(range(2, x.dim())))
-            thr = 1e-4 * (fp_a.abs().max() + 1.0)
-            # ~(d <= thr) is True for NaN as well
-            flags.append((~((fp - fp_a).abs() <= thr)).any(dim=0))
+        to the host together: ``(kv_bad, {params key: bool})``, ``kv_bad``
+        as `_kv_bad` reads it.  A params leaf trips where its sum moved by
+        more than 1e-4 of its armed sum (+1); NaN counts as tripped."""
+        kv_parts = self._kv_flags()
         p_keys, p_fps = [], None
         if self._param_fp:
             p_keys, fps = self._fingerprints(self.params)
             armed = torch.tensor([self._param_fp[k] for k in p_keys],
                                  dtype=torch.float32, device=fps.device)
             p_fps = ~((fps - armed).abs() <= 1e-4 * (armed.abs() + 1.0))
-        parts = [f.to(self.device) for f in flags]
+        parts = [f.to(self.device) for f in kv_parts]
         if p_fps is not None:
             parts.append(p_fps.to(self.device))
         host = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, bool)
-        kv_bad, at = {}, 0
-        for key in kv_keys:
-            kv_bad[key] = host[at:at + self.slots]
-            at += self.slots
-        return kv_bad, dict(zip(p_keys, host[at:]))
+        n_kv = sum(f.numel() for f in kv_parts)
+        return self._kv_bad(host[:n_kv]), dict(zip(p_keys, host[n_kv:]))
+
+    def _kv_flags(self) -> List[torch.Tensor]:
+        """One ``[slots]`` bool per armed KV leaf: a slot trips where its
+        fingerprint moved by more than 1e-4 of the leaf's largest armed
+        fingerprint (+1); NaN counts as tripped."""
+        flags = []
+        for path, fp_a, _ in self._kv_sums.values():
+            x = tree_get(self.cache, path)
+            fp = x.float().sum(dim=tuple(range(2, x.dim())))
+            thr = 1e-4 * (fp_a.abs().max() + 1.0)
+            # ~(d <= thr) is True for NaN as well
+            flags.append((~((fp - fp_a).abs() <= thr)).any(dim=0))
+        return flags
+
+    def _kv_bad(self, host):
+        """``{kv key: [slots] bool}`` from the host copy of `_kv_flags`."""
+        return {key: host[i * self.slots:(i + 1) * self.slots]
+                for i, key in enumerate(self._kv_sums)}
 
     def _scrub_kv(self, step: int, events: List[ScrubEvent], kv_bad):
         """A tripped KV slot is rebuilt by the erasure solve ``ksum -
@@ -514,6 +522,27 @@ class ServeEngine:
                 x.copy_(o)
             events.append(ScrubEvent(step=step, domain="params", leaf=key,
                                      repaired=True))
+
+    # -- subclass hooks --------------------------------------------------------
+    def _pending(self) -> bool:
+        """Anything left to admit? (run()'s drain condition; the paged
+        engine adds its scheduler queue and in-flight chunked prefill)"""
+        return bool(self.queue)
+
+    def _pre_decode(self):
+        """Before each decode call (paged engine: materialize the dense
+        working cache from the page pools)."""
+
+    def _post_decode(self):
+        """After the decode mutated the cache, before positions advance.
+        Contiguous engine: whole-cache re-arm; the paged engine overrides
+        this with per-page write-back and re-arm."""
+        if self.scrub_every and not self._warming:
+            self._arm_kv()  # re-arm: the decode mutated every live slot
+
+    def _retire_slot(self, s: int):
+        """A slot's request just finished (paged engine frees its
+        pages)."""
 
     # -- admission -------------------------------------------------------------
     def _admit(self):
@@ -612,6 +641,7 @@ class ServeEngine:
         if (self.scrub_every and not self._warming
                 and self.stats.decode_steps % self.scrub_every == 0):
             self._scrub_check()
+        self._pre_decode()
         t0 = time.perf_counter()
         ev: Optional[SDCEvent] = None
         if self.sdc is not None and not self._warming:
@@ -676,8 +706,7 @@ class ServeEngine:
             rec = ev.recovery_s if ev is not None else wall
             obs.recovery("abft_inflight", rec, step=step, warm_s=rec,
                          compile_s=0.0, corrected=corrected)
-        if self.scrub_every and not self._warming:
-            self._arm_kv()  # re-arm: the decode mutated every live slot
+        self._post_decode()
 
         self.pos = self.pos + torch.tensor(
             [1 if r is not None else 0 for r in self.active],
@@ -707,7 +736,267 @@ class ServeEngine:
                 obs.counter("repro_requests_total",
                             "retired serve requests").inc()
                 finished.append(req)
+                self._retire_slot(s)
                 self.active[s] = None
+
+
+class PagedServeEngine(ServeEngine):
+    """`ServeEngine` on a paged/block KV cache (serve.paged_kv) with prefix
+    caching, chunked prefill, and an optional SLO-aware scheduler.
+
+    The page pools are the AUTHORITATIVE storage: every decode step gathers
+    them into the fixed-shape dense cache the inherited decode consumes
+    (`_pre_decode`, one ``index_select`` over the page table per leaf), and
+    writes each slot's freshly decoded K/V back into its page afterwards
+    (`_post_decode`, one indexed write and one checksum update per leaf for
+    all slots) — re-arming exactly the pages it touched instead of the
+    whole cache.  A retiring slot frees its pages (zero-at-free), and the
+    at-rest scrub verifies/repairs at page granularity via the pool's
+    erasure sum; the page flags ride the params flags' one transfer.
+
+    Decode parity: with ``chunk_prefill=0`` and no prefix hit, admission
+    runs the parent's prefill verbatim and the gathered dense cache differs
+    from the contiguous engine's only at causally masked positions (zeros
+    vs prefill pad garbage) — decode logits, and therefore the emitted
+    token streams, are bit-identical.  Chunked and prefix-shared prefills
+    change the prefill computation's shape, so their guarantee is on the
+    argmax token stream, not logits bits.
+
+    A suffix or chunk prefill is padded to ``min(_bucket(n), max_len -
+    start)`` tokens, so it never writes past the cache.  (The reference
+    pads to ``_bucket(n)``; where ``start + bucket > max_len`` its clamped
+    cache write shifts the chunk's K/V, and its tokens leave the contiguous
+    engine's.)
+
+    ``scheduler``: an `SLOScheduler` (serve.scheduler) takes over queueing
+    — `submit()` routes through its admission control (rejections land in
+    ``self.rejected``) and `_admit` pops by aged effective priority.
+    ``chunk_prefill=C``: prompts longer than C prefill C tokens per engine
+    step, so a long prompt never delays a running decode step by more than
+    one chunk's work; when no decode is active the chunks free-run
+    back-to-back.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, page_size: int = 8,
+                 chunk_prefill: int = 0, prefix_cache: bool = True,
+                 scheduler=None, max_prefixes: int = 16, **kw):
+        self.page_size = page_size
+        self.chunk_prefill = chunk_prefill
+        self.prefix_cache = prefix_cache
+        self.max_prefixes = max_prefixes
+        self.scheduler = scheduler
+        self.kv = None                    # built by _fresh_cache
+        self._kv_paths: Dict[str, tuple] = {}
+        self.rejected: List[Request] = []
+        self._prefilling: Optional[dict] = None
+        super().__init__(cfg, params, **kw)
+
+    # -- paged storage ---------------------------------------------------------
+    def _fresh_cache(self):
+        from repro_torch.serve.paged_kv import PagedKVCache
+        dense = super()._fresh_cache()
+        shapes, paths = {}, {}
+        for path, x in tree_leaves_with_path(dense):
+            # paged leaves: per-slot sequence-indexed float K/V, i.e.
+            # [repeats, slots, max_len, *tail]
+            if (_is_float(x) and x.dim() >= 4 and x.shape[1] == self.slots
+                    and x.shape[2] == self.max_len):
+                key = keystr(path)
+                shapes[key] = (tuple(x.shape), x.dtype)
+                paths[key] = path
+        self._kv_paths = paths
+        self.kv = PagedKVCache(shapes, slots=self.slots,
+                               max_len=self.max_len,
+                               page_size=self.page_size,
+                               max_prefixes=self.max_prefixes,
+                               device=self.device)
+        return dense
+
+    def _arm_kv(self):
+        self.kv.arm_all()
+
+    def _kv_flags(self) -> List[torch.Tensor]:
+        return [self.kv.trip_flags().reshape(-1)]
+
+    def _kv_bad(self, host):
+        self.kv.stats.verifies += 1
+        return self.kv.tripped(host)
+
+    def _scrub_kv(self, step: int, events: List[ScrubEvent], kv_bad):
+        for key, page in kv_bad:
+            if self.kv.repair(key, page):
+                events.append(ScrubEvent(step=step, domain="kv", leaf=key,
+                                         page=page, repaired=True))
+
+    def _pre_decode(self):
+        for key, path in self._kv_paths.items():
+            self.kv.gather(key, out=tree_get(self.cache, path))
+
+    def _post_decode(self):
+        # page-granular write-back + re-arm: ONE page per leaf per active
+        # slot (the decode wrote exactly position pos[s])
+        act = [s for s, r in enumerate(self.active) if r is not None]
+        if not act:
+            return
+        pos = self.pos.tolist()
+        at = [pos[s] for s in act]
+        si = torch.tensor(act, dtype=torch.int64, device=self.device)
+        pi = torch.tensor(at, dtype=torch.int64, device=self.device)
+        self.kv.begin_mutation()
+        for key, path in self._kv_paths.items():
+            x = tree_get(self.cache, path)
+            self.kv.write_tokens(key, act, at, x[:, si, pi])
+
+    def _retire_slot(self, s: int):
+        self.kv.free_slot(s)
+
+    # -- queueing / admission --------------------------------------------------
+    def submit(self, req: Request, priority: Optional[int] = None):
+        if not req.t_submit:
+            req.t_submit = time.perf_counter()
+        if self.scheduler is not None and not self._warming:
+            if not self.scheduler.submit(req, priority=priority):
+                req.done = True
+                self.rejected.append(req)
+            return
+        self.queue.append(req)
+
+    def reset(self):
+        super().reset()          # rebuilds self.kv via _fresh_cache
+        self.rejected = []
+        self._prefilling = None
+
+    def _pending(self) -> bool:
+        return (bool(self.queue) or self._prefilling is not None
+                or (self.scheduler is not None and len(self.scheduler) > 0))
+
+    def _next_request(self) -> Optional[Request]:
+        if self.scheduler is not None:
+            req = self.scheduler.pop()
+            if req is not None:
+                return req
+        return self.queue.popleft() if self.queue else None
+
+    def _admit(self):
+        if self._prefilling is not None:
+            self._advance_prefill()
+            if self._prefilling is not None:
+                return          # one chunk per engine step under decode load
+        while True:
+            free = [s for s in range(self.slots) if self.active[s] is None]
+            if not free:
+                return
+            req = self._next_request()
+            if req is None:
+                return
+            self._start_admission(free[0], req)
+            if self._prefilling is not None:
+                self._advance_prefill()   # free-runs when no decode active
+                if self._prefilling is not None:
+                    return
+
+    def _start_admission(self, s: int, req: Request):
+        plen = len(req.prompt)
+        need = min(plen + req.max_new_tokens, self.max_len)
+        prompt = req.prompt if (self.prefix_cache
+                                and not self._warming) else None
+        start = self.kv.alloc_slot(s, need, prompt=prompt)
+        if start or (self.chunk_prefill and plen > self.chunk_prefill):
+            self._prefilling = {"slot": s, "req": req, "start": start}
+            return
+        # no prefix hit, no chunking: the parent's prefill verbatim —
+        # bit-identical admission vs the contiguous engine
+        t0 = time.perf_counter()
+        bucket = self._bucket(plen)
+        prompt_t = torch.zeros((1, bucket), dtype=torch.int64,
+                               device=self.device)
+        prompt_t[0, :plen] = torch.tensor(req.prompt, dtype=torch.int64)
+        logits, small_cache = self._prefill_impl(self.params, prompt_t,
+                                                 plen, bucket)
+        self._scatter_slot(s, small_cache, plen)
+        self._write_pages(s, small_cache, 0, plen)
+        tok = int(torch.argmax(logits[0, plen - 1]))   # synchronizes
+        self.stats.prefill_s += time.perf_counter() - t0
+        self._finish_admission(s, req, tok, plen)
+
+    def _finish_admission(self, s: int, req: Request, tok: int, plen: int):
+        req.output.append(tok)
+        req.t_first = time.perf_counter()
+        self.stats.prefills += 1
+        self.tokens[s, 0] = tok
+        self.pos[s] = plen
+        self.active[s] = req
+        if self.prefix_cache and not self._warming:
+            self.kv.register_prefix(s, req.prompt)
+
+    def _write_pages(self, s: int, cache_tree, start: int, end: int):
+        """Persist positions [start, end) of a 1-slot cache into pages."""
+        if end <= start:
+            return
+        self.kv.begin_mutation()
+        for key, path in self._kv_paths.items():
+            x = tree_get(cache_tree, path)
+            self.kv.write(key, s, start, x[:, 0, start:end])
+
+    # -- chunked / prefix-shared prefill --------------------------------------
+    def _slot_cache(self, s: int, start: int):
+        """Dense 1-slot cache for a chunk: this slot's pages gathered,
+        non-paged leaves sliced from the engine cache, block indices set to
+        the chunk's start position."""
+        def one(path, x):
+            key = keystr(path)
+            if key in self._kv_paths:
+                return self.kv.gather_slot(key, s)
+            if path[-1] == "index":
+                return torch.full((x.shape[0],), start, dtype=torch.int64,
+                                  device=self.device)
+            if x.dim() >= 2 and x.shape[1] == self.slots:
+                return x[:, s:s + 1]
+            return x
+
+        return _tree_map(one, self.cache)
+
+    def _chunk_forward(self, tokens, start: int, cache):
+        """Prefill ``tokens`` [1, bucket] at positions ``start + i`` into
+        the 1-slot ``cache``: ``(logits, cache)``."""
+        positions = start + torch.arange(tokens.shape[1],
+                                         device=self.device)
+        logits, new_cache, _ = tf.forward(self.params, tokens, self.cfg,
+                                          positions=positions, cache=cache,
+                                          abft=self.abft)
+        return logits, new_cache
+
+    def _advance_prefill(self):
+        """Process chunks of the in-flight prefill: one chunk when any
+        decode is running (the chunk budget is the most a decode step can
+        be delayed), back-to-back when the engine is otherwise idle."""
+        while self._prefilling is not None:
+            pf = self._prefilling
+            s, req, start = pf["slot"], pf["req"], pf["start"]
+            plen = len(req.prompt)
+            n = min(self.chunk_prefill or plen - start, plen - start)
+            t0 = time.perf_counter()
+            # never past the cache: the bucket stops at max_len
+            bucket = min(self._bucket(n), self.max_len - start)
+            toks = torch.zeros((1, bucket), dtype=torch.int64,
+                               device=self.device)
+            toks[0, :n] = torch.tensor(req.prompt[start:start + n],
+                                       dtype=torch.int64)
+            cache = self._slot_cache(s, start)
+            logits, new_cache = self._chunk_forward(toks, start, cache)
+            # carry the index (and any non-paged leaf) across chunks
+            self._scatter_slot(s, new_cache, start + n)
+            self._write_pages(s, new_cache, start, start + n)
+            pf["start"] = start + n
+            if pf["start"] >= plen:
+                tok = int(torch.argmax(logits[0, n - 1]))   # synchronizes
+                self.stats.prefill_s += time.perf_counter() - t0
+                self._prefilling = None
+                self._finish_admission(s, req, tok, plen)
+                return
+            self.stats.prefill_s += time.perf_counter() - t0
+            if any(r is not None for r in self.active):
+                return
 
 
 def _clone_tree(tree):

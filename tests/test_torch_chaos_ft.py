@@ -9,8 +9,12 @@ default space over ``("train", "serve")`` to the 67 rows of one run of
 ``PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.chaos --space
 default --workload both`` on one CPU device (`REF_ROWS`).  Outcome, rung
 and end state must be equal: the kind of agreement the campaign promises,
-since the port draws its own random weights.
+since the port draws its own random weights.  The traffic tests hold the
+port's paged serving workload to the reference's on
+`FaultSpace.traffic_smoke()` and its clean sweep, row for row.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -238,3 +242,75 @@ def test_whole_campaign_matches_reference_rows(tmp_path):
     assert d2["meta"]["train"]["steps"] == 4
     assert {e["name"] for e in d2["events"] if e["kind"] == "clean_sweep"} \
         >= {"train:clean_sweep:1x1:protected"}
+
+
+# -- the traffic workload (paged engine under an open-loop trace) ------------
+
+TRAFFIC_ROWS = [
+    ("traffic:sdc_collective:s3", "corrected", "abft_inflight"),
+    ("traffic:sdc_collective:s7:d-30000:seed1", "corrected",
+     "abft_inflight"),
+    ("traffic:dram_kv_cache:s5", "corrected", "scrub:page_repair"),
+    ("traffic:dram_kv_cache:s9:pg1:b29", "corrected", "scrub:page_repair"),
+    ("traffic:dram_params:s4", "corrected", "scrub:restore"),
+    ("traffic:clean_sweep:paged", "clean", None),
+]
+
+
+def _traffic_key(r):
+    return (r.name, r.outcome, r.rung, r.end_state, r.detected, r.corrected)
+
+
+def test_traffic_rows_match_reference(monkeypatch):
+    """Both packages' runners on `FaultSpace.traffic_smoke()` and the
+    traffic sweep: every row equal in outcome, detection, correction, rung
+    and end state.  The reference's traffic engine builds its default
+    one-device mesh, whose axes are made ``Auto`` here (on this jax the
+    default ``Explicit`` axes reject its embedding gather)."""
+    make_mesh = jax.make_mesh
+
+    def auto_mesh(shape, names, **kw):
+        kw.setdefault("axis_types",
+                      (jax.sharding.AxisType.Auto,) * len(names))
+        return make_mesh(shape, names, **kw)
+
+    monkeypatch.setattr(jax, "make_mesh", auto_mesh)
+    want = jcampaign.CampaignRunner(
+        jfaults.FaultSpace.traffic_smoke()).run(("traffic",))
+    got = campaign.CampaignRunner(faults.FaultSpace.traffic_smoke(),
+                                  device="cpu").run(("traffic",))
+    assert [_traffic_key(r) for r in got.results] == \
+        [_traffic_key(r) for r in want.results]
+    assert [(r.name, r.outcome, r.rung) for r in got.results] == \
+        TRAFFIC_ROWS
+    assert all(r.end_state == "bit_identical" for r in got.results)
+    # the same executed steps fire, the same pages are repaired
+    for g, w in zip(got.results, want.results):
+        if g.kind == "dram_kv_cache":
+            assert g.note.split("; ")[0] == w.note.split("; ")[0]
+    assert got.meta["traffic"] == dataclasses.asdict(
+        campaign.TrafficConfig())
+    assert campaign.TrafficConfig() == campaign.TrafficConfig(
+        **dataclasses.asdict(jcampaign.TrafficConfig()))
+
+
+def test_traffic_cli_runs_every_row(tmp_path):
+    """The chaos CLI over the traffic workload: the five specs and the
+    sweep, none skipped, nothing missed, no false alarm, and
+    ``serve.paged_kv/pages`` protected (the ledger holds only the solver
+    and pod surfaces)."""
+    import json
+    out = tmp_path / "traffic.json"
+    assert cli.main(["--device", "cpu", "--space", "traffic-smoke",
+                     "--workload", "traffic", "--json", str(out),
+                     "--quiet"]) == 0
+    d = json.loads(out.read_text())
+    assert [(e["name"], e["outcome"], e["rung"]) for e in d["events"]] == \
+        TRAFFIC_ROWS
+    assert d["summary"]["missed_anywhere"] == []
+    assert d["summary"]["false_alarms"] == []
+    assert d["summary"]["by_outcome"].get("skipped", 0) == 0
+    ledger = {s["surface"] for s in d["uncovered_surfaces"]}
+    assert "serve.paged_kv/pages" not in ledger
+    assert all(n.startswith(("ft.runtime/", "solvers.")) for n in ledger)
+    assert faults.get_surface("serve.paged_kv/pages").protected

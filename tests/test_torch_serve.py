@@ -139,7 +139,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'repro_torch.launch.train', 'repro_torch.kernels.checksum_encode', "
         "'repro_torch.ckpt.diskless', 'repro_torch.ckpt.disk', "
         "'repro_torch.ft.runtime', 'repro_torch.data.pipeline', "
-        "'repro_torch.train.optimizer', 'repro_torch.tree'}\n"
+        "'repro_torch.train.optimizer', 'repro_torch.tree', "
+        "'repro_torch.serve.paged_kv', 'repro_torch.serve.scheduler', "
+        "'repro_torch.serve.traffic', 'repro_torch.launch.obs'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
