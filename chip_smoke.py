@@ -7,15 +7,17 @@ entry point, run the paper's fault-tolerant SUMMA at the paper's size, and
 train Qwen2-0.5B at its published width through the port's fault-tolerant
 training entry point, with diskless recoveries, hold the checked
 flash-attention kernel against its plain version at the Qwen2-0.5B and
-Gemma2-2B attention shapes, run the chaos campaign over its train and
-serve workloads through its CLI, and drive the protected reductions and the
-at-rest scrub at full width: the verified unembed of the serving engine
-with an SDC drill and KV and params flips, and the protected train step
-under ElasticRuntime with an SDC and DRAM flips, and serve an open-loop
+Gemma2-2B attention shapes, run the chaos campaign over its train, serve
+and solver workloads through its CLI, and drive the protected reductions
+and the at-rest scrub at full width: the verified unembed of the serving
+engine with an SDC drill and KV and params flips, and the protected train
+step under ElasticRuntime with an SDC and DRAM flips, and serve an open-loop
 traffic trace at full width on the paged engine (page checksums on the
 device, SLO scheduler, prefix cache, chunked prefill) clean and drilled,
 against the contiguous engine, with the traffic campaign and the
-telemetry recorder.
+telemetry recorder, and solve a 24576-unknown float64 Poisson system with
+the redundant-subspace CG solver, clean and drilled, and protect the
+full-width params with the FT context in its three encodings.
 
     python3 chip_smoke.py
 
@@ -101,16 +103,20 @@ exits non-zero without printing a result):
  11. chaos    — kernels #4 and #2 against their plain versions on each of
                 the campaign's eight kernel drills (its inputs, tiles and
                 faults, clean and faulted calls); then
-                repro_torch.launch.chaos over the default space's train and
-                serve workloads, counts zeroed just before it: its 67 rows
-                with the outcome, rung and end state of the reference's
-                one-device campaign (CAMPAIGN_ROWS: 50 corrected, 3
-                detected, 7 clean sweeps, 7 skipped naming port slice 13;
-                episodes 9 corrected, 2 skipped), kernel #4 launched 4 and
-                kernel #2 21 times, kernel #3 once per encoded leaf of
-                every diskless encode and scrub verify, no plain call,
-                nothing missed, no false alarm (the artifact and matrix in
-                chiprun_out/chaos.*);
+                repro_torch.launch.chaos over the default space's train,
+                serve and solver workloads (--workload all), counts zeroed
+                just before it: its 96 rows (67 train and serve, 29
+                solver) with the outcome, rung and end state of the
+                reference's one-device campaign (CAMPAIGN_ROWS: 78
+                corrected, 3 detected, 8 clean sweeps, 7 skipped naming
+                port slice 13; episodes 15 corrected, 2 skipped, the six
+                solver episodes among the corrected; the solver's sustained
+                rate at parity 400 events per 1k iterations), kernel #4
+                launched 4 and kernel #2 21 times, kernel #3 once per
+                encoded leaf of every diskless encode and scrub verify (the
+                solver launches none), no plain call, nothing missed, no
+                false alarm, the uncovered ledger only ft.runtime/topology
+                (the artifact and matrix in chiprun_out/chaos.*);
  12. serve-ft — repro_torch.launch.serve.run on Qwen2-0.5B at full width in
                 fp32 (the bit-flip model is on 32-bit words), ABFT verify
                 on kernel #1 (168 launches a pass, no plain call), 8
@@ -157,7 +163,23 @@ exits non-zero without printing a result):
                 (rows equal to its CPU run's) and `launch.obs record
                 --check` (4 lifecycles, 0 dropped, 0 missed, overhead under
                 2 %); p50/p99 TTFT, tokens/s, the page scrub's wall, prefix
-                hits and pool bytes printed.
+                hits and pool bytes printed;
+ 15. solver   — RedundantSubspaceCG on the 1D Poisson system at n = 24576
+                (12 subspaces of 2 x 2048 unknowns, two replicas on three
+                simulated pods) in float64 on the card: (a) clean,
+                converged with zero trips, x within 1e-8 of RandomState(0)'s
+                x_true and A x within 1e-8 of b; (b) drilled with an SDC in
+                subspace 3 replica 0 at iteration 2, a flip of argmax |x|
+                and the loss of pod 1 at iteration 3, converged through a
+                replica repair, a guard restart and failovers; iterations,
+                wall an iteration (synchronized), bytes held and
+                max |x - x_clean| printed; (c) FTContext(p = 4) over the
+                seeded full-width Qwen2-0.5B params in fp32, each leaf
+                viewed [4, numel / 4]: floating_point (f = 1, 2), gf256
+                (f = 1, 2) and xor (f = 1), shard 2 (shards 1 and 3 for
+                f = 2) lost and recovered, gf256 and xor bit for bit,
+                floating_point within 1e-5 of max |leaf|; register and
+                recover walls printed.
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -1605,8 +1627,8 @@ def _campaign_pairs(torch):
 
 
 # every row of the reference's one-device campaign over the default space's
-# train and serve workloads (PYTHONPATH=src JAX_PLATFORMS=cpu python -m
-# repro.launch.chaos --space default --workload both), in its order: name,
+# train, serve and solver workloads (PYTHONPATH=src JAX_PLATFORMS=cpu python
+# -m repro.launch.chaos --space default --workload all), in its order: name,
 # outcome, rung, end state (None = within the promise, for the kernel drills
 # whose float repair may land bit-identical on the card)
 CAMPAIGN_ROWS = [
@@ -1626,6 +1648,14 @@ CAMPAIGN_ROWS = [
     ('serve:sdc_collective:s1', 'corrected', 'abft_inflight', 'bit_identical'),
     ('serve:dram_kv_cache:s2',
      'corrected', 'scrub:kv_repair', 'bit_identical'),
+    ('solver:sdc_collective:s4:sh3',
+     'corrected', 'solver:replica_repair', 'bit_identical'),
+    ('solver:dram_params:s12',
+     'corrected', 'solver:guard_restart', 'within_tol'),
+    ('solver:shard_loss:s6:sh4',
+     'corrected', 'solver:failover', 'bit_identical'),
+    ('solver:pod_loss:s5:p1:paired',
+     'corrected', 'solver:reweight', 'within_tol'),
     ('train:sdc_collective:s4:d-30000:seed1',
      'corrected', 'abft_inflight', 'within_tol'),
     ('serve:sdc_collective:s3:sh1:d-30000:seed1',
@@ -1643,6 +1673,7 @@ CAMPAIGN_ROWS = [
     ('train:pod_loss:s3:diskless', 'skipped', None, 'not_compared'),
     ('train:pod_loss:s3:disk:seed1', 'skipped', None, 'not_compared'),
     ('train:slow_pod:s1', 'skipped', None, 'not_compared'),
+    ('solver:pod_loss:s5:p2', 'corrected', 'solver:failover', 'within_tol'),
     ('train:sdc+dram_burst::e0:sdc_collective',
      'corrected', 'abft_inflight', 'not_compared'),
     ('train:sdc+dram_burst::e1:dram_params',
@@ -1659,9 +1690,14 @@ CAMPAIGN_ROWS = [
      'corrected', 'scrub:kv_repair', 'not_compared'),
     ('serve:sdc+kv_dram::e2:dram_params',
      'corrected', 'scrub:restore', 'not_compared'),
-    ('episode:serve:sdc+kv_dram',
-     'corrected', 'abft_inflight+scrub:kv_repair+scrub:restore',
-     'bit_identical'),
+    ('episode:serve:sdc+kv_dram', 'corrected',
+     'abft_inflight+scrub:kv_repair+scrub:restore', 'bit_identical'),
+    ('solver:sdc_during_pod_loss::e0:pod_loss',
+     'corrected', 'solver:reweight', 'not_compared'),
+    ('solver:sdc_during_pod_loss::e1:sdc_collective',
+     'corrected', 'solver:replica_repair', 'not_compared'),
+    ('episode:solver:sdc_during_pod_loss',
+     'corrected', 'solver:replica_repair+solver:reweight', 'within_tol'),
     ('train:poisson250::e0:shard_loss',
      'corrected', 'diskless', 'not_compared'),
     ('episode:train:poisson250', 'corrected', 'diskless', 'bit_identical'),
@@ -1671,8 +1707,22 @@ CAMPAIGN_ROWS = [
      'corrected', 'abft_inflight', 'not_compared'),
     ('episode:serve:poisson250',
      'corrected', 'abft_inflight+scrub:kv_repair', 'bit_identical'),
+    ('solver:poisson150::e0:sdc_collective',
+     'corrected', 'solver:replica_repair', 'not_compared'),
+    ('solver:poisson150::e1:shard_loss',
+     'corrected', 'solver:failover', 'not_compared'),
+    ('solver:poisson150::e2:pod_loss',
+     'corrected', 'solver:reweight', 'not_compared'),
+    ('episode:solver:poisson150', 'corrected',
+     'solver:failover+solver:replica_repair+solver:reweight', 'within_tol'),
     ('episode:train:dram+podloss', 'skipped', None, 'not_compared'),
     ('episode:train:pod_repeat', 'skipped', None, 'not_compared'),
+    ('solver:pod_repeat::e0:pod_loss',
+     'corrected', 'solver:reweight', 'not_compared'),
+    ('solver:pod_repeat::e1:pod_loss',
+     'corrected', 'solver:reweight', 'not_compared'),
+    ('episode:solver:pod_repeat',
+     'corrected', 'solver:reweight', 'within_tol'),
     ('train:poisson125::e0:dram_params',
      'corrected', 'scrub:diskless', 'not_compared'),
     ('episode:train:poisson125',
@@ -1715,6 +1765,34 @@ CAMPAIGN_ROWS = [
      'corrected', 'scrub:restore', 'not_compared'),
     ('episode:serve:poisson250',
      'corrected', 'scrub:restore', 'bit_identical'),
+    ('solver:poisson50::e0:dram_params',
+     'corrected', 'solver:guard_restart', 'not_compared'),
+    ('episode:solver:poisson50',
+     'corrected', 'solver:guard_restart', 'within_tol'),
+    ('solver:poisson150::e0:dram_params',
+     'corrected', 'solver:guard_restart', 'not_compared'),
+    ('solver:poisson150::e1:sdc_collective',
+     'corrected', 'solver:replica_repair', 'not_compared'),
+    ('solver:poisson150::e2:pod_loss',
+     'corrected', 'solver:reweight', 'not_compared'),
+    ('episode:solver:poisson150', 'corrected',
+     'solver:guard_restart+solver:replica_repair+solver:reweight',
+     'within_tol'),
+    ('solver:poisson400::e0:sdc_collective',
+     'corrected', 'solver:replica_repair', 'not_compared'),
+    ('solver:poisson400::e1:shard_loss',
+     'corrected', 'solver:failover', 'not_compared'),
+    ('solver:poisson400::e2:pod_loss',
+     'corrected', 'solver:reweight', 'not_compared'),
+    ('solver:poisson400::e3:dram_params',
+     'corrected', 'solver:guard_restart', 'not_compared'),
+    ('solver:poisson400::e4:dram_params',
+     'corrected', 'solver:guard_restart', 'not_compared'),
+    ('solver:poisson400::e5:dram_params',
+     'corrected', 'solver:guard_restart', 'not_compared'),
+    ('episode:solver:poisson400', 'corrected',
+     'solver:failover+solver:guard_restart+solver:replica_repair'
+     '+solver:reweight', 'within_tol'),
     ('train:clean_sweep:1x1:plain', 'clean', None, 'bit_identical'),
     ('train:clean_sweep:1x1:plain:7st', 'clean', None, 'bit_identical'),
     ('train:clean_sweep:1x1:protected', 'clean', None, 'bit_identical'),
@@ -1722,9 +1800,10 @@ CAMPAIGN_ROWS = [
     ('train:clean_sweep:1x1:scrub', 'clean', None, 'bit_identical'),
     ('serve:clean_sweep:1x1', 'clean', None, 'bit_identical'),
     ('serve:clean_sweep:1x1xscrub', 'clean', None, 'bit_identical'),
+    ('solver:clean_sweep', 'clean', None, 'bit_identical'),
 ]
-CAMPAIGN_BY_OUTCOME = {"corrected": 50, "absorbed": 0, "detected": 3,
-                       "missed": 0, "false_alarm": 0, "clean": 7,
+CAMPAIGN_BY_OUTCOME = {"corrected": 78, "absorbed": 0, "detected": 3,
+                       "missed": 0, "false_alarm": 0, "clean": 8,
                        "skipped": 7}
 
 
@@ -1756,11 +1835,12 @@ def _count_encodes(calls):
 
 
 def phase_chaos(torch, record):
-    """The chaos campaign's CLI over the default space's train and serve
-    workloads on the card, counts zeroed just before it: every row the
-    reference's one-device campaign runs, with its outcome, rung and end
-    state, through ElasticRuntime (kernel #3 for every encode and scrub
-    verify), the protected serving engine and the kernel drills."""
+    """The chaos campaign's CLI over the default space's train, serve and
+    solver workloads on the card, counts zeroed just before it: every row
+    the reference's one-device campaign runs, with its outcome, rung and
+    end state, through ElasticRuntime (kernel #3 for every encode and scrub
+    verify), the protected serving engine, the kernel drills and the
+    float64 subspace solver (which launches no kernel of the port)."""
     from repro_torch.kernels import abft_matmul as kmm
     from repro_torch.kernels import checksum_encode as kenc
     from repro_torch.kernels import flash_attention as kfa
@@ -1777,7 +1857,7 @@ def phase_chaos(torch, record):
         kenc.reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):   # the matrix: file
-            rc = chaos.main(["--space", "default", "--workload", "both",
+            rc = chaos.main(["--space", "default", "--workload", "all",
                              "--json", str(out), "--markdown",
                              str(out.with_suffix(".md")), "--quiet"])
         wall = time.perf_counter() - t0
@@ -1786,15 +1866,16 @@ def phase_chaos(torch, record):
                       encode=kenc.launches, encode_plain=kenc.plain_calls)
     finally:
         undo()
-    log("chaos", f"repro_torch.launch.chaos (default space, train + serve) "
+    log("chaos", f"repro_torch.launch.chaos (default space, train, serve "
+                 f"and solver) "
                  f"-> {rc} in {wall:.2f} s; launches: kernel #4 "
                  f"{counts['flash']}, kernel #2 {counts['acc']}, kernel #3 "
                  f"{counts['encode']} ({calls['encodes']} encodes + "
                  f"{calls['verifies']} scrub verifies); plain calls "
                  f"{counts['flash_plain']} / {counts['acc_plain']} / "
                  f"{counts['encode_plain']}")
-    # the port's uncovered ledger (solver and pod surfaces)
-    # fails the gate's ledger clause without --check: rc stays 0
+    # the port's uncovered ledger (the pod surface) fails the gate's ledger
+    # clause only with --check: rc stays 0
     if rc != 0:
         raise AssertionError(f"chaos CLI returned {rc}")
     # kernel #4: a clean and a checked run per flash spec (2); kernel #2:
@@ -1833,14 +1914,30 @@ def phase_chaos(torch, record):
                              f"{summ['missed_anywhere']}, false alarms "
                              f"{summ['false_alarms']}")
     eps = {k: v for k, v in d["episodes"]["by_outcome"].items() if v}
-    if eps != {"corrected": 9, "skipped": 2}:
+    if eps != {"corrected": 15, "skipped": 2}:
         raise AssertionError(f"episodes {eps}")
+    solver_eps = [e for e in d["episodes"]["episodes"]
+                  if e["workload"] == "solver"]
+    rate = d["episodes"]["sustained_rate_at_parity"]["solver"]
+    if len(solver_eps) != 6 or any(e["outcome"] != "corrected"
+                                   for e in solver_eps) \
+            or rate["sustained_rate_per_1k"] != 400.0:
+        raise AssertionError(f"solver episodes {solver_eps}, rate {rate}")
+    ledger = [s["surface"] for s in d["uncovered_surfaces"]]
+    if ledger != ["ft.runtime/topology"]:
+        raise AssertionError(f"uncovered ledger {ledger}")
+    solver_wall = sum(e["wall_s"] for e in events
+                      if e["workload"] == "solver" and not e["episode"])
     log("chaos", f"{len(events)} rows as the reference's one-device "
-                 f"campaign: {summ['by_outcome']}; episodes {eps}; missed "
-                 f"[], false alarms []")
+                 f"campaign: {summ['by_outcome']}; episodes {eps}; solver "
+                 f"sustained rate at parity {rate['sustained_rate_per_1k']} "
+                 f"events per 1k iterations (rates {rate['rates_tested']}); "
+                 f"solver rows {solver_wall:.3f} s; missed [], false alarms "
+                 f"[]; uncovered ledger {ledger}")
     record["chaos"] = dict(rc=rc, wall_s=wall, counts=counts,
                            encode_calls=calls, by_outcome=summ["by_outcome"],
-                           episodes=eps)
+                           episodes=eps, solver_rate=rate,
+                           solver_wall_s=solver_wall)
     return counts
 
 
@@ -2566,6 +2663,171 @@ def phase_traffic(torch, record, card, device="cuda", smoke=False):
     return launches, held_err
 
 
+# phase 15: the subspace solver and the FT context at full size
+SOLVER_N = 24576          # 12 subspaces of 2 x 2048 unknowns, float64
+SOLVER_TOL_X = 1e-8       # max |x - x_true| and max |A x - b|
+CTX_RTOL = 1e-5           # floating_point recovery, relative to max |leaf|
+CTX_MODES = (("floating_point", 1), ("floating_point", 2), ("gf256", 1),
+             ("gf256", 2), ("xor", 1))
+CTX_LOST = {1: [2], 2: [1, 3]}
+
+
+def phase_solver(torch, record, card, device="cuda", smoke=False):
+    """The subspace solver and the FT context on the card: (a) a clean
+    RedundantSubspaceCG solve of the 1D Poisson system at n = 24576 in
+    float64 (zero trips, x within 1e-8 of RandomState(0)'s x_true and A x
+    of b); (b) the same solve drilled with an SDC in subspace 3 replica 0 at
+    iteration 2, a flip of argmax |x| at iteration 3 and pod 1 lost there
+    (replica repair, guard restart and failovers, converged); (c) FTContext
+    (p = 4) over the seeded full-width Qwen2-0.5B params in fp32, each leaf
+    viewed [4, numel / 4], in the floating_point (f = 1, 2), gf256 (f = 1,
+    2) and xor (f = 1) modes, shards lost and recovered: gf256 and xor bit
+    for bit, floating_point within 1e-5 of max |leaf|.  ``device`` and
+    ``smoke`` rehearse it on the CPU (n = 96, the smoke config)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.core.context import FTContext
+    from repro_torch.models import transformer as tf
+    from repro_torch.solvers import RedundantSubspaceCG, SolverConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = {"card": card}
+    cfg = SolverConfig(n=96 if smoke else SOLVER_N)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def solve(on_iteration=None):
+        sync()
+        t0 = time.perf_counter()
+        s = RedundantSubspaceCG(cfg, device=device)
+        sync()
+        t1 = time.perf_counter()
+        rep = s.run(on_iteration=on_iteration)
+        sync()
+        t2 = time.perf_counter()
+        return s, rep, dict(setup_s=t1 - t0, solve_s=t2 - t1,
+                            ms_per_iter=1e3 * (t2 - t1) / rep.iterations,
+                            iterations=rep.iterations)
+
+    # (a) clean
+    s, rep, walls = solve()
+    if not rep.converged or rep.trips or rep.failovers or rep.reweights:
+        raise AssertionError(f"clean solve: {rep}")
+    x_true = torch.from_numpy(np.random.RandomState(cfg.seed).standard_normal(
+        cfg.n)).to(device)
+    err_x = float((s.x - x_true).abs().max())
+    err_ax = float((s.a @ s.x - s.b).abs().max())
+    if not (err_x <= SOLVER_TOL_X and err_ax <= SOLVER_TOL_X):
+        raise AssertionError(f"clean solve: max |x - x_true| {err_x:.3g}, "
+                             f"max |A x - b| {err_ax:.3g}")
+    held = s.nbytes()
+    log("solver", f"clean n={cfg.n}: converged in {rep.iterations} "
+                  f"iterations, 0 trips; setup {walls['setup_s']:.3f} s, "
+                  f"solve {walls['solve_s']:.3f} s "
+                  f"({walls['ms_per_iter']:.3f} ms an iteration, "
+                  f"synchronized); {held / 1e9:.3f} GB held on the device; "
+                  f"max |x - x_true| {err_x:.3g}, max |A x - b| "
+                  f"{err_ax:.3g} [{card}]")
+    out["clean"] = dict(walls, bytes_held=held, err_x=err_x, err_ax=err_ax,
+                        residual=rep.residual_norm)
+    x_clean = s.x.clone()
+    del s
+
+    # (b) drilled
+    fired = {}
+
+    def hook(sv):
+        if sv.iteration == 2:
+            sv.inject_correction_sdc(3, 0, index=1, delta=1e3)
+        if sv.iteration == 3:
+            idx = int(sv.x.abs().argmax())
+            bit = 62 if abs(float(sv.x[idx])) < 2.0 else 61
+            fired["flip"] = (idx, bit, sv.corrupt_iterate(idx, bit=bit))
+            fired["pod"] = sv.lose_pod(1)["killed"]
+
+    d, drep, dwalls = solve(hook)
+    kinds = [t.kind for t in drep.trips]
+    if not drep.converged or "replica_repair" not in kinds or \
+            "guard_restart" not in kinds or not drep.failovers:
+        raise AssertionError(f"drilled solve: {drep}")
+    diff = float((d.x - x_clean).abs().max())
+    if diff > SOLVER_TOL_X:
+        raise AssertionError(f"drilled solve: max |x - x_clean| {diff:.3g}")
+    extra = drep.iterations - rep.iterations
+    log("solver", f"drilled: SDC s3r0 at iteration 2, x[{fired['flip'][0]}] "
+                  f"bit {fired['flip'][1]} -> {fired['flip'][2]:.3e} and pod "
+                  f"1 lost ({len(fired['pod'])} workers) at iteration 3: "
+                  f"trips {kinds}, {len(drep.failovers)} failovers; "
+                  f"converged in {drep.iterations} iterations (+{extra}), "
+                  f"{dwalls['ms_per_iter']:.3f} ms an iteration; max |x - "
+                  f"x_clean| {diff:.3g} [{card}]")
+    out["drilled"] = dict(dwalls, trips=kinds, failovers=len(drep.failovers),
+                          extra_iterations=extra, max_diff=diff)
+    del d, x_clean
+    if device == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+
+    # (c) the FT context over the full-width params
+    mcfg = dataclasses.replace(
+        smoke_config("qwen2-0.5b") if smoke else get_config("qwen2-0.5b"),
+        dtype="float32")
+    params = tf.init_params(torch.Generator(device=device).manual_seed(0),
+                            mcfg)
+    leaves = tree_leaves(params)
+    if any(x.numel() % 4 for x in leaves):
+        raise AssertionError("a leaf's size is not a multiple of 4")
+    views = tree_map(lambda x: x.reshape(4, -1), params)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    out["context"] = {"param_bytes": nbytes, "leaves": len(leaves)}
+    for mode, f in CTX_MODES:
+        lost = CTX_LOST[f]
+        ctx = FTContext(4, f=f)
+        sync()
+        t0 = time.perf_counter()
+        ctx.register("params", views, mode=mode)
+        sync()
+        t1 = time.perf_counter()
+        ctx.fail(lost)
+        sync()
+        t2 = time.perf_counter()
+        ctx.recover(lost)
+        sync()
+        t3 = time.perf_counter()
+        worst = 0.0
+        for got, want in zip(tree_leaves(ctx.get("params")),
+                             tree_leaves(views)):
+            if mode == "floating_point":
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                worst = max(worst, err / scale if scale else err)
+            elif not torch.equal(got.view(torch.int32),
+                                 want.view(torch.int32)):
+                raise AssertionError(f"{mode} f={f}: not bit for bit")
+        if worst > CTX_RTOL:
+            raise AssertionError(f"{mode} f={f}: recovery error {worst:.3g} "
+                                 f"of max |leaf|")
+        key = f"{mode}_f{f}"
+        out["context"][key] = dict(register_s=t1 - t0, fail_s=t2 - t1,
+                                   recover_s=t3 - t2, rel_err=worst)
+        log("solver", f"FTContext(p=4, f={f}) {mode}: {len(leaves)} leaves, "
+                      f"{nbytes / 1e9:.3f} GB; register {t1 - t0:.3f} s, "
+                      f"recover shards {lost} {t3 - t2:.3f} s; "
+                      + ("bit for bit" if mode != "floating_point" else
+                         f"max error {worst:.3g} of max |leaf|")
+                      + f" [{card}]")
+        del ctx
+    record["solver"] = out
+    del params, views
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2598,6 +2860,7 @@ def main():
     ft_launches = phase_train_ft(torch, record, f"{name} ({smi})")
     traffic_launches, traffic_err = phase_traffic(torch, record,
                                                   f"{name} ({smi})")
+    phase_solver(torch, record, f"{name} ({smi})")
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each

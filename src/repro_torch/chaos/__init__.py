@@ -4,7 +4,8 @@ protection domains.
   * `chaos.faults`   — the `FaultSpec` taxonomy and the protection-surface
     registry (domains register themselves; unprotected surfaces are an
     honest ledger), plus the injectors (`FailurePlan`/`FailureInjector`,
-    `SDCPlan`) and the `flip_bit` fault model.
+    `SDCPlan`/`SDCInjector`) and the `flip_bit` / `scatter_delta`
+    injection primitives.
   * `chaos.campaign` — `CampaignRunner` sweeps a `FaultSpace` over the
     drills the port has brought up and classifies every event.
   * `chaos.report`   — the coverage-matrix artifact (JSON + markdown)
@@ -15,17 +16,17 @@ modules can register their surfaces at import time; the campaign module
 loads lazily to keep that edge acyclic.
 """
 from repro_torch.chaos.faults import (FailureInjector, FailurePlan,
-                                      FaultSpace, FaultSpec, SDCPlan,
-                                      Surface, ensure_registered,
+                                      FaultSpace, FaultSpec, SDCInjector,
+                                      SDCPlan, Surface, ensure_registered,
                                       flip_bit, get_surface,
-                                      register_surface, surfaces,
-                                      uncovered_surfaces)
+                                      register_surface, scatter_delta,
+                                      surfaces, uncovered_surfaces)
 
 __all__ = [
     "CampaignRunner", "CampaignResult", "FailureInjector", "FailurePlan",
-    "FaultSpace", "FaultSpec", "SDCPlan", "Surface",
+    "FaultSpace", "FaultSpec", "SDCInjector", "SDCPlan", "Surface",
     "ensure_registered", "flip_bit", "get_surface", "register_surface",
-    "surfaces", "uncovered_surfaces",
+    "scatter_delta", "surfaces", "uncovered_surfaces",
 ]
 
 _LAZY = {"CampaignRunner": "repro_torch.chaos.campaign",

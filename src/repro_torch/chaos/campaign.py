@@ -30,17 +30,22 @@ campaign runs on one device, from the same ``np.random.RandomState`` draws:
     replaying a small open-loop trace (`serve.traffic`) with SDC in the
     same reduction, page flips repaired by the page-granular scrub and
     params flips;
-  * multi-fault episodes of both, and the clean sweeps of every golden;
+  * the solver workload: a `solvers.RedundantSubspaceCG` solve (float64
+    on the runner's device) with an SDC in one replica's correction, a
+    bit flip in the resident iterate, and worker and pod losses on its
+    simulated pods, every repair continue-through;
+  * multi-fault episodes of the train, serve and solver workloads, and the
+    clean sweeps of every golden;
   * the kernel and layer drills: carried-state and carried-data flips on
     ``ops.abft_matmul_acc`` at 256³ (kernel #2 on a CUDA tensor), flash
     state flips on ``flash_attention_checked`` at ``[2, 512, 64]`` (kernel
     #4), and the rmsnorm and embedding-gather invariants of
     ``models/layers.py``.
 
-Pod-loss and slow-pod faults need a pod mesh and the pod paths of port
-slice 13; the solver workload comes with port slice 10.  Their rows are
-``skipped`` and name the slice.  Traffic episodes are ``skipped`` as in
-the reference (it has no traffic episode adapter).
+Pod-loss and slow-pod faults of the train workload need a pod mesh and
+the pod paths of port slice 13: their rows are ``skipped`` and name the
+slice.  Traffic episodes are ``skipped`` as in the reference (it has no
+traffic episode adapter).
 """
 from __future__ import annotations
 
@@ -62,12 +67,18 @@ from repro_torch.tree import (keystr, stacked_leaves_with_path, tree_leaves,
                               tree_map, tree_replace)
 
 __all__ = ["TrainConfig", "ServeConfig", "TrafficConfig", "FaultResult",
-           "CampaignResult", "CampaignRunner", "classify", "episode_outcome"]
+           "CampaignResult", "CampaignRunner", "classify",
+           "episode_outcome", "SOLVER_TOL"]
 
-# the slices that bring the runtimes the skipped handlers need
+# the slice that brings the runtime the skipped handlers need
 _ELASTIC = ("port slice 13 (multi-process distribution and "
             "ElasticRuntime's pod paths)")
-_SOLVER = "port slice 10 (the subspace solver: RedundantSubspaceCG)"
+
+# end-state tolerance for the solver workload: both the drilled and the
+# golden solve converge to ||b - A x|| <= rtol*||b||, so their iterates
+# agree to ~rtol*||b||/lambda_min — 1e-4 leaves two orders of slack over
+# that bound for the float64 1D Poisson smoke system
+SOLVER_TOL = 1e-4
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +284,7 @@ class CampaignRunner:
         self._serve_golden: Dict[tuple, dict] = {}
         self._serve_eng = None        # the warmed drill-free engine, reused
         self._serve_scrub_eng = None  # ditto with the at-rest scrubber on
+        self._solver_golden: Optional[dict] = None
         self._traffic_golden: Optional[dict] = None
         self._traffic_eng = None      # the warmed drill-free paged engine
         self._tmp = tempfile.TemporaryDirectory(prefix="chaos-ckpt-")
@@ -344,6 +356,7 @@ class CampaignRunner:
             "train": dataclasses.asdict(self.train),
             "serve": dataclasses.asdict(self.serve),
             "traffic": dataclasses.asdict(self.traffic),
+            "solver": dataclasses.asdict(self._solver_cfg("anti")),
             "n_episodes": sum(1 for ep in self.space.episodes
                               if ep.workload in workloads),
             "wall_s": time.time() - t0,
@@ -399,22 +412,6 @@ class CampaignRunner:
             rung=rung, recovery_latency_s=latency, end_state=end_state,
             max_abs_diff=max_abs_diff, wall_s=0.0, spec=spec.asdict(),
             note=note, recovery_warm_s=warm_s, recovery_compile_s=compile_s)
-
-    # -- workloads the port has not brought up --------------------------------
-
-    def _run_solver(self, spec: FaultSpec) -> FaultResult:
-        raise _Skip(f"the solver drills need {_SOLVER}")
-
-    def _skipped_episode(self, ep: Episode, why: str) -> FaultResult:
-        return FaultResult(
-            name=f"episode:{ep.name}", workload=ep.workload, kind="episode",
-            surface=f"episode/{ep.workload}", protected=True,
-            promise="bit_identity" if ep.workload == "serve"
-            else "tolerance",
-            outcome="skipped", detected=False, corrected=False, rung=None,
-            recovery_latency_s=None, end_state="not_compared",
-            max_abs_diff=None, wall_s=0.0, spec=ep.asdict(), note=why,
-            episode=ep.name)
 
     # -- kernel surface (train protection stack) ------------------------------
 
@@ -1248,6 +1245,181 @@ class CampaignRunner:
                      f"{'bit-identical' if end_state == 'bit_identical' else 'diverged'}")
         raise ValueError(f"unhandled traffic kind {spec.kind!r}")
 
+    # -- solver workload (second protected algorithm family) ------------------
+
+    def _solver_cfg(self, placement: str):
+        from repro_torch.solvers import SolverConfig
+        return SolverConfig(placement=placement)
+
+    def _make_solver(self, placement: str):
+        from repro_torch.solvers import RedundantSubspaceCG
+        return RedundantSubspaceCG(self._solver_cfg(placement),
+                                   device=self.device)
+
+    def _golden_solver(self) -> dict:
+        """Clean redundant-subspace CG solve, cached.  Replicas are exact
+        copies, so clean numerics are placement-independent: one golden
+        serves both the anti and paired drills, and it doubles as the
+        solver clean sweep (any guard/replica trip on it is a false
+        alarm)."""
+        if self._solver_golden is None:
+            self._log("golden solver (redundant-subspace CG)")
+            t0 = time.perf_counter()
+            s = self._make_solver("anti")
+            rep = s.run()
+            wall = time.perf_counter() - t0
+            self._solver_golden = {
+                "x": s.x.clone(), "iterations": rep.iterations,
+                "residual": rep.residual_norm, "trips": len(rep.trips),
+                "converged": rep.converged, "wall_s": wall,
+                "s_per_iter": wall / max(rep.iterations, 1)}
+        return self._solver_golden
+
+    @staticmethod
+    def _solver_alive_target(solver, spec: FaultSpec):
+        """(subspace, replica, retargeted) of an alive worker, preferring
+        the spec's aimed subspace — a fault cannot land on dead hardware,
+        so an aim at a dead worker is re-aimed (and noted), never
+        silently dropped."""
+        want = spec.shard % solver.cfg.n_subspaces
+        order = sorted(solver.alive_subspaces(),
+                       key=lambda i: (i != want, i))
+        if not order:
+            raise _Skip("no alive solver worker to target")
+        sub = order[0]
+        w = solver.alive_workers(sub)[0]
+        return sub, w.replica, sub != want
+
+    @staticmethod
+    def _solver_survivable_pod(solver, want: int):
+        """A pod whose loss keeps every unknown covered, preferring the
+        aimed pod.  Mirrors a redundancy-aware scheduler: a correlated
+        loss that would void the cover entirely is re-aimed, because a
+        platform running this solver would never co-locate the last two
+        covers of an index once a pod is already down."""
+        pods = sorted({w.pod for w in solver.workers if w.alive},
+                      key=lambda p: (p != want % solver.cfg.pods, p))
+        for pod in pods:
+            cover = torch.zeros(solver.cfg.n, dtype=torch.float64,
+                                device=solver.device)
+            for w in solver.workers:
+                if w.alive and w.pod != pod:
+                    cover[solver.blocks[w.subspace]] += 1.0
+            if bool((cover > 0).all()):
+                return pod, pod != want % solver.cfg.pods
+        return None, False
+
+    def _deliver_solver_event(self, solver, spec: FaultSpec) -> dict:
+        """Inject one spec into the live solver at the CURRENT iteration.
+        Returns {"desc", "retargeted", "pod", "sub"} — "pod" is the pod
+        actually lost (pod_loss only, drives the revive schedule), "sub"
+        the targeted subspace (sdc only, for trip attribution)."""
+        kind = spec.kind
+        if kind == "sdc_collective":
+            sub, rep, moved = self._solver_alive_target(solver, spec)
+            solver.inject_correction_sdc(sub, rep, index=1, delta=spec.delta)
+            return {"desc": f"sdc into s{sub}r{rep} correction",
+                    "retargeted": moved, "pod": None, "sub": sub}
+        if kind == "dram_params":
+            idx = int(solver.x.abs().argmax())
+            # exponent-field flip of the largest |x_j|, chosen to be
+            # catastrophic at ANY iteration: for |x| < 2 the top exponent
+            # bit (62) is clear, setting it scales by ~2^1024 (inf); for
+            # |x| >= 2 bit 62 is SET (flipping it would shrink), so take
+            # exponent bit 9 (61) instead — clear for every |x| < 2^513,
+            # setting it scales by 2^512
+            bit = 62 if abs(float(solver.x[idx])) < 2.0 else 61
+            val = solver.corrupt_iterate(idx, bit=bit)
+            return {"desc": f"x[{idx}] bit {bit} flip -> {val:.3e}",
+                    "retargeted": False, "pod": None, "sub": None}
+        if kind == "shard_loss":
+            sub, rep, moved = self._solver_alive_target(solver, spec)
+            solver.lose_worker(sub, rep, mid_iteration=True)
+            return {"desc": f"worker s{sub}r{rep} lost mid-iteration",
+                    "retargeted": moved, "pod": None, "sub": sub}
+        if kind == "pod_loss":
+            pod, moved = self._solver_survivable_pod(solver, spec.pod)
+            if pod is None:
+                raise _Skip("no survivable pod to lose (every loss would "
+                            "void the cover)")
+            info = solver.lose_pod(pod)
+            return {"desc": f"pod {pod} lost ({len(info['killed'])} "
+                            f"worker(s), dead subspaces "
+                            f"{info['dead_subspaces']})",
+                    "retargeted": moved, "pod": pod, "sub": None,
+                    "info": info}
+        raise _Skip(f"solver workload has no adapter for kind {kind!r}")
+
+    @staticmethod
+    def _solver_end(solver, golden) -> Tuple[str, float]:
+        """(end_state, max |x - golden x|) of a drilled solve."""
+        diff = float((solver.x - golden["x"]).abs().max())
+        return ("bit_identical" if diff == 0.0 else
+                "within_tol" if diff <= SOLVER_TOL else "diverged"), diff
+
+    def _run_solver(self, spec: FaultSpec) -> FaultResult:
+        """One fault into a live redundant-subspace CG solve.  All repair
+        is continue-through (failover / re-weight / replica repair /
+        guard restart) — the solve must converge WITHOUT rollback and
+        land within SOLVER_TOL of the clean golden iterate."""
+        golden = self._golden_solver()
+        fire_at = max(spec.step, 2) if spec.kind == "dram_params" \
+            else spec.step
+        if fire_at >= golden["iterations"]:
+            raise _Skip(f"fire iteration {fire_at} >= clean convergence "
+                        f"at {golden['iterations']}: fault would never "
+                        f"inject")
+        placement = "paired" if spec.variant == "paired" else "anti"
+        s = self._make_solver(placement)
+        delivered: dict = {}
+        revive_at: Dict[int, List[int]] = {}
+
+        def hook(sv):
+            it = sv.iteration
+            for pod in revive_at.pop(it, []):
+                sv.revive_pod(pod)
+            if it == fire_at and "info" not in delivered:
+                delivered["info"] = self._deliver_solver_event(sv, spec)
+                pod = delivered["info"]["pod"]
+                if pod is not None:
+                    revive_at.setdefault(it + 3, []).append(pod)
+
+        rep = s.run(on_iteration=hook)
+        if "info" not in delivered:
+            raise _Skip(f"event at iteration {fire_at} never fired "
+                        f"(converged at {rep.iterations})")
+        info = delivered["info"]
+        if spec.kind == "sdc_collective":
+            hits = [t for t in rep.trips
+                    if t.kind in ("replica_repair", "local_recompute")]
+            detected = bool(hits)
+            rung = f"solver:{hits[0].kind}" if hits else None
+        elif spec.kind == "dram_params":
+            hits = [t for t in rep.trips if t.kind == "guard_restart"]
+            detected = bool(hits)
+            rung = "solver:guard_restart" if hits else None
+        elif spec.kind == "pod_loss":
+            detected = True     # platform-signaled
+            rungs = info["info"]["rungs"]
+            rung = ("solver:reweight" if "solver:reweight" in rungs
+                    else "solver:failover")
+        else:   # shard_loss, platform-signaled mid-iteration
+            detected = True
+            rung = ("solver:reweight" if rep.reweights
+                    else "solver:failover")
+        corrected = detected and rep.converged
+        end_state, diff = self._solver_end(s, golden)
+        extra = max(rep.iterations - golden["iterations"], 0)
+        latency = extra * golden["s_per_iter"] if detected else None
+        return self._result(
+            spec, detected=detected, corrected=corrected, rung=rung,
+            latency=latency, end_state=end_state, max_abs_diff=diff,
+            note=f"{info['desc']}"
+                 + ("; retargeted" if info["retargeted"] else "")
+                 + f"; converged through in {rep.iterations} it "
+                   f"(clean {golden['iterations']}, +{extra}), "
+                   f"{len(rep.trips)} trip(s), no rollback")
+
     # -- multi-fault episodes -------------------------------------------------
 
     def _run_episode(self, ep: Episode) -> List[FaultResult]:
@@ -1261,7 +1433,18 @@ class CampaignRunner:
         if ep.workload == "traffic":
             raise _Skip("no traffic episode adapter (single faults only; "
                         "the SLO story is bench_traffic's)")
-        raise _Skip(f"solver episodes need {_SOLVER}")
+        return self._episode_solver(ep)
+
+    def _skipped_episode(self, ep: Episode, why: str) -> FaultResult:
+        return FaultResult(
+            name=f"episode:{ep.name}", workload=ep.workload, kind="episode",
+            surface=f"episode/{ep.workload}", protected=True,
+            promise="bit_identity" if ep.workload == "serve"
+            else "tolerance",
+            outcome="skipped", detected=False, corrected=False, rung=None,
+            recovery_latency_s=None, end_state="not_compared",
+            max_abs_diff=None, wall_s=0.0, spec=ep.asdict(), note=why,
+            episode=ep.name)
 
     @staticmethod
     def _fresh_events(specs) -> List[dict]:
@@ -1311,6 +1494,119 @@ class CampaignRunner:
             recovery_latency_s=sum(lats) if lats else None,
             end_state=end_state, max_abs_diff=diff, wall_s=0.0,
             spec=ep.asdict(), note=note, episode=ep.name)
+
+    def _episode_solver(self, ep: Episode) -> List[FaultResult]:
+        """All events into one live CG solve: pod losses are delivered
+        synchronously (platform signal), SDC/DRAM/worker-loss events are
+        attributed by diffing the solver's trip/failover logs around the
+        iteration they land in.  Lost pods revive three iterations later
+        (the re-grow path), which is what makes correlated repeat-pod
+        episodes meaningful."""
+        golden = self._golden_solver()
+        specs = ep.resolved()
+        placement = ("paired" if any(sp.variant == "paired" for sp in specs)
+                     else "anti")
+        s = self._make_solver(placement)
+        sched: Dict[int, List[int]] = {}
+        for j, sp in enumerate(specs):
+            at = max(sp.step, 2) if sp.kind == "dram_params" else sp.step
+            sched.setdefault(at, []).append(j)
+        revive_at: Dict[int, List[int]] = {}
+        ev = self._fresh_events(specs)
+        t0 = time.perf_counter()
+        while not s.converged and s.iteration < s.cfg.max_iters:
+            it = s.iteration
+            for pod in revive_at.pop(it, []):
+                s.revive_pod(pod)
+            todo = sched.pop(it, [])
+            # pod losses first: they log their rungs synchronously, so
+            # the failover/reweight diff below stays attributable to the
+            # queued (mid-iteration) events
+            for j in todo:
+                sp = specs[j]
+                if sp.kind != "pod_loss":
+                    continue
+                try:
+                    info = self._deliver_solver_event(s, sp)
+                except _Skip as sk:
+                    ev[j]["note"] = str(sk)
+                    continue
+                rungs = info["info"]["rungs"]
+                ev[j].update(
+                    fired=True, detected=True, corrected=True,
+                    rung=("solver:reweight" if "solver:reweight" in rungs
+                          else "solver:failover"),
+                    note=info["desc"] + (" (retargeted)"
+                                         if info["retargeted"] else ""))
+                revive_at.setdefault(it + 3, []).append(info["pod"])
+            pend = []
+            trips0 = len(s.trips)
+            rw0 = len(s.reweights)
+            for j in todo:
+                sp = specs[j]
+                if sp.kind == "pod_loss":
+                    continue
+                try:
+                    info = self._deliver_solver_event(s, sp)
+                except _Skip as sk:
+                    ev[j]["note"] = str(sk)
+                    continue
+                ev[j]["fired"] = True
+                ev[j]["note"] = info["desc"] + (
+                    " (retargeted)" if info["retargeted"] else "")
+                ev[j]["sub"] = info["sub"]
+                pend.append(j)
+            s.iterate()
+            if pend:
+                new_trips = s.trips[trips0:]
+                for j in pend:
+                    sp = specs[j]
+                    if sp.kind == "sdc_collective":
+                        hits = [t for t in new_trips
+                                if t.kind in ("replica_repair",
+                                              "local_recompute")
+                                and f"subspace {ev[j]['sub']}" in t.detail]
+                        if hits:
+                            ev[j].update(detected=True, corrected=True,
+                                         rung=f"solver:{hits[0].kind}")
+                    elif sp.kind == "dram_params":
+                        hits = [t for t in new_trips
+                                if t.kind == "guard_restart"]
+                        if hits:
+                            ev[j].update(detected=True, corrected=True,
+                                         rung="solver:guard_restart")
+                    elif sp.kind == "shard_loss":
+                        # platform-signaled; the kill was queued into the
+                        # iterate we just ran
+                        ev[j].update(
+                            detected=True, corrected=True,
+                            rung=("solver:reweight"
+                                  if len(s.reweights) > rw0
+                                  else "solver:failover"))
+        wall = time.perf_counter() - t0
+        rep = s.report()
+        end_state, diff = self._solver_end(s, golden)
+        # an event that never fired stays fired=False -> its row says
+        # "skipped" (visible, not silently dropped)
+        for j in (j for js in sched.values() for j in js):
+            if not ev[j]["note"]:
+                ev[j]["note"] = (f"never fired: solve converged at "
+                                 f"iteration {rep.iterations}")
+        extra = max(rep.iterations - golden["iterations"], 0)
+        rows = [self._episode_event_row(
+            ep, sp, j, fired=e["fired"], detected=e["detected"],
+            corrected=e["corrected"], absorbed=e["absorbed"],
+            rung=e["rung"], latency=e["latency"], note=e["note"])
+            for j, (sp, e) in enumerate(zip(specs, ev))]
+        ep_row = self._episode_row(
+            ep, rows, end_state=end_state, diff=diff,
+            note=f"placement {placement}; converged={rep.converged} in "
+                 f"{rep.iterations} it (clean {golden['iterations']}, "
+                 f"+{extra}), {len(rep.trips)} trip(s), rungs "
+                 f"{sorted(set(rep.rungs))}, no rollback")
+        ep_row.recovery_latency_s = extra * golden["s_per_iter"]
+        ep_row.wall_s = wall
+        return rows + [ep_row]
 
     def _episode_train(self, ep: Episode) -> List[FaultResult]:
         """All events through ONE live ElasticRuntime loop.  Per-step
@@ -1536,14 +1832,15 @@ class CampaignRunner:
     # -- clean sweeps ---------------------------------------------------------
 
     def _clean_rows(self, workloads) -> List[FaultResult]:
-        """Every golden run as a clean-sweep row; the solver workload, whose
-        golden is not ported, as a ``skipped`` row naming its slice."""
+        """Every golden run as a clean-sweep row."""
         rows = []
         if "train" in workloads and not self._train_golden:
             # no train spec ran: still sweep the base protected config
             self._golden_train((1, 1), ("data", "model"), "protected")
         if "serve" in workloads and not self._serve_golden:
             self._golden_serve()
+        if "solver" in workloads and self._solver_golden is None:
+            self._golden_solver()
         if "traffic" in workloads and self._traffic_golden is None:
             self._golden_traffic()
         for (shape, tag, steps), g in sorted(self._train_golden.items()):
@@ -1619,17 +1916,24 @@ class CampaignRunner:
                      f"{r['scrub_checks']} page scrubs, "
                      f"{r['prefix_hits']} prefix hits, "
                      f"p99 TTFT {r['p99_ttft_ms']:.1f} ms)"))
-        if "solver" in workloads:
+        if self._solver_golden is not None:
+            g = self._solver_golden
+            detected = g["trips"] > 0
             rows.append(FaultResult(
                 name="solver:clean_sweep", workload="solver",
                 kind="clean_sweep",
                 surface="solvers.subspace_cg/correction_sum",
-                protected=True, promise="none", outcome="skipped",
-                detected=False, corrected=False, rung=None,
-                recovery_latency_s=None, end_state="not_compared",
-                max_abs_diff=None, wall_s=0.0,
-                note=f"the solver golden run is not ported: comes with "
-                     f"{_SOLVER}"))
+                protected=True, promise="none",
+                outcome=classify(injected=False, detected=detected,
+                                 corrected=False,
+                                 end_state="bit_identical",
+                                 promise="none"),
+                detected=detected, corrected=False, rung=None,
+                recovery_latency_s=None, end_state="bit_identical",
+                max_abs_diff=0.0, wall_s=g["wall_s"],
+                note=f"{g['trips']} trip(s) over {g['iterations']} clean "
+                     f"CG iterations (monotonicity guard + per-subspace "
+                     f"local residual checks armed throughout)"))
         return rows
 
 class _Skip(Exception):

@@ -150,7 +150,7 @@ def ensure_registered() -> Dict[str, Surface]:
                 "repro_torch.serve.engine", "repro_torch.serve.paged_kv",
                 "repro_torch.models.layers",
                 "repro_torch.ckpt.diskless", "repro_torch.dist.collectives",
-                "repro_torch.ft.runtime"):
+                "repro_torch.ft.runtime", "repro_torch.solvers.subspace_cg"):
         importlib.import_module(mod)
     return dict(_REGISTRY)
 
@@ -170,23 +170,15 @@ register_surface(
     note="optimizer moments between steps; ft.runtime registers the "
          "at-rest scrub that protects them")
 
-# protection domains whose owning modules the port has not brought up yet.
-# A fault spec aimed at one of them is reported as a ``skipped`` campaign
-# row, and the row needs the surface; the owning module registers it
-# protected when its slice lands (a protected registration wins).
-for _name, _kinds, _slice in (
-        ("ft.runtime/topology", ("pod_loss", "slow_pod"),
-         "port slice 13 (multi-process distribution and ElasticRuntime's "
-         "pod paths)"),
-        ("solvers.subspace_cg/correction_sum", ("sdc_collective",),
-         "port slice 10 (the subspace solver)"),
-        ("solvers.subspace_cg/iterate_at_rest", ("dram_params",),
-         "port slice 10 (the subspace solver)"),
-        ("solvers.subspace_cg/subspaces", ("shard_loss", "pod_loss"),
-         "port slice 10 (the subspace solver)")):
-    register_surface(_name, owner="repro_torch.chaos.faults",
-                     protected=False, kinds=_kinds,
-                     note=f"not ported yet: comes with {_slice}")
+# a protection domain whose owning module the port has not brought up yet.
+# A fault spec aimed at it is reported as a ``skipped`` campaign row, and
+# the row needs the surface; the owning module registers it protected when
+# its slice lands (a protected registration wins).
+register_surface(
+    "ft.runtime/topology", owner="repro_torch.chaos.faults",
+    protected=False, kinds=("pod_loss", "slow_pod"),
+    note="not ported yet: comes with port slice 13 (multi-process "
+         "distribution and ElasticRuntime's pod paths)")
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,10 @@
 recovery runtimes (in-step ABFT, diskless checksum solve first, disk
 restore as fallback, the at-rest scrub)."""
 from repro_torch.ft.failures import (FailureInjector, FailurePlan,
-                                     SDCInjector, SDCPlan)
+                                     SDCInjector, SDCPlan, flip_bit)
 from repro_torch.ft.runtime import (ElasticRuntime, FTPolicy, FTRuntime,
                                     ScrubReport, stack_view, unstack_view)
 
 __all__ = ["FailurePlan", "FailureInjector", "SDCPlan", "SDCInjector",
-           "FTPolicy", "FTRuntime", "ElasticRuntime", "ScrubReport",
-           "stack_view", "unstack_view"]
+           "flip_bit", "FTPolicy", "FTRuntime", "ElasticRuntime",
+           "ScrubReport", "stack_view", "unstack_view"]

@@ -3,16 +3,15 @@ matrix.
 
 The campaign runs every spec and every multi-fault episode of the chosen
 space against live workloads (an `ElasticRuntime` train loop, a drilled
-`ServeEngine` and, for ``--workload traffic``, a `PagedServeEngine`
-replaying an open-loop trace, on one device, and the kernel and layer
-drills), classifies
-each event as detected / corrected / absorbed / missed / false-alarm, and
-writes the machine-readable artifact (``--json``) plus a rendered markdown
-matrix on stdout.  It runs on the GPU unless ``--device cpu`` is given;
-with no GPU it raises rather than falling back.  Specs and episodes that
-need more than one device (pod faults) or a runtime the port has not
-brought up yet (the solver) are reported as ``skipped`` rows naming the
-slice they wait for.
+`ServeEngine`, a redundant-subspace CG solve and, for ``--workload
+traffic``, a `PagedServeEngine` replaying an open-loop trace, on one
+device, and the kernel and layer drills), classifies each event as
+detected / corrected / absorbed / missed / false-alarm, and writes the
+machine-readable artifact (``--json``) plus a rendered markdown matrix on
+stdout.  It runs on the GPU unless ``--device cpu`` is given; with no GPU
+it raises rather than falling back.  Train specs and episodes that need
+more than one device (pod faults) are reported as ``skipped`` rows naming
+the slice they wait for.
 
 Usage:
 
@@ -20,6 +19,8 @@ Usage:
       --workload both --json chaos.json
   PYTHONPATH=src python -m repro_torch.launch.chaos --device cpu \\
       --space smoke --workload train
+  PYTHONPATH=src python -m repro_torch.launch.chaos --device cpu \\
+      --space default --workload solver
   PYTHONPATH=src python -m repro_torch.launch.chaos --device cpu \\
       --space traffic-smoke --workload traffic
 

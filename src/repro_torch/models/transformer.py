@@ -15,7 +15,10 @@ ABFT protection threads through every projection via `abft`
 activation checkpoint (``torch.utils.checkpoint``, non-reentrant), the
 counterpart of the reference's ``jax.checkpoint`` of its layer scan body
 with nothing saved: the block's forward, its protected projections
-included, runs again in the backward.
+included, runs again in the backward.  ``remat="dots"`` saves the outputs
+of the unbatched matmuls (``aten.mm`` / ``aten.addmm``) and recomputes the
+rest, as the reference's ``dots_with_no_batch_dims_saveable`` policy does;
+what is recomputed changes, the result does not.
 """
 from __future__ import annotations
 
@@ -164,13 +167,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return {"groups": groups}
 
 
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saved(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint_kw(remat) -> dict:
+    """``torch.utils.checkpoint`` arguments for a remat policy: True (save
+    nothing) or "dots" (save the unbatched matmuls' outputs)."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        import functools
+        from torch.utils.checkpoint import \
+            create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saved)
+    return kw
+
+
 def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
-                invariants: bool = False, remat: bool = False):
+                invariants: bool = False, remat=False):
     """Loop over every layout group; returns (x, new_cache, aux, inv_ok).
 
     K/V are written in place into the stacked cache; the per-layer cache
     indices are gathered into a fresh ``index`` leaf per pattern slot.
-    ``remat`` (training, no cache) checkpoints each block.
+    ``remat`` (training, no cache) checkpoints each block: True saves
+    nothing, "dots" the unbatched matmuls' outputs.
     """
     new_groups = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -192,8 +218,7 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
                         return out[0], out[2], out[3]
                     # the blocks draw no random numbers: no RNG state to keep
                     x, aux, ok_b = torch.utils.checkpoint.checkpoint(
-                        body, x, layer[key], use_reentrant=False,
-                        preserve_rng_state=False)
+                        body, x, layer[key], **_checkpoint_kw(remat))
                     c_out = None
                 else:
                     x, c_out, aux, ok_b = _block_apply(
@@ -213,14 +238,15 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
 
 def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
             abft=None, return_hidden: bool = False, invariants: bool = False,
-            remat: bool = False):
+            remat=False):
     """Train/prefill forward. tokens: [B,S] -> logits [B,S,V] fp32.
 
     return_hidden: skip the unembedding and return the post-final-norm
     hidden state [B,S,D] instead of logits.
     invariants: run the embedding-gather and rmsnorm construction checks
     and return a 4-tuple (..., inv_ok).
-    remat: checkpoint each block (training without a cache).
+    remat: checkpoint each block (training without a cache); True saves
+    nothing, "dots" the unbatched matmuls' outputs.
     The tied unembedding reads ``params["embed"]["table_f32"]`` when
     present (an fp32 copy the serving engine caches once) instead of
     casting the table on every call; the numbers are the same.
@@ -277,7 +303,7 @@ def decode_step(params, token, pos, cache, cfg: ModelConfig, *, abft=None,
 
 
 def loss_fn(params, tokens, labels, cfg: ModelConfig, *, abft=None,
-            remat: bool = False, aux_weight: float = 0.01,
+            remat=False, aux_weight: float = 0.01,
             invariants: bool = False):
     """Scalar LM loss (mean next-token NLL + ``aux_weight`` x aux); with
     ``invariants=True`` returns ``(loss, inv_ok)``."""

@@ -17,8 +17,16 @@ reference's leaf layout (each layout group's layers stacked into one
 leaf), with ``sdc_inject`` corrupting it mid-reduction; the result is
 ``metrics["abft_ok"]``.
 
+``zero1`` (on by default, as in the reference) shards the optimizer state
+over the DP axes; at DP extent 1, the only extent the port's step runs at
+(``ElasticRuntime`` raises on a larger mesh, naming port slice 13), that
+layout is the unsharded one, so it changes nothing, as the reference's
+``dist/sharding.py::zero1_spec`` makes it there.  ``remat_policy`` selects
+what the block checkpoints recompute (``"nothing"`` saved, or the
+``"dots"``), never the result.
+
 Counterpart of the reference package's ``repro/train/step.py``.  Gradient
-compression, ZeRO and FSDP raise ``NotImplementedError`` naming port
+compression, ZeRO-2 and FSDP raise ``NotImplementedError`` naming port
 slice 13, the construction invariants naming port slice 12; its prefill and
 serve steps have no counterpart, since the serving engine calls the model
 directly.
@@ -49,6 +57,9 @@ _DIST = "port slice 13 (multi-process distribution) of ROADMAP.md"
 class StepOptions:
     microbatches: int = 1
     remat: bool = True
+    # ZeRO-1: the optimizer state sharded over DP, the identity at DP
+    # extent 1 (the only extent the port's step runs at)
+    zero1: bool = True
     abft_mode: str = "off"         # off | checksum | verify | correct
     abft_f: int = 2
     # matmul-ABFT backend: "cuda" routes the protected projections through
@@ -69,12 +80,20 @@ class StepOptions:
     # drill hook: (dp_shard, delta), or a tuple of such pairs (event j
     # lands in the j-th protected reduction), corrupts the reduction
     sdc_inject: Optional[Tuple] = None
+    # remat policy for the block checkpoints: "nothing" saves nothing (min
+    # memory, max recompute), "dots" saves the unbatched matmuls' outputs
+    remat_policy: str = "nothing"
     # not ported yet: each raises NotImplementedError in build_train_step
     grad_compression: str = "none"
-    zero1: bool = False
     zero2: bool = False
     fsdp: bool = False
     invariant_checks: bool = False
+
+    @property
+    def remat_arg(self):
+        if not self.remat:
+            return False
+        return "dots" if self.remat_policy == "dots" else True
 
     @property
     def abft(self) -> Optional[ABFTConfig]:
@@ -103,9 +122,10 @@ def _check_options(opts: StepOptions) -> None:
                          "the invariant flags")
     if opts.abft_reduce not in ("off", "verify", "correct"):
         raise ValueError(f"unknown abft_reduce {opts.abft_reduce!r}")
+    if opts.remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {opts.remat_policy!r}")
     later = {
         "grad_compression": (opts.grad_compression != "none", _DIST),
-        "zero1": (opts.zero1, _DIST),
         "zero2": (opts.zero2, _DIST),
         "fsdp": (opts.fsdp, _DIST),
         "invariant_checks": (opts.invariant_checks,
@@ -148,7 +168,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         loss = tf.loss_fn(tree_unflatten(params, live), tokens, labels, cfg,
-                          abft=abft, remat=opts.remat,
+                          abft=abft, remat=opts.remat_arg,
                           aux_weight=opts.aux_weight)
         grads = torch.autograd.grad(loss, live)
         return loss.detach(), tree_unflatten(params, list(grads))

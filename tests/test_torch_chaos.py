@@ -344,32 +344,51 @@ STILL_SKIPPED = ("serve:sdc_collective:s3:sh1:d-30000:seed1",
 STILL_SKIPPED_EPISODES = ("train:dram+podloss", "train:pod_repeat")
 
 
+def _workload_rows(results, workload):
+    return [(r.name, r.outcome, r.rung, r.end_state) for r in results
+            if r.workload == workload]
+
+
 def test_skipped_handlers_name_their_slice():
+    """The solver workload runs row for row as the reference's one-device
+    campaign runs it; the traffic workload's golden is a clean sweep
+    (tests/test_torch_chaos_ft.py holds its rows to the reference); the
+    train and serve rows that still skip on one device name slice 13."""
     runner = campaign.CampaignRunner(faults.FaultSpace.default(),
                                      device="cpu")
     res = runner.run(("solver", "traffic"))
-    # the traffic workload runs (tests/test_torch_chaos_ft.py holds it to
-    # the reference): its golden is a clean sweep; the solver rows skip
-    solver = [r for r in res.results if r.workload == "solver"]
-    assert solver and all(
-        r.outcome == "skipped" and "slice" in r.note
-        and r.end_state == "not_compared" for r in solver)
+    ref_runner = jcampaign.CampaignRunner(jfaults.FaultSpace.default())
+    try:
+        ref = ref_runner.run(("solver",))
+    finally:
+        ref_runner._tmp.cleanup()
+    solver = _workload_rows(res.results, "solver")
+    assert len(solver) == 29 and \
+        solver == _workload_rows(ref.results, "solver")
+    assert [r.outcome for r in res.results if r.workload == "solver"
+            ].count("corrected") == 28
     assert [(r.name, r.outcome) for r in res.results
             if r.workload == "traffic"] == [
         ("traffic:clean_sweep:paged", "clean")]
     assert {r.name for r in res.results if r.kind == "clean_sweep"} == \
         {"solver:clean_sweep", "traffic:clean_sweep:paged"}
     assert sorted(r.name for r in res.results if r.spec and
-                  r.kind not in ("episode", "clean_sweep")) == sorted(
+                  r.kind not in ("episode", "clean_sweep")
+                  and not r.episode) == sorted(
         s.name for s in faults.FaultSpace.default().specs
         if s.workload in ("solver", "traffic"))
-    d = res.to_dict()
+    d, jd = res.to_dict(), ref.to_dict()
     assert d["summary"]["missed_anywhere"] == []
     assert d["summary"]["false_alarms"] == []
     assert d["episodes"]["not_corrected"] == []
-    assert len(d["episodes"]["skipped"]) == sum(
-        1 for ep in faults.FaultSpace.default().episodes
-        if ep.workload == "solver")
+    assert d["episodes"]["skipped"] == []
+    assert [(e["name"], e["outcome"]) for e in d["episodes"]["episodes"]] \
+        == [(e["name"], e["outcome"]) for e in jd["episodes"]["episodes"]]
+    assert d["episodes"]["sustained_rate_at_parity"] == \
+        jd["episodes"]["sustained_rate_at_parity"]
+    assert d["episodes"]["sustained_rate_at_parity"]["solver"][
+        "sustained_rate_per_1k"] == 400.0
+    assert res.meta["solver"] == ref.meta["solver"]
     assert res.meta["backend"] == "cpu" and res.meta["n_devices"] == 1
     specs = {s.name: s for s in faults.FaultSpace.default().specs}
     for name in STILL_SKIPPED:
@@ -427,8 +446,8 @@ def test_cli_smoke_on_cpu(tmp_path, capsys):
     # the replay path rebuilds the same space from the artifact
     space = cli.space_from_artifact(d)
     assert [s.name for s in space] == [s.name for s in smoke_train]
-    # the reference's gate, unchanged: the uncovered ledger (the solver,
-    # paged-serving and pod surfaces still unported) fails it
+    # the reference's gate, unchanged: the uncovered ledger (the pod
+    # surface, ft.runtime/topology, still unported) fails it
     assert d["uncovered_surfaces"]
     assert cli.main(["--device", "cpu", "--space", "smoke", "--workload",
                      "train", "--check", "--quiet"]) == 1

@@ -297,8 +297,8 @@ def test_traffic_rows_match_reference(monkeypatch):
 def test_traffic_cli_runs_every_row(tmp_path):
     """The chaos CLI over the traffic workload: the five specs and the
     sweep, none skipped, nothing missed, no false alarm, and
-    ``serve.paged_kv/pages`` protected (the ledger holds only the solver
-    and pod surfaces)."""
+    ``serve.paged_kv/pages`` protected (the ledger holds only the pod
+    surface)."""
     import json
     out = tmp_path / "traffic.json"
     assert cli.main(["--device", "cpu", "--space", "traffic-smoke",
@@ -312,5 +312,5 @@ def test_traffic_cli_runs_every_row(tmp_path):
     assert d["summary"]["by_outcome"].get("skipped", 0) == 0
     ledger = {s["surface"] for s in d["uncovered_surfaces"]}
     assert "serve.paged_kv/pages" not in ledger
-    assert all(n.startswith(("ft.runtime/", "solvers.")) for n in ledger)
+    assert all(n.startswith("ft.runtime/") for n in ledger)
     assert faults.get_surface("serve.paged_kv/pages").protected

@@ -510,8 +510,9 @@ def test_encode_runs_the_kernel_path_once_per_floating_leaf():
 
 def test_what_is_not_ported_raises():
     # the deferred, protected reduction and its SDC drill are ported
-    # (tests/test_torch_elastic.py); the options below are not
-    for field, value in [("grad_compression", "int8_ef"), ("zero1", True),
+    # (tests/test_torch_elastic.py), and ZeRO-1 is the identity at DP
+    # extent 1 (tests/test_torch_exports.py); the options below are not
+    for field, value in [("grad_compression", "int8_ef"),
                          ("zero2", True), ("fsdp", True),
                          ("invariant_checks", True)]:
         with pytest.raises(NotImplementedError, match="slice"):
