@@ -17,7 +17,10 @@ device, SLO scheduler, prefix cache, chunked prefill) clean and drilled,
 against the contiguous engine, with the traffic campaign and the
 telemetry recorder, and solve a 24576-unknown float64 Poisson system with
 the redundant-subspace CG solver, clean and drilled, and protect the
-full-width params with the FT context in its three encodings.
+full-width params with the FT context in its three encodings, and serve
+and run the LM's other families at their published widths: MoE, the
+Mamba/attention hybrid, xLSTM, Whisper's encoder-decoder and the vision
+config's cross attention.
 
     python3 chip_smoke.py
 
@@ -179,7 +182,29 @@ exits non-zero without printing a result):
                 (f = 1, 2) and xor (f = 1), shard 2 (shards 1 and 3 for
                 f = 2) lost and recovered, gf256 and xor bit for bit,
                 floating_point within 1e-5 of max |leaf|; register and
-                recover walls printed.
+                recover walls printed;
+ 16. families — ABFT verify on kernel #1 (launches counted per block kind,
+                counts zeroed at each engine's warm-up, no plain call):
+                (a) Qwen3-30B-A3B whole (48 layers, 128 experts top-8,
+                bf16, 61 GB) through repro_torch.launch.serve.run, 8
+                requests of 16-128 tokens, 16 new, 4 slots: each first
+                token the kernel path's argmax and within phase 5's
+                tolerance of the plain path's maximum (its fp32 path cast
+                one layer at a time), the decode step against the floor of
+                reading every expert; (b) Jamba-1.5-Large's period cut to
+                its first four blocks (mamba and attention, dense and MoE)
+                at d_model 8192 in bf16, prompts of 37, 77, 100 and 123
+                tokens, and (c) xLSTM-350M whole in fp32, 8 requests: one
+                request's tokens held to greedy decoding by the full
+                forward (a near tie within 2 x the kernel-plain noise
+                allowed); (d) Whisper-large-v3 whole in fp32 (a forward of
+                2 x 64 tokens over 1500 seeded frames, verify against off
+                within 2 x the TF32 noise; a prefill of 8 and 8 decode
+                steps over the cached cross K/V within 2e-3 x scale of the
+                forward) and Llama-3.2-Vision-11B whole in bf16 (a
+                forward over 1024 seeded image embeddings, verify against
+                off within 2 x the fp32 copy's noise); peak memory,
+                prefill and decode-step walls printed.
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -2828,6 +2853,532 @@ def phase_solver(torch, record, card, device="cuda", smoke=False):
     return out
 
 
+# Phase 16: the LM's other families.  Kernel #1 launches of one forward
+# pass: the protected projections of each block kind (the MoE experts and
+# router, mamba's x_proj, the xLSTM gates, the Whisper encoder and the
+# decode-time cross attention over cached K/V run unprotected, as in the
+# reference), plus the untied head.
+MIXER_PROJ = {"attn": 4, "attn_local": 4, "attn_bidir": 4, "cross": 4,
+              "dec": 8, "mamba": 2, "mlstm": 4, "slstm": 3}
+FFN_PROJ = {"dense": 3, "moe": 0, "none": 0}
+HBM_BPS = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+FAMILY_PROMPTS = (16, 129)  # prompt lengths drawn from [16, 128]
+
+
+def protected_per_pass(cfg, *, decode=False, stash=False):
+    """Kernel #1 launches of one forward pass of ``cfg``: ``decode`` for a
+    one-token step over a cache (a dec block's cross attention reads the
+    cached K/V, unprotected), ``stash`` for a prefill that also projects
+    the cross K/V into the cache."""
+    n = 0
+    for pattern, repeats in cfg.layout:
+        for mixer, ffn in pattern:
+            m = MIXER_PROJ[mixer]
+            if mixer == "dec":
+                m = 4 if decode else 8 + (2 if stash else 0)
+            n += repeats * (m + FFN_PROJ[ffn])
+    return n + (0 if cfg.tie_embeddings else 1)
+
+
+def _free(torch, device):
+    import gc
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _gb(torch, device, peak=True):
+    if device != "cuda":
+        return float("nan")
+    return (torch.cuda.max_memory_allocated() if peak
+            else torch.cuda.memory_allocated()) / 1e9
+
+
+def _counts(kmm, device):
+    """(kernel launches, plain-version calls); on the CPU the kernel's
+    plain version stands in for its launches."""
+    if device == "cuda":
+        return kmm.launches, kmm.plain_calls
+    return kmm.plain_calls, 0
+
+
+def _teacher_forced(torch, tf, engine, req, abft):
+    """Full-forward logits over the prompt and the request's tokens but the
+    last, at the positions that chose each token: [gen, V]."""
+    seq = list(req.prompt) + list(req.output[:-1])
+    tok = torch.tensor([seq], device=engine.device)
+    with torch.no_grad():
+        logits = tf.forward(engine.params, tok, engine.cfg, abft=abft)[0][0]
+    return logits[len(req.prompt) - 1:].float()
+
+
+def _greedy_check(torch, tf, engine, req, plain_abft):
+    """The request's tokens against greedy decoding by the full forward, on
+    the served (kernel) path: the full forward over the prompt and the
+    emitted tokens must choose each emitted token (then free-running greedy
+    decoding gives the same tokens).  A token that is not the argmax passes
+    only as a near tie: within 2 x noise of the max, noise = max |kernel -
+    plain| of the same logits (the plain path recomputes them).  This
+    checks the engine against the forward; kernel #1 itself is held to its
+    plain version on the run's operands (`_serve_family`)."""
+    lk = _teacher_forced(torch, tf, engine, req, engine.abft)
+    lp = _teacher_forced(torch, tf, engine, req, plain_abft)
+    noise = float((lk - lp).abs().max())
+    out = torch.tensor(req.output, device=lk.device)
+    chosen = lk.gather(1, out[:, None])[:, 0]
+    short = (lk.max(dim=1).values - chosen).tolist()
+    exact = [i for i, d in enumerate(short) if d == 0.0]
+    row = dict(rid=req.rid, plen=len(req.prompt), gen=len(req.output),
+               exact=len(exact), noise=noise, worst_short=max(short),
+               tokens=list(req.output))
+    if len(exact) < len(short) and max(short) > 2 * noise:
+        raise AssertionError(f"request {req.rid}: tokens leave greedy "
+                             f"full-forward decoding: {row}")
+    return row
+
+
+def _serve_family(torch, record, key, arch, *, device, smoke, lens, gen,
+                  slots, kernel_dtype, layers=None, dtype=None, check=None):
+    """Serve one family through repro_torch.launch.serve.run with ABFT
+    verify; kernel #1's launches and plain calls counted from the warm-up
+    on; prefill and decode-step walls (the engine synchronizes both); then
+    kernel #1 held against its plain version on the operands of its first
+    call at each shape and tile of the run (`hold_oneshot`, outside the
+    counted run)."""
+    from repro_torch.core.abft_gemm import ABFTConfig
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.launch.serve import run
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves_with_path as leaves
+
+    counts = {}
+
+    def on_warm(engine):
+        kmm.reset_counts()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        counts["t0"] = time.perf_counter()
+
+    _free(torch, device)
+    t0 = time.perf_counter()
+    captured = {}
+    with _capture_oneshot(kmm, captured):
+        finished, engine = run(
+            arch, smoke=smoke, requests=len(lens), slots=slots,
+            prompt_lens=list(lens), gen=gen, abft_mode="verify",
+            abft_backend="auto" if device == "cuda" else "cuda",
+            kernel_dtype=kernel_dtype, layers=layers, dtype=dtype,
+            device=device, on_warm=on_warm, verbose=False)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - counts["t0"]
+    launches, other = _counts(kmm, device)
+    cfg, st = engine.cfg, engine.stats
+    per_prefill = protected_per_pass(cfg)
+    per_step = protected_per_pass(cfg, decode=True)
+    want = per_prefill * st.prefills + per_step * st.decode_steps
+    if len(finished) != len(lens) or any(len(r.output) != gen
+                                         for r in finished):
+        raise AssertionError(f"{arch}: not every request finished with "
+                             f"{gen} tokens")
+    if launches != want or other != 0:
+        raise AssertionError(f"{arch}: kernel launches {launches} != {want}"
+                             f" or plain calls {other} != 0")
+    # the engine's own copies (encoded weights, the tied table in fp32)
+    # are not params
+    n_params = sum(x.numel() for path, x in leaves(engine.params)
+                   if path[-1] not in ("w_enc", "table_f32"))
+    enc_gb = sum(x.numel() * x.element_size()
+                 for path, x in leaves(engine.params)
+                 if path[-1] == "w_enc") / 1e9
+    row = dict(arch=arch, layers=cfg.n_layers, layout=repr(cfg.layout),
+               d_model=cfg.d_model, dtype=cfg.dtype,
+               kernel_dtype=kernel_dtype, params_b=n_params / 1e9,
+               w_enc_gb=enc_gb, prompt_lens=list(lens), gen=gen, slots=slots,
+               prefills=st.prefills, decode_steps=st.decode_steps,
+               launches=launches, per_prefill=per_prefill,
+               per_step=per_step, plain_calls=other,
+               prefill_ms=1e3 * st.prefill_s / max(st.prefills, 1),
+               decode_step_ms=1e3 * st.clean_step_mean_s(),
+               decode_step_ms_median=1e3 * _median(st.decode_step_s),
+               wall_s=wall, setup_s=counts["t0"] - t0,
+               peak_gb=_gb(torch, device), max_len=engine.max_len)
+    log("families", f"{arch}: {cfg.n_layers} layers at d_model "
+                    f"{cfg.d_model}, {n_params / 1e9:.2f} B params in "
+                    f"{cfg.dtype} + {enc_gb:.2f} GB w_enc; "
+                    f"{len(finished)} requests, {st.prefills} prefills, "
+                    f"{st.decode_steps} decode steps; kernel #1 launches "
+                    f"{launches} = {per_prefill} x {st.prefills} + "
+                    f"{per_step} x {st.decode_steps}, plain 0")
+    log("families", f"{arch}: prefill {row['prefill_ms']:.2f} ms mean, "
+                    f"decode step {row['decode_step_ms']:.2f} ms mean "
+                    f"({row['decode_step_ms_median']:.2f} median), peak "
+                    f"memory {row['peak_gb']:.2f} GB, serve wall "
+                    f"{wall:.1f} s, set-up {row['setup_s']:.1f} s")
+    held = []
+    for args, kw in captured.values():
+        errs = hold_oneshot(torch, kmm, args, kw,
+                            kmm.abft_matmul_cuda(*args, **kw))
+        held.append(dict(m=args[0].shape[0], k=args[0].shape[1],
+                         n=args[1].shape[1], dtype=str(args[0].dtype),
+                         tile=[kw["bm"], kw["bn"]], splits=kw.get("splits"),
+                         max_abs_err=errs[0], err_cs_col=errs[1],
+                         err_cs_row=errs[2]))
+    del captured
+    ms = sorted({h["m"] for h in held})
+    prefill_ms = {engine._prefill_len(n) for n in lens}
+    if slots not in ms or not prefill_ms <= set(ms):
+        raise AssertionError(f"{arch}: kernel #1 operands captured at m "
+                             f"{ms}, not at decode's {slots} and every "
+                             f"prefill's {sorted(prefill_ms)}")
+    row.update(kernel_held=held,
+               held_max_abs_err=max(h["max_abs_err"] for h in held))
+    log("families", f"{arch}: kernel #1 held against its plain version on "
+                    f"the operands of {len(held)} shapes and tiles of this "
+                    f"run (m in {ms}; k, n of every projection): c, checksum "
+                    f"columns and residuals within RTOL {RTOL:g}, max |c - "
+                    f"plain| {row['held_max_abs_err']:.3g}")
+    plain = ABFTConfig(mode="verify", backend="ref",
+                       in_dtype=kernel_dtype)
+    if check is not None:
+        row.update(check(engine, finished, plain))
+    record.setdefault("families", {})[key] = row
+    return engine, finished, launches
+
+
+class _Fp32Params(dict):
+    """A bf16 param tree seen in fp32, one layer at a time: the top-level
+    leaves are cast at once, each layout group's layers as the forward
+    reaches them (so an fp32 forward fits beside the bf16 weights)."""
+
+    def __init__(self, params):
+        super().__init__({k: _to_fp32(v) for k, v in params.items()
+                          if k != "groups"})
+        self["groups"] = [_Fp32Layers(g) for g in params["groups"]]
+
+
+class _Fp32Layers:
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __iter__(self):
+        for layer in self.layers:
+            yield _to_fp32(layer)
+
+
+def _lens(n, seed, lo_hi=FAMILY_PROMPTS, odd=False):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(*lo_hi, size=n).tolist()
+    if odd:   # no power of two: the padding repair is what is on trial
+        lens = [x + 1 if x & (x - 1) == 0 else x for x in lens]
+    return lens
+
+
+def phase_families(torch, record, card, device="cuda", smoke=False):
+    """The LM's other families through the port's serving entry point and
+    its forward, ABFT verify on kernel #1: (a) Qwen3-30B-A3B (MoE, 128
+    experts top-8) at full width and depth in bf16, 8 requests of 16-128
+    prompt tokens, each prefill's first token the argmax of the kernel
+    path's logits and of the plain path's (where its top two are no near
+    tie); (b) Jamba-1.5-Large's period cut
+    to its first four blocks (mamba, attention, dense and MoE FFNs) at
+    d_model 8192 in bf16, prompts of 37, 77, 100 and 123 tokens, one
+    request's tokens held to greedy decoding by the full forward (the
+    padding repair on the card); (c) xLSTM-350M whole in fp32, 8 requests,
+    the same greedy check; (d) Whisper-large-v3 whole in fp32 (a forward of
+    2 x 64 tokens over 1500 seeded frames, verify against off; a prefill of
+    8 tokens and 8 decode steps over the cached cross K/V against the full
+    forward) and Llama-3.2-Vision-11B whole in bf16 (a forward over 1024
+    seeded image embeddings, verify against off).  Launch counts from the
+    block kinds (`protected_per_pass`), no plain call.  ``device`` and
+    ``smoke`` rehearse it on the CPU.  Kernel #1 is held to its plain
+    version on the operands of (a)-(c).  Returns kernel #1's launches and
+    the largest |c - plain| of those holds."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves_with_path
+
+    t_phase = time.perf_counter()
+    total = 0
+    held_err = 0.0
+    _free(torch, device)
+    log("families", f"memory held before the phase: "
+                    f"{_gb(torch, device, peak=False):.2f} GB")
+
+    # (a) MoE: each prompt's prefill again, as phase 5 does it: the kernel
+    # path as served, the plain path (backend "ref", bf16 operands), and a
+    # control with the params cast to fp32 one layer at a time (61 GB of
+    # bf16 weights have no room for an fp32 copy) and fp32 activations,
+    # whose protected projections still take bf16 operands (the plain
+    # path's in_dtype casts x and w_enc; fp32 accumulation): noise = max
+    # |plain - control| measures the bf16 activations and the unprotected
+    # arithmetic (experts, router, attention, norms), not the projections'
+    # products.  The kernel path must lie within 2 x noise of the plain one
+    # (phase 5's tolerance).  The first token must be the kernel path's
+    # argmax, and the plain path's argmax unless the plain path's top two
+    # logits lie within 2 x noise (a near tie): then its plain logit must
+    # lie within 2 x noise of the plain maximum.  (Two bf16 paths that sum
+    # in another order, with the routing of 128 experts between them, can
+    # choose two tokens a few bf16 ulps apart: on the card one prompt of
+    # eight did, 0.2 apart at |logit| 4.7.)
+    def first_tokens(engine, finished, plain):
+        rows = []
+        cfg32 = dataclasses.replace(engine.cfg, dtype="float32")
+        p32 = _Fp32Params(engine.params)
+        with torch.no_grad():
+            for req in sorted(finished, key=lambda r: r.rid):
+                # the prompt as the engine prefilled it: padded to its
+                # bucket, the first token read at position plen - 1
+                plen = len(req.prompt)
+                tok = torch.zeros((1, engine._prefill_len(plen)),
+                                  dtype=torch.int64, device=engine.device)
+                tok[0, :plen] = torch.tensor(req.prompt)
+
+                def prefill(params, c, abft):
+                    cache = tf.init_cache(c, 1, engine.max_len,
+                                          device=engine.device)
+                    return tf.forward(params, tok, c, cache=cache,
+                                      abft=abft)[0][0, plen - 1].float()
+
+                lk = prefill(engine.params, engine.cfg, engine.abft)
+                lp = prefill(engine.params, engine.cfg, plain)
+                l32 = prefill(p32, cfg32, plain)
+                gap = float((lk - lp).abs().max())
+                noise = float((lp - l32).abs().max())
+                first = req.output[0]
+                top2 = lp.topk(2).values
+                rows.append(dict(
+                    rid=req.rid, plen=plen, gap=gap, tol=2 * noise,
+                    noise=noise, max_abs_logit=float(lp.abs().max()),
+                    first=first, kernel_argmax=int(lk.argmax()),
+                    plain_argmax=int(lp.argmax()),
+                    fp32_argmax=int(l32.argmax()),
+                    plain_margin=float(top2[0] - top2[1]),
+                    near_tie=float(top2[0] - top2[1]) <= 2 * noise,
+                    plain_short=float(lp.max() - lp[first])))
+        bad = [r for r in rows
+               if r["gap"] > r["tol"] or r["first"] != r["kernel_argmax"]
+               or (r["first"] != r["plain_argmax"] and not r["near_tie"])
+               or r["plain_short"] > r["tol"]]
+        worst = max(rows, key=lambda r: r["gap"] / (r["tol"] or 1.0))
+        agree = sum(r["first"] == r["plain_argmax"] for r in rows)
+        own = sum(r["first"] == r["kernel_argmax"] for r in rows)
+        ties = sum(r["near_tie"] for r in rows)
+        log("families", f"qwen3-moe-30b-a3b: first tokens the kernel "
+                        f"path's argmax {own}/{len(rows)}, the plain "
+                        f"path's {agree}/{len(rows)} ({ties} near ties, "
+                        f"the rest held outright), the control's "
+                        f"{sum(r['first'] == r['fp32_argmax'] for r in rows)}"
+                        f"/{len(rows)}; worst |kernel - plain| / tolerance "
+                        f"{worst['gap']:.4g} / {worst['tol']:.4g} (max "
+                        f"|logit| {worst['max_abs_logit']:.4g})")
+        for r in rows:
+            log("families", "prefill check " + json.dumps(r))
+        if bad:
+            raise AssertionError(f"prefill checks failed: {bad}")
+        return {"prefill_checks": rows}
+
+    engine, finished, n = _serve_family(
+        torch, record, "qwen3", "qwen3-moe-30b-a3b", device=device,
+        smoke=smoke, lens=_lens(8, 16), gen=16, slots=4,
+        kernel_dtype="bf16", check=first_tokens)
+    total += n
+    held_err = max(held_err, record["families"]["qwen3"]["held_max_abs_err"])
+    cfg = engine.cfg
+    expert_bytes = sum(
+        x.numel() * x.element_size()
+        for path, x in tree_leaves_with_path(engine.params)
+        if "moe" in path and path[-1] in ("gate", "up", "down"))
+    floor_ms = 1e3 * expert_bytes / HBM_BPS
+    record["families"]["qwen3"].update(expert_gb=expert_bytes / 1e9,
+                                       decode_floor_ms=floor_ms)
+    log("families", f"qwen3-moe-30b-a3b: a decode step reads all "
+                    f"{cfg.n_experts} experts' {expert_bytes / 1e9:.2f} GB "
+                    f"(dropless buffer): floor {floor_ms:.2f} ms at 3.35 TB/s"
+                    f"; measured {record['families']['qwen3']['decode_step_ms']:.2f} ms")
+    del engine, finished
+
+    # (b) Jamba's period, (c) xLSTM: the greedy full-forward check
+    def greedy(engine, finished, plain):
+        req = min(finished, key=lambda r: r.rid)
+        row = _greedy_check(torch, tf, engine, req, plain)
+        log("families", f"{engine.cfg.name}: request {req.rid} "
+                        f"({row['plen']} prompt tokens): {row['exact']}/"
+                        f"{row['gen']} tokens the full forward's argmax, "
+                        f"worst shortfall {row['worst_short']:.4g} "
+                        f"(tolerance 2 x noise = {2 * row['noise']:.4g})")
+        return {"greedy_check": row}
+
+    for key, arch, kw in (
+            ("jamba", "jamba-1.5-large-398b",
+             dict(lens=[37, 77, 100, 123], slots=4, kernel_dtype="bf16",
+                  layers=4)),
+            ("xlstm", "xlstm-350m",
+             dict(lens=_lens(8, 17, odd=True), slots=4,
+                  kernel_dtype="fp32", dtype="float32"))):
+        engine, finished, n = _serve_family(
+            torch, record, key, arch, device=device, smoke=smoke, gen=16,
+            check=greedy, **kw)
+        total += n
+        held_err = max(held_err, record["families"][key]["held_max_abs_err"])
+        del engine, finished
+
+    # (d) Whisper and the vision config, forward and decode
+    total += _whisper(torch, record, device, smoke)
+    total += _vision(torch, record, device, smoke)
+    secs = time.perf_counter() - t_phase
+    record["families"]["seconds"] = secs
+    record["families"]["launches"] = total
+    log("families", f"phase 16: kernel #1 launches {total}, plain 0, "
+                    f"{secs:.1f} s ({card})")
+    return total, held_err
+
+
+def _verify_vs_off(torch, tf, params, cfg, tok, kw, device, kmm):
+    """ABFT verify (kernel #1) against off on one forward, inside phase 5's
+    tolerance: 2 x noise, noise = the off path's distance from the same
+    forward at another precision (fp32 copies of bf16 params; TF32
+    products for fp32 params)."""
+    from repro_torch.core.abft_gemm import ABFTConfig
+    abft = ABFTConfig(mode="verify",
+                      backend="auto" if device == "cuda" else "cuda",
+                      in_dtype="bf16" if cfg.dtype == "bfloat16" else "fp32")
+    with torch.no_grad():
+        kmm.reset_counts()
+        lv = tf.forward(params, tok, cfg, abft=abft, **kw)[0].float()
+        launches, other = _counts(kmm, device)
+        lo = tf.forward(params, tok, cfg, **kw)[0].float()
+        if cfg.dtype == "bfloat16":
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = _to_fp32(params)
+            kw32 = {k: v.float() for k, v in kw.items()}
+            l_alt = tf.forward(p32, tok, cfg32, **kw32)[0].float()
+            del p32
+            alt = "fp32 copy"
+        else:
+            old = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = device == "cuda"
+            try:
+                l_alt = tf.forward(params, tok, cfg, **kw)[0].float()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = old
+            alt = "TF32 products"
+    gap = float((lv - lo).abs().max())
+    noise = float((lo - l_alt).abs().max())
+    want = protected_per_pass(cfg)
+    if launches != want or other != 0:
+        raise AssertionError(f"{cfg.name}: kernel launches {launches} != "
+                             f"{want} or plain calls {other} != 0")
+    if device == "cuda" and gap > 2 * noise:
+        raise AssertionError(f"{cfg.name}: verify against off {gap} > 2 x "
+                             f"{noise} ({alt})")
+    return dict(gap=gap, noise=noise, noise_from=alt, launches=launches,
+                max_abs_logit=float(lo.abs().max())), lv, abft
+
+
+def _whisper(torch, record, device, smoke):
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    _free(torch, device)
+    name = "whisper-large-v3"
+    cfg = dataclasses.replace(
+        smoke_config(name) if smoke else get_config(name), dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg)
+    b, s, sp = 2, 64, 8
+    frames = torch.randn((b, cfg.n_frames, cfg.d_model), generator=gen,
+                         device=device)
+    tok = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device=device)
+    row, full, abft = _verify_vs_off(torch, tf, params, cfg, tok,
+                                     {"frames": frames}, device, kmm)
+    # prefill sp tokens (the cross K/V stashed), then decode over the cache
+    s_dec = 2 * sp
+    kmm.reset_counts()
+    with torch.no_grad():
+        cache = tf.init_cache(cfg, b, s_dec, device=device)
+        pre, cache, _ = tf.forward(params, tok[:, :sp], cfg, cache=cache,
+                                   frames=frames, abft=abft)
+        errs = [float((pre[:, -1] - full[:, sp - 1]).abs().max())]
+        for i in range(sp, s_dec):
+            logit, cache = tf.decode_step(params, tok[:, i:i + 1],
+                                          torch.tensor(i, device=device),
+                                          cache, cfg, abft=abft)
+            errs.append(float((logit - full[:, i]).abs().max()))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches, other = _counts(kmm, device)
+    want = protected_per_pass(cfg, stash=True) + \
+        (s_dec - sp) * protected_per_pass(cfg, decode=True)
+    scale = float(full.abs().max()) + 1.0
+    if launches != want or other != 0:
+        raise AssertionError(f"whisper decode: kernel launches {launches} != "
+                             f"{want} or plain calls {other} != 0")
+    if max(errs) >= 2e-3 * scale:
+        raise AssertionError(f"whisper decode leaves the forward: {errs} "
+                             f"(scale {scale})")
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    row.update(arch=name, params_b=n_params / 1e9, frames=cfg.n_frames,
+               tokens=[b, s], decode_max_err=max(errs), decode_scale=scale,
+               decode_launches=launches, wall_s=time.perf_counter() - t0,
+               peak_gb=_gb(torch, device))
+    log("families", f"{name}: {n_params / 1e9:.2f} B params fp32, forward "
+                    f"of {b} x {s} tokens over {cfg.n_frames} frames: "
+                    f"|verify - off| {row['gap']:.4g} <= 2 x noise = "
+                    f"{2 * row['noise']:.4g} ({row['noise_from']}), kernel #1 "
+                    f"launches {row['launches']}; prefill {sp} + decode "
+                    f"{s_dec - sp} over the cached cross K/V: max err "
+                    f"{max(errs):.4g} < 2e-3 x {scale:.4g}, launches "
+                    f"{launches}; peak {row['peak_gb']:.2f} GB, "
+                    f"{row['wall_s']:.1f} s")
+    record.setdefault("families", {})["whisper"] = row
+    return row["launches"] + launches
+
+
+def _vision(torch, record, device, smoke):
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    _free(torch, device)
+    name = "llama-3.2-vision-11b"
+    cfg = smoke_config(name) if smoke else get_config(name)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = tf.init_params(gen, cfg)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    img = torch.randn((1, cfg.n_img_tokens, cfg.d_model), generator=gen,
+                      device=device).to(dt)
+    tok = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                        device=device)
+    row, _, _ = _verify_vs_off(torch, tf, params, cfg, tok,
+                               {"img_emb": img}, device, kmm)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    row.update(arch=name, params_b=n_params / 1e9,
+               img_tokens=cfg.n_img_tokens, tokens=[1, 64],
+               wall_s=time.perf_counter() - t0, peak_gb=_gb(torch, device))
+    log("families", f"{name}: {n_params / 1e9:.2f} B params {cfg.dtype}, "
+                    f"forward of 64 tokens over {cfg.n_img_tokens} image "
+                    f"embeddings: |verify - off| {row['gap']:.4g} <= 2 x "
+                    f"noise = {2 * row['noise']:.4g} ({row['noise_from']}), kernel "
+                    f"#1 launches {row['launches']}; peak "
+                    f"{row['peak_gb']:.2f} GB, {row['wall_s']:.1f} s")
+    record.setdefault("families", {})["vision"] = row
+    del params
+    _free(torch, device)
+    return row["launches"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2861,6 +3412,8 @@ def main():
     traffic_launches, traffic_err = phase_traffic(torch, record,
                                                   f"{name} ({smi})")
     phase_solver(torch, record, f"{name} ({smi})")
+    families_launches, families_err = phase_families(torch, record,
+                                                     f"{name} ({smi})")
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -2881,8 +3434,10 @@ def main():
         "source": "src/repro_torch/kernels/csrc/abft_matmul.cu",
         "replaces": "src/repro/kernels/abft_matmul.py:285",
         "launches": launches,
-        # phase 3's cases and the operands phase 14's engines gave it
-        "max_abs_err": max([r["max_abs_err"] for r in rows] + [traffic_err]),
+        # phase 3's cases and the operands phase 14's and phase 16's
+        # engines gave it
+        "max_abs_err": max([r["max_abs_err"] for r in rows]
+                           + [traffic_err, families_err]),
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -2891,6 +3446,8 @@ def main():
         "library_ms": tot["library_ms"],
         # phase 14: the paged engine's clean replay of the traffic trace
         "traffic_launches": traffic_launches,
+        # phase 16: the MoE, hybrid, recurrent, Whisper and vision configs
+        "families_launches": families_launches,
     }, {
         "name": "abft_matmul_acc",
         "route": "cuda",

@@ -1,8 +1,11 @@
-"""Architecture configs + registry (the port registers the configs whose
-layer kinds it can run; the reference package holds the full catalog)."""
+"""Architecture configs (one module per assigned arch) + registry."""
 import importlib
 
-_MODULES = ["qwen2_0_5b"]
+_MODULES = [
+    "kimi_k2_1t_a32b", "qwen3_moe_30b_a3b", "whisper_large_v3", "qwen2_0_5b",
+    "gemma2_2b", "granite_34b", "gemma3_4b", "jamba_1_5_large_398b",
+    "xlstm_350m", "llama_3_2_vision_11b",
+]
 
 
 def load_all():

@@ -2,10 +2,11 @@
 layout to the port's.
 
 The reference stacks each layout group's layers on axis 0 under
-``groups[gi]["b{bi}"]``; the port keeps ``groups[gi]`` as a list of
-per-layer dicts.  The reference's tree goes in as numpy arrays (or
-anything ``np.asarray`` takes), so this module imports neither JAX nor
-the reference package.
+``groups[gi]["b{bi}"]``, and Whisper's encoder layers under ``encoder``;
+the port keeps ``groups[gi]`` as a list of per-layer dicts, and
+``encoder`` as one such group (``[[layer dicts]]``).  The reference's
+tree goes in as numpy arrays (or anything ``np.asarray`` takes), so this
+module imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
@@ -32,16 +33,20 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stacked, n: int, device):
+    return [_map(stacked, lambda x, r=r: to_tensor(np.asarray(x)[r], device))
+            for r in range(n)]
+
+
 def params_from_jax(tree, cfg: ModelConfig, device=None):
     """The reference's param tree -> the port's params (same numbers)."""
     out = {k: _map(v, lambda x: to_tensor(x, device))
-           for k, v in tree.items() if k != "groups"}
-    groups = []
-    for gi, (_pattern, repeats) in enumerate(cfg.layout):
-        stacked = tree["groups"][gi]
-        groups.append([_map(stacked, lambda x, r=r: to_tensor(
-            np.asarray(x)[r], device)) for r in range(repeats)])
-    out["groups"] = groups
+           for k, v in tree.items() if k not in ("groups", "encoder")}
+    if "encoder" in tree:
+        out["encoder"] = [_unstack(tree["encoder"], cfg.n_enc_layers,
+                                   device)]
+    out["groups"] = [_unstack(tree["groups"][gi], repeats, device)
+                     for gi, (_pattern, repeats) in enumerate(cfg.layout)]
     return out
 
 

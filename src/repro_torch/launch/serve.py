@@ -8,9 +8,15 @@ mid-flight (``--drill-step/shard/delta``).  It runs on the GPU unless
 ``--device cpu`` is given; with no GPU it raises rather than falling back.
 ``--smoke`` (the default) serves the reduced config; ``--no-smoke`` serves
 the model at its published width.
+``--arch`` takes every decoder-only config of the registry (dense, MoE,
+hybrid Mamba/attention and xLSTM); Whisper and the vision config need
+encoder frames or image embeddings, which the engine does not feed, and
+raise as the reference's ``run`` does.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke --abft verify
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+      --no-smoke --abft verify --kernel-dtype bf16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --requests 3 --slots 2 --gen 4 --abft verify --backend cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --reduce correct \
@@ -25,7 +31,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import get_config, smoke_config
+from repro_torch.configs.base import (ModelConfig, get_config,
+                                      list_configs, smoke_config)
 from repro_torch.ft.failures import SDCInjector, SDCPlan
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
@@ -40,12 +47,36 @@ def resolve_device(device: str = "cuda") -> torch.device:
     return dev
 
 
+def decoder_only(name: str) -> bool:
+    cfg = get_config(name)
+    return not (cfg.n_enc_layers or cfg.n_img_tokens)
+
+
+def cut_layers(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` cut to its first ``layers`` blocks in layout order (a period
+    cut short becomes a group of one repeat of its first blocks)."""
+    out, left = [], layers
+    for pattern, repeats in cfg.layout:
+        if left <= 0:
+            break
+        full = min(repeats, left // len(pattern))
+        if full:
+            out.append((pattern, full))
+            left -= full * len(pattern)
+        if full < repeats and 0 < left < len(pattern):
+            out.append((pattern[:left], 1))
+            left = 0
+    return dataclasses.replace(cfg, layout=tuple(out),
+                               n_layers=sum(len(p) * r for p, r in out))
+
+
 def run(arch: str, *, smoke: bool = True, requests: int = 6, slots: int = 2,
         prompt_len: int = 8, prompt_lens: Optional[Sequence[int]] = None,
         gen: int = 16, abft_mode: str = "off", abft_backend: str = "auto",
         kernel_dtype: str = "fp32", abft_reduce: str = "off",
         drill: Optional[SDCPlan] = None, scrub_every: int = 0,
-        dtype: Optional[str] = None, seed: int = 0, device: str = "cuda",
+        dtype: Optional[str] = None, layers: Optional[int] = None,
+        seed: int = 0, device: str = "cuda",
         on_warm: Optional[Callable[[ServeEngine], None]] = None,
         on_step: Optional[Callable[[ServeEngine, int], None]] = None,
         verbose: bool = True):
@@ -55,7 +86,8 @@ def run(arch: str, *, smoke: bool = True, requests: int = 6, slots: int = 2,
     ``prompt_lens`` gives each request its own prompt length (default:
     ``prompt_len`` for all); ``drill`` is the SDC plan fired into the
     protected reduction (needs ``abft_reduce``); ``dtype`` overrides the
-    config's parameter dtype; ``on_warm(engine)`` runs after the warm-up
+    config's parameter dtype; ``layers`` cuts the model to its first
+    ``layers`` blocks (`cut_layers`); ``on_warm(engine)`` runs after the warm-up
     and before the first request is submitted, ``on_step(engine, step)``
     before every decode step (`ServeEngine.run`).
     """
@@ -63,6 +95,8 @@ def run(arch: str, *, smoke: bool = True, requests: int = 6, slots: int = 2,
     cfg = smoke_config(arch) if smoke else get_config(arch)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
+    if layers is not None:
+        cfg = cut_layers(cfg, layers)
     if cfg.n_enc_layers or cfg.n_img_tokens:
         raise ValueError(f"{arch} needs encoder frames / image embeddings, "
                          "which the engine does not feed")
@@ -113,7 +147,9 @@ def run(arch: str, *, smoke: bool = True, requests: int = 6, slots: int = 2,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    choices=[n for n in list_configs() if decoder_only(n)],
+                    help="a decoder-only config of the registry")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="reduced config (default); --no-smoke serves the "

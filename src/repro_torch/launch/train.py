@@ -9,13 +9,19 @@ checkpoints with resume, and failure injection with diskless recovery (the
 paper's stress test as a flag).  It runs on the GPU unless ``--device cpu``
 is given; with no GPU it raises rather than falling back.  ``--smoke`` (the
 default) trains the reduced config; ``--full`` trains the model at its
-published width.
+published width.  ``--arch`` takes every config of the registry: the MoE
+configs add their load-balance loss, and Whisper and the vision config
+get seeded frame or image embeddings with every batch (their stubbed
+front ends' output, drawn from ``--seed`` and the step, so a replay after a
+recovery sees the same inputs).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 12 --batch 8 --seq 32 --inject-failures 1 --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 30 \
       --abft verify --inject-failures 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch jamba-1.5-large-398b --steps 4 --batch 4 --seq 16
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from typing import List, Optional
 import torch
 
 from repro_torch.ckpt.disk import CheckpointManager
-from repro_torch.configs.base import ShapeConfig, get_config, smoke_config
+from repro_torch.configs.base import (ModelConfig, ShapeConfig, get_config,
+                                      list_configs, smoke_config)
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.ft.failures import FailureInjector, FailurePlan
 from repro_torch.ft.runtime import (FTPolicy, FTRuntime, stack_view,
@@ -58,6 +65,23 @@ class TrainResult:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def stub_inputs(cfg: ModelConfig, batch: int, step: int, seed: int,
+                device) -> dict:
+    """The stubbed front ends' output for one batch: Whisper's frame
+    embeddings ``[batch, n_frames, d_model]``, the vision config's image
+    embeddings ``[batch, n_img_tokens, d_model]`` (normal, from ``seed``
+    and ``step``); nothing for a text-only config."""
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    for key, n in (("frames", cfg.n_frames if cfg.n_enc_layers else 0),
+                   ("img_emb", cfg.n_img_tokens)):
+        if n:
+            out[key] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                   device=device).to(dt)
+    return out
 
 
 def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 16,
@@ -126,7 +150,9 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 16,
 
             _sync(dev)
             ts = time.perf_counter()
-            state, metrics = step_fn(state, pipe.batch_at(i))
+            state, metrics = step_fn(state, {
+                **pipe.batch_at(i),
+                **stub_inputs(cfg, batch, i, seed, dev)})
             losses.append(float(metrics["loss"]))
             walls.append(time.perf_counter() - ts)
             ran.append(i)
@@ -149,7 +175,7 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 16,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=list_configs())
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="train the model at its published width")

@@ -1,14 +1,14 @@
 """Attention: GQA/MQA, global + sliding-window, softcap, KV cache.
 
 Two compute paths, one semantic (plain PyTorch that mirrors the reference
-package's ``repro/models/attention.py`` math; the checked flash-attention
-kernel comes with the protected-LM slice):
+package's ``repro/models/attention.py`` math, which is jnp there as well):
   * dense  — masked einsum, for short sequences and every decode step
   * flash  — chunked online-softmax loop over KV chunks, O(S) memory, for
              long prefill sequences (forward only)
 
 Both support GQA (n_kv <= n_heads), causal + window masks and logit
-softcapping.  Cache writes go IN PLACE into the cache tensors the caller
+softcapping.  Cross attention (``cross_kv``: keys and values projected from
+encoder states or image embeddings) takes the dense path, unmasked.  Cache writes go IN PLACE into the cache tensors the caller
 passes (the engine owns its cache, so this saves a copy of it per layer and
 step); the returned cache holds the same tensors and a new index.
 """
@@ -127,6 +127,7 @@ def attn_apply(
     positions: torch.Tensor,         # [Sq] or [B, Sq] global positions
     causal: bool = True,
     cache: Optional[dict] = None,    # {"k","v": [B, Smax, n_kv, D], "index"}
+    cross_kv: Optional[torch.Tensor] = None,  # [B, Skv, d_model] encoder
     abft=None,
     flash_threshold: int = 1024,
 ):
@@ -134,13 +135,15 @@ def attn_apply(
        - train/prefill: cache None -> full self-attention over x
        - prefill w/ cache: scalar cache["index"], Sq tokens written there
        - decode: Sq == 1, per-slot [B] cache["index"], one token per slot
+       - cross: cross_kv set (no rope, no cache, no mask; the dense path)
     """
     b, sq, _ = x.shape
     q = _split_heads(linear_apply(p["wq"], x, abft), s.n_heads, s.head_dim)
-    k = _split_heads(linear_apply(p["wk"], x, abft), s.n_kv, s.head_dim)
-    v = _split_heads(linear_apply(p["wv"], x, abft), s.n_kv, s.head_dim)
+    kv_src = cross_kv if cross_kv is not None else x
+    k = _split_heads(linear_apply(p["wk"], kv_src, abft), s.n_kv, s.head_dim)
+    v = _split_heads(linear_apply(p["wv"], kv_src, abft), s.n_kv, s.head_dim)
 
-    if s.use_rope:
+    if s.use_rope and cross_kv is None:
         pos_b = positions[None] if positions.dim() == 1 else positions
         q = rope(q, pos_b, s.rope_theta)
         k = rope(k, pos_b, s.rope_theta)
@@ -169,20 +172,23 @@ def attn_apply(
         k_pos = torch.arange(ck.shape[1], device=x.device)
         # positions beyond the write head are masked out by causality
     else:
-        k_pos = positions
+        k_pos = positions if cross_kv is None else \
+            torch.arange(k.shape[1], device=x.device)
 
     g = s.n_heads // s.n_kv
     qh = q.reshape(b, sq, s.n_kv, g, s.head_dim)
     scale = s.head_dim ** -0.5
+    use_causal = causal and cross_kv is None
+    window = s.window if cross_kv is None else None
 
     sk = k.shape[1]
-    if sq == 1 or sk <= flash_threshold:
-        mask = _mask(positions, k_pos, causal=causal, window=s.window)
+    if sq == 1 or sk <= flash_threshold or cross_kv is not None:
+        mask = _mask(positions, k_pos, causal=use_causal, window=window)
         o = _sdpa_dense(qh, k, v, scale=scale, softcap=s.softcap, mask=mask)
     else:
         o, _ = _flash_fwd_impl(qh, k, v, positions, k_pos, scale=scale,
-                               softcap=s.softcap, causal=causal,
-                               window=s.window, kc=s.kc)
+                               softcap=s.softcap, causal=use_causal,
+                               window=window, kc=s.kc)
     o = o.reshape(b, sq, s.n_heads * s.head_dim).to(x.dtype)
     y = linear_apply(p["wo"], o, abft)
     return y, new_cache

@@ -1,16 +1,30 @@
 """Layered LM over period-group layouts (see configs.base.ModelConfig).
 
-Counterpart of the reference package's ``repro/models/transformer.py`` for
-the layer kinds the port runs so far: ``attn`` / ``attn_local`` /
-``attn_bidir`` mixers with a ``dense`` SwiGLU/GeGLU FFN.  The reference
-scans stacked params with ``lax.scan``; here ``params["groups"][gi]`` is a
-list of per-layer param dicts and the forward is a Python loop over it.
-The KV cache keeps the reference layout — per layout group and pattern slot
-``{"k","v": [repeats, B, max_len, n_kv, D], "index": [repeats] or
-[repeats, B]}`` — and each layer writes its slice in place.
+Counterpart of the reference package's ``repro/models/transformer.py``: one
+implementation serves all ten configs —
+  * mixers: GQA attention (global/local/bidir/cross/dec), mamba, m/sLSTM;
+  * FFN: dense SwiGLU/GeGLU or sort-dispatch MoE (its aux loss summed over
+    the layers);
+  * the Whisper encoder over precomputed frame embeddings and the vision
+    stub's image embeddings, both as the cross-attention source;
+  * modes: train/prefill forward, single-token decode with typed caches.
+
+The reference scans stacked params with ``lax.scan``; here
+``params["groups"][gi]`` is a list of per-layer param dicts and the forward
+is a Python loop over it; Whisper's encoder is a group of one,
+``params["encoder"][0]``, so the tree helpers stack it as they stack a
+layout group.  The cache keeps the
+reference layout — per layout group and pattern slot, each leaf stacked
+``[repeats, B, ...]``: ``{"k","v": [.., max_len, n_kv, D], "index"}`` for
+attention (``dec`` adds the cross K/V ``ck``/``cv``), ``{"h","conv"}`` for
+mamba, ``{"c","n"}`` / ``{"c","n","m"}`` for m/sLSTM — and each layer
+writes its slice in place (attention K/V at the write head, a recurrent
+state whole); the ``index`` leaves are rebuilt per call.
 
 ABFT protection threads through every projection via `abft`
-(core.abft_gemm.ABFTConfig); `None`/mode "off" is the baseline path.
+(core.abft_gemm.ABFTConfig); `None`/mode "off" is the baseline path.  As in
+the reference, the MoE router, mamba's ``x_proj``, the xLSTM gates and the
+decode-time cross attention over the cached K/V run unprotected.
 ``loss_fn`` is the training loss; with ``remat`` each block is an
 activation checkpoint (``torch.utils.checkpoint``, non-reentrant), the
 counterpart of the reference's ``jax.checkpoint`` of its layer scan body
@@ -29,19 +43,16 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (
-    embed_apply, embed_init, linear_init, mlp_apply, mlp_init, rmsnorm_apply,
-    rmsnorm_init, softcap_fn, unembed_apply,
+    embed_apply, embed_init, linear_apply, linear_init, mlp_apply, mlp_init,
+    rmsnorm_apply, rmsnorm_init, softcap_fn, unembed_apply,
 )
 
 _ATTN = ("attn", "attn_local", "attn_bidir")
-_LATER = ("the protected-LM slice brings the other mixers (cross, dec, "
-          "mamba, mlstm, slstm), MoE and the encoder-decoder and vision "
-          "stubs")
-
-
-def _unsupported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: {_LATER}")
+RECURRENT = ("mamba", "mlstm", "slstm")
 
 
 def _attn_spec(cfg: ModelConfig, kind: str) -> attn.AttnSpec:
@@ -54,13 +65,35 @@ def _attn_spec(cfg: ModelConfig, kind: str) -> attn.AttnSpec:
         softcap=cfg.attn_softcap,
         window=cfg.window if kind == "attn_local" else None,
         rope_theta=cfg.rope_theta,
-        use_rope=True,
+        use_rope=kind not in ("cross",),
         kc=cfg.flash_kc,
     )
 
 
+def _mamba_spec(cfg: ModelConfig) -> mb.MambaSpec:
+    return mb.MambaSpec(cfg.d_model, cfg.d_state, cfg.d_conv, cfg.mamba_expand)
+
+
+def _xlstm_spec(cfg: ModelConfig) -> xl.XLSTMSpec:
+    return xl.XLSTMSpec(cfg.d_model, cfg.n_heads)
+
+
+def _moe_spec(cfg: ModelConfig) -> moe_mod.MoESpec:
+    return moe_mod.MoESpec(cfg.d_model, cfg.moe_dff or cfg.d_ff,
+                           cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+                           cfg.moe_groups)
+
+
 def _dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    """Does any block carry a recurrent state (mamba, mLSTM, sLSTM)?  Its
+    prefill must then see exactly the prompt: a pad token would enter the
+    state."""
+    return any(mixer in RECURRENT
+               for pattern, _ in cfg.layout for mixer, _ in pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -70,23 +103,58 @@ def _dtype(cfg: ModelConfig):
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str,
                 ffn: str):
-    dt = _dtype(cfg)
-    if mixer not in _ATTN:
-        raise _unsupported(f"mixer {mixer!r}")
-    p: Dict[str, Any] = {
-        "norm1": rmsnorm_init(cfg.d_model, dt, gen.device),
-        "attn": attn.attn_init(gen, _attn_spec(cfg, mixer), dt),
-    }
+    dt, dev = _dtype(cfg), gen.device
+    p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dt, dev)}
+    if mixer in _ATTN or mixer == "cross":
+        p["attn"] = attn.attn_init(gen, _attn_spec(cfg, mixer), dt)
+    elif mixer == "dec":
+        p["attn"] = attn.attn_init(gen, _attn_spec(cfg, "attn"), dt)
+        p["cross"] = attn.attn_init(gen, _attn_spec(cfg, "cross"), dt)
+        p["norm_c"] = rmsnorm_init(cfg.d_model, dt, dev)
+    elif mixer == "mamba":
+        p["mamba"] = mb.mamba_init(gen, _mamba_spec(cfg), dt)
+    elif mixer == "mlstm":
+        p["mlstm"] = xl.mlstm_init(gen, _xlstm_spec(cfg), dt)
+    elif mixer == "slstm":
+        p["slstm"] = xl.slstm_init(gen, _xlstm_spec(cfg), dt)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
     if ffn == "dense":
-        p["norm2"] = rmsnorm_init(cfg.d_model, dt, gen.device)
+        p["norm2"] = rmsnorm_init(cfg.d_model, dt, dev)
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype=dt)
+    elif ffn == "moe":
+        p["norm2"] = rmsnorm_init(cfg.d_model, dt, dev)
+        p["moe"] = moe_mod.moe_init(gen, _moe_spec(cfg), dt)
     elif ffn != "none":
-        raise _unsupported(f"ffn {ffn!r}")
+        raise ValueError(f"unknown ffn {ffn!r}")
     return p
 
 
+def _block_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
+                 device=None):
+    dt = _dtype(cfg)
+    hd = cfg.resolved_head_dim
+    if mixer in ("attn", "attn_local", "dec"):
+        c = attn.make_cache(batch, max_len, cfg.n_kv_heads, hd, dt, device)
+        if mixer == "dec":
+            # cross K/V computed once at prefill, reused each decode step
+            shape = (batch, cfg.n_frames, cfg.n_kv_heads, hd)
+            c["ck"] = torch.zeros(shape, dtype=dt, device=device)
+            c["cv"] = torch.zeros(shape, dtype=dt, device=device)
+        return c
+    if mixer == "mamba":
+        return mb.mamba_init_state(_mamba_spec(cfg), batch, dt, device)
+    if mixer == "mlstm":
+        return xl.mlstm_init_state(_xlstm_spec(cfg), batch, device)
+    if mixer == "slstm":
+        return xl.slstm_init_state(_xlstm_spec(cfg), batch, device)
+    # bidir / cross: stateless
+    return {"_empty": torch.zeros((batch,), dtype=torch.int8, device=device)}
+
+
 def _block_apply(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
-                 positions, cache=None, abft=None, invariants: bool = False):
+                 positions, cache=None, cross_src=None, abft=None,
+                 invariants: bool = False):
     """Returns (x, new_cache, aux_loss, inv_ok).
 
     ``invariants=True`` runs each rmsnorm through its second-moment
@@ -100,21 +168,100 @@ def _block_apply(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
             return rmsnorm_apply(pn, xx, cfg.norm_eps, check=True)
         return rmsnorm_apply(pn, xx, cfg.norm_eps), ok
 
-    if mixer not in _ATTN:
-        raise _unsupported(f"mixer {mixer!r}")
     h, ok1 = norm(p["norm1"], x)
     ok = ok & ok1
-    y, new_cache = attn.attn_apply(
-        p["attn"], h, _attn_spec(cfg, mixer), positions=positions,
-        causal=(mixer != "attn_bidir"), cache=cache, abft=abft)
+    new_cache = cache
+    if mixer in _ATTN:
+        y, new_cache = attn.attn_apply(
+            p["attn"], h, _attn_spec(cfg, mixer), positions=positions,
+            causal=(mixer != "attn_bidir"), cache=cache, abft=abft)
+    elif mixer == "cross":
+        y, _ = attn.attn_apply(p["attn"], h, _attn_spec(cfg, mixer),
+                               positions=positions, causal=False,
+                               cross_kv=cross_src, abft=abft)
+    elif mixer == "dec":
+        y, self_cache = attn.attn_apply(
+            p["attn"], h, _attn_spec(cfg, "attn"), positions=positions,
+            causal=True,
+            cache={k: cache[k] for k in ("k", "v", "index")}
+            if cache is not None else None, abft=abft)
+        if cache is not None:
+            new_cache = {**cache, **self_cache}
+        x = x + y
+        hc, okc = norm(p["norm_c"], x)
+        ok = ok & okc
+        cspec = _attn_spec(cfg, "cross")
+        if cross_src is not None:
+            y, _ = attn.attn_apply(p["cross"], hc, cspec, positions=positions,
+                                   causal=False, cross_kv=cross_src,
+                                   abft=abft)
+            if cache is not None:  # stash the cross K/V for decode
+                k = linear_apply(p["cross"]["wk"], cross_src, abft)
+                v = linear_apply(p["cross"]["wv"], cross_src, abft)
+                new_cache["ck"].copy_(k.reshape(k.shape[0], -1, cspec.n_kv,
+                                                cspec.head_dim))
+                new_cache["cv"].copy_(v.reshape(v.shape[0], -1, cspec.n_kv,
+                                                cspec.head_dim))
+        else:  # decode: attend over the cached cross K/V
+            y = _cross_from_cache(p["cross"], hc, cspec, cache)
+    elif mixer == "mamba":
+        spec = _mamba_spec(cfg)
+        if cache is None:
+            y = mb.mamba_apply(p["mamba"], h, spec, abft=abft)
+        elif h.shape[1] == 1:
+            y, new_cache = mb.mamba_decode_step(p["mamba"], h, cache, spec,
+                                                abft)
+        else:  # prefill from the cached state; emit the state for decode
+            y, new_cache = mb.mamba_apply(p["mamba"], h, spec, abft=abft,
+                                          return_state=True, state=cache)
+    elif mixer == "mlstm":
+        spec = _xlstm_spec(cfg)
+        if cache is None:
+            y = xl.mlstm_apply(p["mlstm"], h, spec, abft=abft)
+        elif h.shape[1] == 1:
+            y, new_cache = xl.mlstm_decode_step(p["mlstm"], h, cache, spec,
+                                                abft)
+        else:
+            y, new_cache = xl.mlstm_apply(p["mlstm"], h, spec, abft=abft,
+                                          return_state=True, state=cache)
+    elif mixer == "slstm":
+        spec = _xlstm_spec(cfg)
+        if cache is None:
+            y = xl.slstm_apply(p["slstm"], h, spec, abft=abft)
+        elif h.shape[1] == 1:
+            y, new_cache = xl.slstm_decode_step(p["slstm"], h, cache, spec,
+                                                abft)
+        else:
+            y, new_cache = xl.slstm_apply(p["slstm"], h, spec, abft=abft,
+                                          return_state=True, state=cache)
+    else:
+        raise ValueError(mixer)
     x = x + y
-    if ffn == "dense":
+    if ffn in ("dense", "moe"):
         h2, ok2 = norm(p["norm2"], x)
         ok = ok & ok2
-        x = x + mlp_apply(p["mlp"], h2, activation=cfg.activation, abft=abft)
-    elif ffn != "none":
-        raise _unsupported(f"ffn {ffn!r}")
+        if ffn == "dense":
+            y2 = mlp_apply(p["mlp"], h2, activation=cfg.activation, abft=abft)
+        else:
+            y2, aux = moe_mod.moe_apply(p["moe"], h2, _moe_spec(cfg), abft)
+        x = x + y2
     return x, new_cache, aux, ok
+
+
+def _cross_from_cache(p_cross, h, spec: attn.AttnSpec, cache):
+    """Decode-time cross attention over the cached encoder K/V (unprotected,
+    as in the reference)."""
+    b, sq, _ = h.shape
+    q = linear_apply(p_cross["wq"], h).reshape(b, sq, spec.n_heads,
+                                               spec.head_dim)
+    k, v = cache["ck"], cache["cv"]
+    g = spec.n_heads // spec.n_kv
+    qh = q.reshape(b, sq, spec.n_kv, g, spec.head_dim)
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=h.device)
+    o = attn._sdpa_dense(qh, k, v, scale=spec.head_dim ** -0.5,
+                         softcap=spec.softcap, mask=mask)
+    o = o.reshape(b, sq, spec.n_heads * spec.head_dim).to(h.dtype)
+    return linear_apply(p_cross["wo"], o)
 
 
 # ---------------------------------------------------------------------------
@@ -122,15 +269,11 @@ def _block_apply(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_supported(cfg: ModelConfig):
-    if cfg.n_enc_layers or cfg.n_img_tokens:
-        raise _unsupported(f"{cfg.name}'s encoder / image inputs")
-
-
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Random params from ``gen``, placed on ``gen.device``: ``groups[gi]``
-    is a list of ``repeats`` dicts ``{"b{bi}": block params}``."""
-    _check_supported(cfg)
+    is a list of ``repeats`` dicts ``{"b{bi}": block params}``, and
+    ``encoder`` (Whisper) one such group: ``[[n_enc_layers block
+    params]]``."""
     dt = _dtype(cfg)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
@@ -139,6 +282,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
                                         dtype=dt)
+    if cfg.n_enc_layers:  # whisper encoder over the frame embeddings
+        params["encoder"] = [[_block_init(gen, cfg, "attn_bidir", "dense")
+                              for _ in range(cfg.n_enc_layers)]]
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, dt, gen.device)
     params["groups"] = [
         [{f"b{bi}": _block_init(gen, cfg, mixer, ffn)
           for bi, (mixer, ffn) in enumerate(pattern)}
@@ -148,21 +295,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    dt = _dtype(cfg)
-    hd = cfg.resolved_head_dim
     groups = []
     for pattern, repeats in cfg.layout:
         slots = {}
         for bi, (mixer, _ffn) in enumerate(pattern):
-            if mixer not in ("attn", "attn_local"):
-                raise _unsupported(f"a decode cache for mixer {mixer!r}")
-            shape = (repeats, batch, max_len, cfg.n_kv_heads, hd)
+            one = _block_cache(cfg, mixer, batch, max_len, device)
             slots[f"b{bi}"] = {
-                "k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device),
-                "index": torch.zeros((repeats,), dtype=torch.int64,
-                                     device=device),
-            }
+                name: x[None].repeat((repeats,) + (1,) * x.dim())
+                for name, x in one.items()}
         groups.append(slots)
     return {"groups": groups}
 
@@ -190,13 +330,15 @@ def _checkpoint_kw(remat) -> dict:
 
 
 def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
-                invariants: bool = False, remat=False):
+                cross_src=None, invariants: bool = False, remat=False):
     """Loop over every layout group; returns (x, new_cache, aux, inv_ok).
 
-    K/V are written in place into the stacked cache; the per-layer cache
-    indices are gathered into a fresh ``index`` leaf per pattern slot.
-    ``remat`` (training, no cache) checkpoints each block: True saves
-    nothing, "dots" the unbatched matmuls' outputs.
+    Attention K/V (and a ``dec`` block's cross K/V) are written in place
+    into the stacked cache; a recurrent block's new state is copied into
+    its layer's slice; the per-layer cache indices are gathered into a
+    fresh ``index`` leaf per pattern slot.  ``remat`` (training, no cache)
+    checkpoints each block: True saves nothing, "dots" the unbatched
+    matmuls' outputs.
     """
     new_groups = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -211,36 +353,58 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
                 if gcache is not None:
                     c_in = {name: leaf[r] for name, leaf in gcache[key].items()}
                 if remat and c_in is None:
-                    def body(h, lp, mixer=mixer, ffn=ffn):
+                    def body(h, lp, src, mixer=mixer, ffn=ffn):
                         out = _block_apply(lp, h, cfg, mixer, ffn,
-                                           positions=positions, abft=abft,
+                                           positions=positions,
+                                           cross_src=src, abft=abft,
                                            invariants=invariants)
                         return out[0], out[2], out[3]
                     # the blocks draw no random numbers: no RNG state to keep
                     x, aux, ok_b = torch.utils.checkpoint.checkpoint(
-                        body, x, layer[key], **_checkpoint_kw(remat))
+                        body, x, layer[key], cross_src,
+                        **_checkpoint_kw(remat))
                     c_out = None
                 else:
                     x, c_out, aux, ok_b = _block_apply(
                         layer[key], x, cfg, mixer, ffn, positions=positions,
-                        cache=c_in, abft=abft, invariants=invariants)
+                        cache=c_in, cross_src=cross_src, abft=abft,
+                        invariants=invariants)
                 aux_total = aux_total + aux
                 ok_total = ok_total & ok_b
-                if c_out is not None:
-                    new_index[key].append(c_out["index"])
+                if c_out is None:
+                    continue
+                for name, new in c_out.items():
+                    if name == "index":
+                        new_index[key].append(new)
+                    elif new is not c_in[name]:
+                        c_in[name].copy_(new)
         if gcache is not None:
             new_groups.append({
-                key: {**gcache[key], "index": torch.stack(new_index[key])}
+                key: ({**gcache[key], "index": torch.stack(new_index[key])}
+                      if new_index[key] else gcache[key])
                 for key in gcache})
     new_cache = {"groups": new_groups} if cache is not None else None
     return x, new_cache, aux_total, ok_total
 
 
+def _encode_frames(params, frames, cfg: ModelConfig):
+    """Whisper encoder over precomputed frame embeddings (conv stub).  As in
+    the reference, the encoder's projections run unprotected."""
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device)
+    for layer in params["encoder"][0]:
+        x = _block_apply(layer, x, cfg, "attn_bidir", "dense",
+                         positions=positions)[0]
+    return rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
-            abft=None, return_hidden: bool = False, invariants: bool = False,
-            remat=False):
+            frames=None, img_emb=None, abft=None, return_hidden: bool = False,
+            invariants: bool = False, remat=False):
     """Train/prefill forward. tokens: [B,S] -> logits [B,S,V] fp32.
 
+    frames: [B, n_frames, d_model] (whisper stub input);
+    img_emb: [B, n_img_tokens, d_model] (vlm stub input).
     return_hidden: skip the unembedding and return the post-final-norm
     hidden state [B,S,D] instead of logits.
     invariants: run the embedding-gather and rmsnorm construction checks
@@ -251,7 +415,6 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
     present (an fp32 copy the serving engine caches once) instead of
     casting the table on every call; the numbers are the same.
     """
-    _check_supported(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
@@ -261,9 +424,15 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
         x = embed_apply(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    cross_src = None
+    if cfg.n_enc_layers and frames is not None:
+        cross_src = _encode_frames(params, frames, cfg)
+    elif img_emb is not None:
+        cross_src = img_emb
     x, new_cache, aux, ok_run = _run_groups(params, x, cfg,
                                             positions=positions, cache=cache,
-                                            abft=abft, invariants=invariants,
+                                            cross_src=cross_src, abft=abft,
+                                            invariants=invariants,
                                             remat=remat)
     if invariants:
         x, ok_fn = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
@@ -287,28 +456,29 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
         (out, new_cache, aux)
 
 
-def decode_step(params, token, pos, cache, cfg: ModelConfig, *, abft=None,
-                return_hidden: bool = False):
+def decode_step(params, token, pos, cache, cfg: ModelConfig, *,
+                img_emb=None, abft=None, return_hidden: bool = False):
     """One-token decode. token: [B,1]; pos: scalar (lockstep batch) or
     [B] vector (continuous batching: per-slot positions).
     return_hidden: return the post-final-norm hidden [B,1,D] instead of
     logits [B,V]."""
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     out, new_cache, _ = forward(params, token, cfg, positions=positions,
-                                cache=cache, abft=abft,
+                                cache=cache, img_emb=img_emb, abft=abft,
                                 return_hidden=return_hidden)
     if return_hidden:
         return out, new_cache
     return out[:, -1], new_cache
 
 
-def loss_fn(params, tokens, labels, cfg: ModelConfig, *, abft=None,
-            remat=False, aux_weight: float = 0.01,
+def loss_fn(params, tokens, labels, cfg: ModelConfig, *, frames=None,
+            img_emb=None, abft=None, remat=False, aux_weight: float = 0.01,
             invariants: bool = False):
-    """Scalar LM loss (mean next-token NLL + ``aux_weight`` x aux); with
-    ``invariants=True`` returns ``(loss, inv_ok)``."""
-    out = forward(params, tokens, cfg, abft=abft, remat=remat,
-                  invariants=invariants)
+    """Scalar LM loss (mean next-token NLL + ``aux_weight`` x aux, the MoE
+    load-balance loss summed over the layers); with ``invariants=True``
+    returns ``(loss, inv_ok)``."""
+    out = forward(params, tokens, cfg, frames=frames, img_emb=img_emb,
+                  abft=abft, remat=remat, invariants=invariants)
     logits, aux = out[0], out[2]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]

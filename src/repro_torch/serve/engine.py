@@ -7,7 +7,12 @@ package's ``repro/serve/engine.py`` (contiguous ``ServeEngine``):
   * a finished slot (max_new_tokens or EOS) retires immediately and a queued
     request is admitted: its prompt, padded to a power-of-two bucket, is
     prefilled as a single sequence and the resulting KV cache is scattered
-    into the freed slot,
+    into the freed slot.  Where the config has a recurrent mixer (mamba,
+    mLSTM, sLSTM) the prefill runs on exactly the prompt's tokens: a pad
+    token would enter the recurrent state the slot decodes from.  (The
+    reference pads these prompts too, so its recurrent configs decode from
+    a state that has read the pad tokens.)  The port is eager, so the exact
+    length costs no compile,
   * ``abft_mode="verify"`` carries checksum columns through every projection
     of prefill and decode; with ``abft_backend="cuda"`` (or "auto" on the
     GPU) they run the fused dual-checksum CUDA kernel.
@@ -262,6 +267,8 @@ class ServeEngine:
                                 kernel_dtype=kernel_dtype).abft
         self.device = params["embed"]["table"].device
         self.params = self._prepare(params)
+        # recurrent state reads every token it is given: prefill exactly
+        self._recurrent = tf.is_recurrent(cfg)
 
         self.active: List[Optional[Request]] = [None] * slots
         self.queue: Deque[Request] = deque()
@@ -384,6 +391,11 @@ class ServeEngine:
         while b < n:
             b *= 2
         return min(b, self.max_len)
+
+    def _prefill_len(self, n: int) -> int:
+        """Tokens a prefill of ``n`` runs on: the bucket, or exactly ``n``
+        where a recurrent state would read the padding."""
+        return n if self._recurrent else self._bucket(n)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -553,7 +565,7 @@ class ServeEngine:
             req = self.queue.popleft()
             t0 = time.perf_counter()
             plen = len(req.prompt)
-            bucket = self._bucket(plen)
+            bucket = self._prefill_len(plen)
             prompt = torch.zeros((1, bucket), dtype=torch.int64,
                                  device=self.device)
             prompt[0, :plen] = torch.tensor(req.prompt, dtype=torch.int64)
@@ -768,6 +780,16 @@ class PagedServeEngine(ServeEngine):
     cache write shifts the chunk's K/V, and its tokens leave the contiguous
     engine's.)
 
+    Where the config has a recurrent mixer, a prefill or prefill chunk runs
+    on exactly its ``n`` tokens, as the contiguous engine's prefill does.
+    The recurrent state is not paged: it stays in the dense cache.  An
+    admission's first chunk starts from the initial state, each later chunk
+    continues from the state the one before left, and the decode steps
+    that run between the chunks do not advance it.  Such a config shares
+    no prefix, since no page holds the state at a prefix's end.  (The
+    reference starts every multi-token chunk from the zero state, and lets
+    the decode steps between chunks advance the slot's state.)
+
     ``scheduler``: an `SLOScheduler` (serve.scheduler) takes over queueing
     — `submit()` routes through its admission control (rejections land in
     ``self.rejected``) and `_admit` pops by aged effective priority.
@@ -787,6 +809,8 @@ class PagedServeEngine(ServeEngine):
         self.scheduler = scheduler
         self.kv = None                    # built by _fresh_cache
         self._kv_paths: Dict[str, tuple] = {}
+        self._state0: Dict[str, torch.Tensor] = {}
+        self._held: list = []
         self.rejected: List[Request] = []
         self._prefilling: Optional[dict] = None
         super().__init__(cfg, params, **kw)
@@ -797,14 +821,20 @@ class PagedServeEngine(ServeEngine):
         dense = super()._fresh_cache()
         shapes, paths = {}, {}
         for path, x in tree_leaves_with_path(dense):
-            # paged leaves: per-slot sequence-indexed float K/V, i.e.
-            # [repeats, slots, max_len, *tail]
-            if (_is_float(x) and x.dim() >= 4 and x.shape[1] == self.slots
-                    and x.shape[2] == self.max_len):
+            # paged leaves: the attention K/V, [repeats, slots, max_len,
+            # *tail]; a recurrent state (no max_len axis) stays dense-only
+            if path[-1] in ("k", "v") and x.shape[2] == self.max_len:
                 key = keystr(path)
                 shapes[key] = (tuple(x.shape), x.dtype)
                 paths[key] = path
         self._kv_paths = paths
+        # a 1-slot initial state for every dense-only leaf: the first chunk
+        # of an admission starts from it
+        self._state0 = {
+            keystr(path): x
+            for path, x in tree_leaves_with_path(
+                tf.init_cache(self.cfg, 1, 1, device=self.device))
+            if path[-1] != "index" and keystr(path) not in paths}
         self.kv = PagedKVCache(shapes, slots=self.slots,
                                max_len=self.max_len,
                                page_size=self.page_size,
@@ -831,8 +861,19 @@ class PagedServeEngine(ServeEngine):
     def _pre_decode(self):
         for key, path in self._kv_paths.items():
             self.kv.gather(key, out=tree_get(self.cache, path))
+        # a decode steps every slot's recurrent state: hold the state a
+        # chunked prefill is carrying, so the decode cannot advance it
+        self._held = []
+        if self._prefilling is not None and self._recurrent:
+            s = self._prefilling["slot"]
+            self._held = [(x, s, x[:, s].clone())
+                          for path, x in tree_leaves_with_path(self.cache)
+                          if keystr(path) in self._state0]
 
     def _post_decode(self):
+        for x, s, held in self._held:
+            x[:, s] = held
+        self._held = []
         # page-granular write-back + re-arm: ONE page per leaf per active
         # slot (the decode wrote exactly position pos[s])
         act = [s for s, r in enumerate(self.active) if r is not None]
@@ -898,8 +939,7 @@ class PagedServeEngine(ServeEngine):
     def _start_admission(self, s: int, req: Request):
         plen = len(req.prompt)
         need = min(plen + req.max_new_tokens, self.max_len)
-        prompt = req.prompt if (self.prefix_cache
-                                and not self._warming) else None
+        prompt = req.prompt if self._shares_prefix() else None
         start = self.kv.alloc_slot(s, need, prompt=prompt)
         if start or (self.chunk_prefill and plen > self.chunk_prefill):
             self._prefilling = {"slot": s, "req": req, "start": start}
@@ -907,7 +947,7 @@ class PagedServeEngine(ServeEngine):
         # no prefix hit, no chunking: the parent's prefill verbatim —
         # bit-identical admission vs the contiguous engine
         t0 = time.perf_counter()
-        bucket = self._bucket(plen)
+        bucket = self._prefill_len(plen)
         prompt_t = torch.zeros((1, bucket), dtype=torch.int64,
                                device=self.device)
         prompt_t[0, :plen] = torch.tensor(req.prompt, dtype=torch.int64)
@@ -926,8 +966,12 @@ class PagedServeEngine(ServeEngine):
         self.tokens[s, 0] = tok
         self.pos[s] = plen
         self.active[s] = req
-        if self.prefix_cache and not self._warming:
+        if self._shares_prefix():
             self.kv.register_prefix(s, req.prompt)
+
+    def _shares_prefix(self) -> bool:
+        return self.prefix_cache and not self._warming \
+            and not self._recurrent
 
     def _write_pages(self, s: int, cache_tree, start: int, end: int):
         """Persist positions [start, end) of a 1-slot cache into pages."""
@@ -941,7 +985,8 @@ class PagedServeEngine(ServeEngine):
     # -- chunked / prefix-shared prefill --------------------------------------
     def _slot_cache(self, s: int, start: int):
         """Dense 1-slot cache for a chunk: this slot's pages gathered,
-        non-paged leaves sliced from the engine cache, block indices set to
+        non-paged leaves sliced from the engine cache (the initial state
+        for an admission's first chunk, at start 0), block indices set to
         the chunk's start position."""
         def one(path, x):
             key = keystr(path)
@@ -950,6 +995,8 @@ class PagedServeEngine(ServeEngine):
             if path[-1] == "index":
                 return torch.full((x.shape[0],), start, dtype=torch.int64,
                                   device=self.device)
+            if start == 0 and key in self._state0:
+                return self._state0[key].clone()
             if x.dim() >= 2 and x.shape[1] == self.slots:
                 return x[:, s:s + 1]
             return x
@@ -977,7 +1024,7 @@ class PagedServeEngine(ServeEngine):
             n = min(self.chunk_prefill or plen - start, plen - start)
             t0 = time.perf_counter()
             # never past the cache: the bucket stops at max_len
-            bucket = min(self._bucket(n), self.max_len - start)
+            bucket = min(self._prefill_len(n), self.max_len - start)
             toks = torch.zeros((1, bucket), dtype=torch.int64,
                                device=self.device)
             toks[0, :n] = torch.tensor(req.prompt[start:start + n],

@@ -7,7 +7,12 @@ projections run kernel #1, differentiated through ``kernels.ops._FusedMM``),
 global-norm clipping and AdamW.  The step is eager PyTorch: it returns
 ``step_fn(state, batch) -> (new_state, metrics)`` with the reference's
 state ``{"params", "opt": {"m", "v", "count"}, "step"}`` and metrics
-``{"grad_norm", "lr", "loss"}``.
+``{"grad_norm", "lr", "loss"}``.  A batch may carry ``frames`` (Whisper's
+encoder input) and ``img_emb`` (the vision stub's) beside ``tokens`` and
+``labels``; the MoE load-balance loss enters the loss with weight
+``aux_weight``.  ``invariant_checks`` runs the embedding-gather and rmsnorm
+construction checks inside the loss and reports their AND as
+``metrics["inv_ok"]`` (1.0 when every check held, over every microbatch).
 
 The deferred gradient reduction runs at DP extent 1, as the reference's
 does on one device: ``defer_grad_reduce`` reduces once after the
@@ -27,9 +32,8 @@ what the block checkpoints recompute (``"nothing"`` saved, or the
 
 Counterpart of the reference package's ``repro/train/step.py``.  Gradient
 compression, ZeRO-2 and FSDP raise ``NotImplementedError`` naming port
-slice 13, the construction invariants naming port slice 12; its prefill and
-serve steps have no counterpart, since the serving engine calls the model
-directly.
+slice 13; its prefill and serve steps have no counterpart, since the
+serving engine calls the model directly.
 """
 from __future__ import annotations
 
@@ -87,6 +91,7 @@ class StepOptions:
     grad_compression: str = "none"
     zero2: bool = False
     fsdp: bool = False
+    # the construction invariants inside the loss (metrics["inv_ok"])
     invariant_checks: bool = False
 
     @property
@@ -128,9 +133,6 @@ def _check_options(opts: StepOptions) -> None:
         "grad_compression": (opts.grad_compression != "none", _DIST),
         "zero2": (opts.zero2, _DIST),
         "fsdp": (opts.fsdp, _DIST),
-        "invariant_checks": (opts.invariant_checks,
-                             "port slice 12 (the protected LM) of "
-                             "ROADMAP.md"),
     }
     for name, (on, where) in later.items():
         if on:
@@ -164,35 +166,49 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                          f"{shape.global_batch}")
     abft = opts.abft
 
-    def value_and_grad(params, tokens, labels):
+    inv_on = opts.invariant_checks
+
+    def value_and_grad(params, tokens, labels, extra):
+        """``(loss, grads, inv_ok)``; ``inv_ok`` is None with the checks
+        off."""
         leaves = tree_leaves(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
-        loss = tf.loss_fn(tree_unflatten(params, live), tokens, labels, cfg,
-                          abft=abft, remat=opts.remat_arg,
-                          aux_weight=opts.aux_weight)
+        out = tf.loss_fn(tree_unflatten(params, live), tokens, labels, cfg,
+                         abft=abft, remat=opts.remat_arg,
+                         aux_weight=opts.aux_weight, invariants=inv_on,
+                         **extra)
+        loss, ok = out if inv_on else (out, None)
         grads = torch.autograd.grad(loss, live)
-        return loss.detach(), tree_unflatten(params, list(grads))
+        return loss.detach(), tree_unflatten(params, list(grads)), ok
 
-    def accumulate(params, tokens, labels):
+    def accumulate(params, tokens, labels, extra):
         """Microbatch loop with fp32 gradient accumulators (one microbatch:
         the grads in the params' dtype, as the reference)."""
         if m == 1:
-            return value_and_grad(params, tokens, labels)
+            return value_and_grad(params, tokens, labels, extra)
         loss_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        ok_acc = torch.ones((), dtype=torch.bool, device=tokens.device)
         g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
-        for tok, lab in zip(tokens.chunk(m), labels.chunk(m)):
-            loss, g = value_and_grad(params, tok, lab)
+        parts = [x.chunk(m) for x in (tokens, labels, *extra.values())]
+        for i in range(m):
+            mb = {k: v[i] for k, v in zip(extra, parts[2:])}
+            loss, g, ok = value_and_grad(params, parts[0][i], parts[1][i], mb)
             loss_acc = loss_acc + loss
+            if ok is not None:
+                ok_acc = ok_acc & ok
             g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
-        return loss_acc / m, tree_map(lambda g: g / m, g_acc)
+        return (loss_acc / m, tree_map(lambda g: g / m, g_acc),
+                ok_acc if inv_on else None)
 
     def step_fn(state, batch):
         params = state["params"]
         dev = tree_leaves(params)[0].device
         tokens = _as_tokens(batch["tokens"], dev)
         labels = _as_tokens(batch["labels"], dev)
-        loss, grads = accumulate(params, tokens, labels)
+        extra = {k: torch.as_tensor(batch[k], device=dev)
+                 for k in ("frames", "img_emb") if batch.get(k) is not None}
+        loss, grads, inv_ok = accumulate(params, tokens, labels, extra)
         reduce_ok = None
         if opts.abft_reduce != "off":
             # the reference's leaves: one stacked [R, ...] leaf per layout
@@ -210,6 +226,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         metrics = dict(metrics, loss=loss)
         if reduce_ok is not None:
             metrics["abft_ok"] = reduce_ok.float()
+        if inv_ok is not None:
+            metrics["inv_ok"] = inv_ok.float()
         return new_state, metrics
 
     return step_fn

@@ -26,7 +26,8 @@ from repro_torch.train.step import StepOptions, build_train_step, init_state
 from repro_torch.tree import tree_leaves
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PACKAGES = ("core", "chaos", "ft", "train", "models", "kernels", "solvers")
+PACKAGES = ("core", "chaos", "ft", "train", "models", "kernels", "solvers",
+            "configs")
 
 # the reference's exports the port has no counterpart of yet, with the
 # slice that brings each
@@ -34,7 +35,7 @@ NOT_PORTED = {
     "ft": {"ElasticReport", "MeshGeneration"},                   # slice 13
     "train": {"build_prefill_step", "build_serve_step",
               "make_inputs"},                                    # slice 14
-    "models": {"moe", "mamba", "xlstm"},                         # slice 12
+    "models": set(),
     # the Pallas entry points; the port's are the *_cuda names below
     "kernels": {"abft_matmul_pallas", "abft_matmul_acc_pallas",
                 "checksum_encode_pallas"},
@@ -110,6 +111,33 @@ def test_the_exports_import_without_jax():
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_every_config_imports_without_jax():
+    """The registry holds the reference's ten configs, each the same
+    dataclass, and loading them imports neither jax nor the reference."""
+    from repro.configs import get_config as jget
+    from repro.configs import list_configs as jlist
+    from repro_torch.configs import get_config, list_configs
+    assert list_configs() == jlist()
+    for name in jlist():
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(jget(name))
+    code = ("from repro_torch.configs import list_configs, get_config\n"
+            "import sys\n"
+            "names = list_configs()\n"
+            "assert len(names) == 10, names\n"
+            "[get_config(n) for n in names]\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.')) or m == 'repro']\n"
+            "assert not bad, bad\n"
+            "print(' '.join(names))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == jlist()
 
 
 def test_step_options_default_as_the_reference():

@@ -205,6 +205,13 @@ def test_invariants_and_unsupported_kinds(rs):
                                 invariants=True)
     assert bool(okt) and bool(okj)
     assert_close(lt, lj)
-    with pytest.raises(NotImplementedError):
-        ttf.init_params(torch.Generator().manual_seed(0),
-                        cfg_t.scaled(layout=((((("mamba", "dense"),), 1),))))
+    # a Mamba block builds and runs (every layer kind of the reference is
+    # ported; tests/test_torch_lm_families.py holds them to it)
+    cfg_m = cfg_t.scaled(layout=((((("mamba", "dense"),), 1),)))
+    pm = ttf.init_params(torch.Generator().manual_seed(0), cfg_m)
+    assert sorted(pm["groups"][0][0]["b0"]) == ["mamba", "mlp", "norm1",
+                                                "norm2"]
+    lm, _, _, okm = ttf.forward(pm, torch.from_numpy(toks), cfg_m,
+                                invariants=True)
+    assert bool(okm) and lm.shape == (1, 6, cfg_m.vocab_size)
+    assert bool(torch.isfinite(lm).all())

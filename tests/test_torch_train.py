@@ -52,7 +52,10 @@ from repro_torch.train.step import StepOptions, build_train_step, \
     init_state
 from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map, \
     tree_unflatten
-from torch_port_helpers import assert_close, to_np
+from torch_port_helpers import (assert_close, one_torch_thread,  # noqa: F401
+                                to_np)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARCH = "qwen2-0.5b"
 SHAPE = ShapeConfig("t", 32, 8, "train")
@@ -510,11 +513,11 @@ def test_encode_runs_the_kernel_path_once_per_floating_leaf():
 
 def test_what_is_not_ported_raises():
     # the deferred, protected reduction and its SDC drill are ported
-    # (tests/test_torch_elastic.py), and ZeRO-1 is the identity at DP
-    # extent 1 (tests/test_torch_exports.py); the options below are not
+    # (tests/test_torch_elastic.py), ZeRO-1 is the identity at DP extent 1
+    # (tests/test_torch_exports.py) and the invariant checks run
+    # (test_invariant_checks_match_reference); the options below are not
     for field, value in [("grad_compression", "int8_ef"),
-                         ("zero2", True), ("fsdp", True),
-                         ("invariant_checks", True)]:
+                         ("zero2", True), ("fsdp", True)]:
         with pytest.raises(NotImplementedError, match="slice"):
             build_train_step(tsmoke(ARCH), SHAPE,
                              opts=StepOptions(**{field: value}))
@@ -530,3 +533,61 @@ def test_train_without_gpu_raises_instead_of_falling_back():
         pytest.skip("a GPU is present; the check is for a host without one")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.run(ARCH, steps=1)
+
+
+def _rmsnorm_drill(mod, monkeypatch):
+    """Every checked rmsnorm of ``mod`` gets a +1.0 on its first
+    normalized element: the second-moment invariant must trip."""
+    orig = mod.rmsnorm_apply
+
+    def drilled(p, x, eps=1e-6, *, check=False, inject=None):
+        return orig(p, x, eps, check=check, inject=1.0 if check else inject)
+    monkeypatch.setattr(mod, "rmsnorm_apply", drilled)
+
+
+@pytest.mark.parametrize("drill", [False, True])
+@pytest.mark.parametrize("arch,microbatches", [
+    ("qwen2-0.5b", 1), ("qwen2-0.5b", 2), ("qwen3-moe-30b-a3b", 1),
+    ("jamba-1.5-large-398b", 2)])
+def test_invariant_checks_match_reference(monkeypatch, arch, microbatches,
+                                          drill):
+    """StepOptions(invariant_checks=True): metrics["inv_ok"], the loss (the
+    MoE aux loss in it) and the grad norm equal the reference's
+    build_train_step on an Auto-axis 1 x 1 mesh; 1.0 on a clean step, 0.0
+    under a norm drill (each package's rmsnorm injected alike)."""
+    if drill:
+        _rmsnorm_drill(jtf, monkeypatch)
+        _rmsnorm_drill(ttf, monkeypatch)
+    cfg_j, cfg_t = jsmoke(arch), tsmoke(arch)
+    shape = ShapeConfig("t", 16, 4, "train")
+    mesh = _mesh()
+    jo = JOpts(microbatches=microbatches, remat=True, invariant_checks=True)
+    with jax.set_mesh(mesh):
+        fn, in_sh, out_sh = jbuild(cfg_j, mesh, shape,
+                                   jopt.AdamWConfig(**ADAMW), jo)
+        jfn = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)
+        jstate = jinit(jax.random.PRNGKey(0), cfg_j, jo)
+        batch = jdata.synthetic_batch(
+            jdata.DataConfig(cfg_j.vocab_size, 16, 4), 0)
+        _, mj = jfn(jax.device_put(jstate, in_sh[0]),
+                    jax.device_put({k: jnp.asarray(v)
+                                    for k, v in batch.items()}, in_sh[1]))
+    step = build_train_step(
+        cfg_t, shape, topt.AdamWConfig(**ADAMW),
+        StepOptions(microbatches=microbatches, remat=True,
+                    invariant_checks=True))
+    state = state_from_jax(jax.tree.map(np.asarray, jstate), cfg_t)
+    _, mt = step(state, batch)
+    assert float(mt["inv_ok"]) == float(mj["inv_ok"]) == \
+        (0.0 if drill else 1.0)
+    np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mt["grad_norm"]),
+                               float(mj["grad_norm"]), rtol=1e-4)
+
+
+def test_invariant_checks_reject_deferred_grad_reduce():
+    with pytest.raises(ValueError, match="invariant_checks"):
+        build_train_step(tsmoke(ARCH), SHAPE,
+                         opts=StepOptions(invariant_checks=True,
+                                          defer_grad_reduce=True))

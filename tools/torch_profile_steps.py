@@ -14,9 +14,17 @@ library GEMMs, copies, everything else) and the kernels that take the
 most, with their launch counts.  It then times the host's issue of one call
 at a decode shape (4 x 896 x 4866, fp32): kernel #1's wrapper, the
 dispatcher ``ops.abft_matmul`` that the model calls, and ``torch.matmul``.
-Needs one CUDA card:
+``--families`` instead profiles a served config at its published width
+and depth in bf16 (``--arch``, one that fits the card: Qwen3-30B-A3B by
+default): the device over a serving run of 4 requests from the end of its
+warm-up, then two decode steps with host activity too: the host ops that
+take the most self time, and the synchronizing calls
+(``cudaStreamSynchronize``, ``cudaDeviceSynchronize``, device-to-host
+copies).  Needs one CUDA card:
 
     python3 tools/torch_profile_steps.py --out build/profile_steps.json
+    python3 tools/torch_profile_steps.py --families \
+        --arch qwen3-moe-30b-a3b --out build/profile_families.json
 """
 from __future__ import annotations
 
@@ -195,9 +203,65 @@ def host_issue(torch) -> dict:
     return out
 
 
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpyAsync", "cudaMemcpy", "cudaEventSynchronize")
+
+
+def profile_families(torch, arch: str) -> dict:
+    from repro_torch.launch.serve import run as serve
+    from repro_torch.serve.engine import Request
+    prof = _trace(torch)
+    t = {}
+
+    def start(_engine):
+        torch.cuda.synchronize()
+        prof.start()
+        t["t0"] = time.perf_counter()
+
+    lens = [37, 77, 100, 123]
+    _, eng = serve(arch, smoke=False, requests=4, slots=4, prompt_lens=lens,
+                   gen=8, abft_mode="verify", kernel_dtype="bf16",
+                   device="cuda", on_warm=start, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t["t0"]
+    prof.stop()
+    stats = eng.stats.summary()
+    out = summarize(torch, prof, wall, 1)
+    out.update(arch=arch, layers=eng.cfg.n_layers,
+               decode_step_ms=stats["clean_step_ms"],
+               prefill_ms=1e3 * stats["prefill_s"] / max(stats["prefills"],
+                                                          1))
+    # two decode steps with the host's ops recorded as well
+    eng.reset()
+    for i, n in enumerate(lens):
+        eng.submit(Request(rid=i, prompt=[1] * n, max_new_tokens=8))
+    eng._admit()
+    eng._step([])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as hp:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng._step([])
+        torch.cuda.synchronize()
+        host_wall = time.perf_counter() - t0
+    rows = sorted(hp.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    out["traced_steps_ms"] = 1e3 * host_wall / 2
+    out["host_top"] = [dict(name=e.key, calls=e.count // 2,
+                            self_cpu_ms=e.self_cpu_time_total / 2e3)
+                       for e in rows[:25]]
+    out["syncs"] = {e.key: e.count // 2 for e in rows
+                    if any(e.key.startswith(c) for c in SYNC_CALLS)}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the results as JSON")
+    ap.add_argument("--families", action="store_true",
+                    help="profile a served config (--arch) instead")
+    ap.add_argument("--arch", default="qwen3-moe-30b-a3b")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -209,8 +273,11 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     res = dict(card=smi)
-    for name, fn in (("host_issue", host_issue), ("train", profile_train),
-                     ("serve", profile_serve)):
+    jobs = (("host_issue", host_issue), ("train", profile_train),
+            ("serve", profile_serve))
+    if args.families:
+        jobs = (("families", lambda t: profile_families(t, args.arch)),)
+    for name, fn in jobs:
         res[name] = fn(torch)
         print(json.dumps({name: res[name]}), flush=True)
         torch.cuda.empty_cache()
