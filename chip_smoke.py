@@ -20,7 +20,9 @@ the redundant-subspace CG solver, clean and drilled, and protect the
 full-width params with the FT context in its three encodings, and serve
 and run the LM's other families at their published widths: MoE, the
 Mamba/attention hybrid, xLSTM, Whisper's encoder-decoder and the vision
-config's cross attention.
+config's cross attention, and train Qwen2-0.5B at full width through the
+pod-loss drill on a logical (pod, data, model) mesh: shrink, resume and
+re-grow, with loss parity against a survivor mesh built from scratch.
 
     python3 chip_smoke.py
 
@@ -106,20 +108,24 @@ exits non-zero without printing a result):
  11. chaos    — kernels #4 and #2 against their plain versions on each of
                 the campaign's eight kernel drills (its inputs, tiles and
                 faults, clean and faulted calls); then
-                repro_torch.launch.chaos over the default space's train,
-                serve and solver workloads (--workload all), counts zeroed
-                just before it: its 96 rows (67 train and serve, 29
+                repro_torch.launch.chaos --check over the default space's
+                train, serve and solver workloads (--workload all), counts
+                zeroed just before it: its 103 rows (74 train and serve, 29
                 solver) with the outcome, rung and end state of the
-                reference's one-device campaign (CAMPAIGN_ROWS: 78
-                corrected, 3 detected, 8 clean sweeps, 7 skipped naming
-                port slice 13; episodes 15 corrected, 2 skipped, the six
-                solver episodes among the corrected; the solver's sustained
-                rate at parity 400 events per 1k iterations), kernel #4
-                launched 4 and kernel #2 21 times, kernel #3 once per
-                encoded leaf of every diskless encode and scrub verify (the
-                solver launches none), no plain call, nothing missed, no
-                false alarm, the uncovered ledger only ft.runtime/topology
-                (the artifact and matrix in chiprun_out/chaos.*);
+                reference's 8-device campaign (CAMPAIGN_ROWS: the 98 rows
+                of CAMPAIGN_PR7.json and the five dtype-variant kernel
+                rows; 89 corrected, 1 absorbed, 3 detected, 10 clean
+                sweeps, none skipped: shard loss, pod loss through rungs 3a
+                and 3b with re-grow and a slow pod demoted on the logical
+                (2, 2, 2) pod mesh, the serve rows on the logical (4, 2)
+                mesh; episodes 17 corrected, the six solver episodes among
+                them; the solver's sustained rate at parity 400 events per
+                1k iterations), kernel #4 launched 4 and kernel #2 21
+                times, kernel #3 once per encoded leaf of every diskless
+                encode, re-key and scrub verify (the solver launches none),
+                no plain call, nothing missed, no false alarm, the
+                uncovered ledger empty and the gate passing (the artifact
+                and matrix in chiprun_out/chaos.*);
  12. serve-ft — repro_torch.launch.serve.run on Qwen2-0.5B at full width in
                 fp32 (the bit-flip model is on 32-bit words), ABFT verify
                 on kernel #1 (168 launches a pass, no plain call), 8
@@ -204,7 +210,26 @@ exits non-zero without printing a result):
                 forward) and Llama-3.2-Vision-11B whole in bf16 (a
                 forward over 1024 seeded image embeddings, verify against
                 off within 2 x the fp32 copy's noise); peak memory,
-                prefill and decode-step walls printed.
+                prefill and decode-step walls printed;
+ 17. elastic  — repro_torch.launch.train.run_elastic_drill on Qwen2-0.5B at
+                full width in fp32 (5.93 GB of train state), batch 16 x seq
+                128, kernel #3 for every diskless encode (counts zeroed
+                just before (a), read after (b), no plain call): (a) on
+                the logical (2, 2, 2) mesh, 10 steps, a pod lost at step 4
+                (rung 3b: disk restore at step 3 onto (2, 2)), re-grown at
+                step 8 onto generation 0's step, a disk save every 3 steps
+                (5 saves, under a temporary directory of build/ removed at
+                the end): params after the restore bit for bit the
+                from-scratch reference's, max |dloss| 0.0 over the 5
+                compared steps; (b) on (2, 1, 1), 5 steps, a pod lost at
+                step 2 (rung 3a: the diskless checkpoint solved and
+                re-encoded at p = 1): params within 1e-4 and losses within
+                1e-3 of the disk-restored reference; (c) kernel #3 against
+                its plain version on the p = 4 and p = 2 states the drills
+                encoded, kernel, plain, torch.matmul and bound times of one
+                whole-state encode; (d) each transition's report (bytes
+                moved and re-specced, reshard and build walls), the step
+                wall at each DP extent and peak memory.
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -1651,11 +1676,13 @@ def _campaign_pairs(torch):
     return out
 
 
-# every row of the reference's one-device campaign over the default space's
-# train, serve and solver workloads (PYTHONPATH=src JAX_PLATFORMS=cpu python
-# -m repro.launch.chaos --space default --workload all), in its order: name,
-# outcome, rung, end state (None = within the promise, for the kernel drills
-# whose float repair may land bit-identical on the card)
+# every row of the reference's campaign over the default space's train,
+# serve and solver workloads on 8 devices (pod mesh 2 x 2 x 2, serve mesh
+# 4 x 2), in its order: CAMPAIGN_PR7.json's 98 rows, with the five
+# dtype-variant kernel rows the space has gained since at the reference's
+# one-device values (they run no mesh): name, outcome, rung, end state
+# (None = within the promise, for the kernel drills whose float repair may
+# land bit-identical on the card)
 CAMPAIGN_ROWS = [
     ('train:sdc_collective:s2', 'corrected', 'abft_inflight', 'within_tol'),
     ('train:checksum_state_flip:s1', 'detected', None, 'bit_identical'),
@@ -1669,7 +1696,7 @@ CAMPAIGN_ROWS = [
     ('train:dram_params:s2', 'corrected', 'scrub:diskless', 'bit_identical'),
     ('train:dram_opt_state:s2:b29',
      'corrected', 'scrub:diskless', 'bit_identical'),
-    ('train:shard_loss:s3', 'corrected', 'diskless', 'bit_identical'),
+    ('train:shard_loss:s3', 'corrected', 'diskless', 'within_tol'),
     ('serve:sdc_collective:s1', 'corrected', 'abft_inflight', 'bit_identical'),
     ('serve:dram_kv_cache:s2',
      'corrected', 'scrub:kv_repair', 'bit_identical'),
@@ -1684,7 +1711,7 @@ CAMPAIGN_ROWS = [
     ('train:sdc_collective:s4:d-30000:seed1',
      'corrected', 'abft_inflight', 'within_tol'),
     ('serve:sdc_collective:s3:sh1:d-30000:seed1',
-     'skipped', None, 'not_compared'),
+     'corrected', 'abft_inflight', 'bit_identical'),
     ('serve:dram_params:s0', 'corrected', 'scrub:restore', 'bit_identical'),
     ('train:flash_state_flip:s2:l:seed1',
      'corrected', 'flash:recompute_tile', None),
@@ -1694,10 +1721,12 @@ CAMPAIGN_ROWS = [
      'corrected', 'kernel:masked_recompute', None),
     ('train:sdc_collective:s2:b28:seed3',
      'corrected', 'kernel:masked_recompute', None),
-    ('train:shard_loss:s3:sh1:seed1', 'skipped', None, 'not_compared'),
-    ('train:pod_loss:s3:diskless', 'skipped', None, 'not_compared'),
-    ('train:pod_loss:s3:disk:seed1', 'skipped', None, 'not_compared'),
-    ('train:slow_pod:s1', 'skipped', None, 'not_compared'),
+    ('train:shard_loss:s3:sh1:seed1', 'corrected', 'diskless', 'within_tol'),
+    ('train:pod_loss:s3:diskless',
+     'corrected', 'elastic:diskless', 'within_tol'),
+    ('train:pod_loss:s3:disk:seed1',
+     'corrected', 'elastic:disk', 'within_tol'),
+    ('train:slow_pod:s1', 'corrected', 'demote:disk', 'within_tol'),
     ('solver:pod_loss:s5:p2', 'corrected', 'solver:failover', 'within_tol'),
     ('train:sdc+dram_burst::e0:sdc_collective',
      'corrected', 'abft_inflight', 'not_compared'),
@@ -1715,8 +1744,9 @@ CAMPAIGN_ROWS = [
      'corrected', 'scrub:kv_repair', 'not_compared'),
     ('serve:sdc+kv_dram::e2:dram_params',
      'corrected', 'scrub:restore', 'not_compared'),
-    ('episode:serve:sdc+kv_dram', 'corrected',
-     'abft_inflight+scrub:kv_repair+scrub:restore', 'bit_identical'),
+    ('episode:serve:sdc+kv_dram',
+     'corrected', 'abft_inflight+scrub:kv_repair+scrub:restore',
+     'bit_identical'),
     ('solver:sdc_during_pod_loss::e0:pod_loss',
      'corrected', 'solver:reweight', 'not_compared'),
     ('solver:sdc_during_pod_loss::e1:sdc_collective',
@@ -1738,10 +1768,22 @@ CAMPAIGN_ROWS = [
      'corrected', 'solver:failover', 'not_compared'),
     ('solver:poisson150::e2:pod_loss',
      'corrected', 'solver:reweight', 'not_compared'),
-    ('episode:solver:poisson150', 'corrected',
-     'solver:failover+solver:replica_repair+solver:reweight', 'within_tol'),
-    ('episode:train:dram+podloss', 'skipped', None, 'not_compared'),
-    ('episode:train:pod_repeat', 'skipped', None, 'not_compared'),
+    ('episode:solver:poisson150',
+     'corrected', 'solver:failover+solver:replica_repair+solver:reweight',
+     'within_tol'),
+    ('train:dram+podloss::e0:dram_params', 'absorbed', None, 'not_compared'),
+    ('train:dram+podloss::e1:pod_loss',
+     'corrected', 'elastic:diskless', 'not_compared'),
+    ('train:dram+podloss::e2:dram_params',
+     'corrected', 'scrub:diskless', 'not_compared'),
+    ('episode:train:dram+podloss',
+     'corrected', 'elastic:diskless+scrub:diskless', 'within_tol'),
+    ('train:pod_repeat::e0:pod_loss',
+     'corrected', 'elastic:diskless', 'not_compared'),
+    ('train:pod_repeat::e1:pod_loss',
+     'corrected', 'elastic:diskless', 'not_compared'),
+    ('episode:train:pod_repeat',
+     'corrected', 'elastic:diskless', 'within_tol'),
     ('solver:pod_repeat::e0:pod_loss',
      'corrected', 'solver:reweight', 'not_compared'),
     ('solver:pod_repeat::e1:pod_loss',
@@ -1800,8 +1842,8 @@ CAMPAIGN_ROWS = [
      'corrected', 'solver:replica_repair', 'not_compared'),
     ('solver:poisson150::e2:pod_loss',
      'corrected', 'solver:reweight', 'not_compared'),
-    ('episode:solver:poisson150', 'corrected',
-     'solver:guard_restart+solver:replica_repair+solver:reweight',
+    ('episode:solver:poisson150',
+     'corrected', 'solver:guard_restart+solver:replica_repair+solver:reweight',
      'within_tol'),
     ('solver:poisson400::e0:sdc_collective',
      'corrected', 'solver:replica_repair', 'not_compared'),
@@ -1815,21 +1857,24 @@ CAMPAIGN_ROWS = [
      'corrected', 'solver:guard_restart', 'not_compared'),
     ('solver:poisson400::e5:dram_params',
      'corrected', 'solver:guard_restart', 'not_compared'),
-    ('episode:solver:poisson400', 'corrected',
-     'solver:failover+solver:guard_restart+solver:replica_repair'
-     '+solver:reweight', 'within_tol'),
+    ('episode:solver:poisson400',
+     'corrected', 'solver:failover+solver:guard_restart+solver:replica_repair'
+     '+solver:reweight',
+     'within_tol'),
     ('train:clean_sweep:1x1:plain', 'clean', None, 'bit_identical'),
     ('train:clean_sweep:1x1:plain:7st', 'clean', None, 'bit_identical'),
     ('train:clean_sweep:1x1:protected', 'clean', None, 'bit_identical'),
     ('train:clean_sweep:1x1:protected:9st', 'clean', None, 'bit_identical'),
     ('train:clean_sweep:1x1:scrub', 'clean', None, 'bit_identical'),
-    ('serve:clean_sweep:1x1', 'clean', None, 'bit_identical'),
-    ('serve:clean_sweep:1x1xscrub', 'clean', None, 'bit_identical'),
+    ('train:clean_sweep:2x2x2:plain', 'clean', None, 'bit_identical'),
+    ('train:clean_sweep:2x2x2:plain:7st', 'clean', None, 'bit_identical'),
+    ('serve:clean_sweep:4x2', 'clean', None, 'bit_identical'),
+    ('serve:clean_sweep:4x2xscrub', 'clean', None, 'bit_identical'),
     ('solver:clean_sweep', 'clean', None, 'bit_identical'),
 ]
-CAMPAIGN_BY_OUTCOME = {"corrected": 78, "absorbed": 0, "detected": 3,
-                       "missed": 0, "false_alarm": 0, "clean": 8,
-                       "skipped": 7}
+CAMPAIGN_BY_OUTCOME = {"corrected": 89, "absorbed": 1, "detected": 3,
+                       "missed": 0, "false_alarm": 0, "clean": 10,
+                       "skipped": 0}
 
 
 def _count_encodes(calls):
@@ -1861,11 +1906,14 @@ def _count_encodes(calls):
 
 def phase_chaos(torch, record):
     """The chaos campaign's CLI over the default space's train, serve and
-    solver workloads on the card, counts zeroed just before it: every row
-    the reference's one-device campaign runs, with its outcome, rung and
-    end state, through ElasticRuntime (kernel #3 for every encode and scrub
-    verify), the protected serving engine, the kernel drills and the
-    float64 subspace solver (which launches no kernel of the port)."""
+    solver workloads on the card with its --check gate, counts zeroed just
+    before it: every row the reference's 8-device campaign runs, with its
+    outcome, rung and end state, through ElasticRuntime on the 1 x 1 and
+    the logical (2, 2, 2) pod mesh (kernel #3 for every encode, re-key and
+    scrub verify: shard loss, pod loss through rungs 3a and 3b and re-grow,
+    a slow pod demoted), the protected serving engine on the logical (4, 2)
+    mesh, the kernel drills and the float64 subspace solver (which launches
+    no kernel of the port)."""
     from repro_torch.kernels import abft_matmul as kmm
     from repro_torch.kernels import checksum_encode as kenc
     from repro_torch.kernels import flash_attention as kfa
@@ -1884,7 +1932,8 @@ def phase_chaos(torch, record):
         with contextlib.redirect_stdout(io.StringIO()):   # the matrix: file
             rc = chaos.main(["--space", "default", "--workload", "all",
                              "--json", str(out), "--markdown",
-                             str(out.with_suffix(".md")), "--quiet"])
+                             str(out.with_suffix(".md")), "--quiet",
+                             "--check"])
         wall = time.perf_counter() - t0
         counts = dict(flash=kfa.launches, flash_plain=kfa.plain_calls,
                       acc=kmm.acc_launches, acc_plain=kmm.acc_plain_calls,
@@ -1899,8 +1948,8 @@ def phase_chaos(torch, record):
                  f"{calls['verifies']} scrub verifies); plain calls "
                  f"{counts['flash_plain']} / {counts['acc_plain']} / "
                  f"{counts['encode_plain']}")
-    # the port's uncovered ledger (the pod surface) fails the gate's ledger
-    # clause only with --check: rc stays 0
+    # --check: nothing missed or skipped, no false alarm, the uncovered
+    # ledger empty
     if rc != 0:
         raise AssertionError(f"chaos CLI returned {rc}")
     # kernel #4: a clean and a checked run per flash spec (2); kernel #2:
@@ -1924,14 +1973,14 @@ def phase_chaos(torch, record):
         if e["outcome"] != outcome or e["rung"] != rung or not ok_end:
             raise AssertionError(f"{name}: {e['outcome']} {e['rung']} "
                                  f"{e['end_state']} ({e['note']})")
-        if outcome == "skipped" and "slice 13" not in e["note"]:
-            raise AssertionError(f"{name} skipped without naming port slice "
-                                 f"13: {e['note']}")
-        if name in CHAOS_ROWS or outcome == "skipped":
+        pod = e["kind"] in ("pod_loss", "slow_pod") or ":sh1" in name \
+            or name.startswith(("train:shard_loss", "train:dram+podloss",
+                                "train:pod_repeat", "episode:train:dram+pod",
+                                "episode:train:pod_repeat"))
+        if name in CHAOS_ROWS or pod:
             log("chaos", f"{name}: {e['outcome']}, rung {e['rung']}, "
                          f"{e['end_state']} (max diff {e['max_abs_diff']})"
-                         + (f": {e['note']}" if outcome == "skipped"
-                            else ""))
+                         + (f": {e['note']}" if pod else ""))
     summ = d["summary"]
     if summ["by_outcome"] != CAMPAIGN_BY_OUTCOME \
             or summ["missed_anywhere"] or summ["false_alarms"]:
@@ -1939,7 +1988,7 @@ def phase_chaos(torch, record):
                              f"{summ['missed_anywhere']}, false alarms "
                              f"{summ['false_alarms']}")
     eps = {k: v for k, v in d["episodes"]["by_outcome"].items() if v}
-    if eps != {"corrected": 15, "skipped": 2}:
+    if eps != {"corrected": 17}:
         raise AssertionError(f"episodes {eps}")
     solver_eps = [e for e in d["episodes"]["episodes"]
                   if e["workload"] == "solver"]
@@ -1949,11 +1998,11 @@ def phase_chaos(torch, record):
             or rate["sustained_rate_per_1k"] != 400.0:
         raise AssertionError(f"solver episodes {solver_eps}, rate {rate}")
     ledger = [s["surface"] for s in d["uncovered_surfaces"]]
-    if ledger != ["ft.runtime/topology"]:
+    if ledger:
         raise AssertionError(f"uncovered ledger {ledger}")
     solver_wall = sum(e["wall_s"] for e in events
                       if e["workload"] == "solver" and not e["episode"])
-    log("chaos", f"{len(events)} rows as the reference's one-device "
+    log("chaos", f"{len(events)} rows as the reference's 8-device "
                  f"campaign: {summ['by_outcome']}; episodes {eps}; solver "
                  f"sustained rate at parity {rate['sustained_rate_per_1k']} "
                  f"events per 1k iterations (rates {rate['rates_tested']}); "
@@ -3379,6 +3428,204 @@ def _vision(torch, record, device, smoke):
     return row["launches"]
 
 
+# phase 17: elastic pods at full width
+ELASTIC_A = dict(mesh_shape=(2, 2, 2), steps=10, kill_pod_at=4, regrow_at=8,
+                 diskless_every=1, disk_every=3, keep=2, f=1)
+ELASTIC_B = dict(mesh_shape=(2, 1, 1), steps=5, kill_pod_at=2, regrow_at=None,
+                 diskless_every=2, disk_every=10, f=1)
+
+
+def _capture_encodes(seen):
+    """Wrap `DisklessCheckpoint.encode` to count the leaves each encode
+    hands kernel #3 and keep the first stacked state encoded at p = 4 and
+    p = 2; returns the function that unwraps it."""
+    from repro_torch.ckpt.diskless import DisklessCheckpoint
+    from repro_torch.tree import tree_leaves
+    enc = DisklessCheckpoint.encode
+
+    def encode(self, state, *a, **kw):
+        seen["encodes"] += 1
+        seen["leaves"] += sum(1 for x in tree_leaves(state)
+                              if self._encoded(x))
+        if self.p in (2, 4):
+            seen["by_p"].setdefault(self.p, state)
+        return enc(self, state, *a, **kw)
+
+    DisklessCheckpoint.encode = encode
+
+    def undo():
+        DisklessCheckpoint.encode = enc
+    return undo
+
+
+def _dp_walls(rep):
+    """Median step wall (s) at each DP extent of one drill, in the order
+    the steps ran (the first step of each stretch dropped)."""
+    a = rep["kill_pod_at"]
+    r = rep["rollback_step"]
+    g = rep["regrow_at"] if rep["regrow_at"] is not None else rep["steps"]
+    walls = rep["walls"]["steps"]
+    full = walls[:a] + walls[a + g - r:]
+    surv = walls[a:a + g - r]
+    return {"full": _median(full[1:]), "survivor": _median(surv[1:])}
+
+
+def phase_elastic(torch, record, card, device="cuda", smoke=False):
+    """The pod-loss drill through repro_torch.launch.train.run_elastic_drill
+    on Qwen2-0.5B at full width in fp32 (batch 16 x seq 128): (a) rung 3b
+    on the logical (2, 2, 2) mesh and (b) rung 3a on (2, 1, 1), kernel #3
+    for every encode at p = the DP extent (counts zeroed just before (a),
+    read after (b)); (c) kernel #3 against its plain version on the p = 4
+    and p = 2 states the drills encoded, with its times per whole-state
+    encode; (d) the transitions' costs, the step wall at each DP extent
+    and peak memory."""
+    import tempfile
+
+    from repro_torch.ckpt.diskless import encode_view
+    from repro_torch.core.checksum import checkpoint_matrix
+    from repro_torch.kernels import checksum_encode as kenc
+    from repro_torch.launch.train import run_elastic_drill
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    size = dict(batch=8, seq=16) if smoke else dict(batch=16, seq=128)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    saves = []
+    seen = dict(encodes=0, leaves=0, by_p={})
+    undo = _capture_encodes(seen)
+    (ROOT / "build").mkdir(exist_ok=True)
+    reps = {}
+    try:
+        kenc.reset_counts()
+        for key, kw in (("a", ELASTIC_A), ("b", ELASTIC_B)):
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    reps[key] = run_elastic_drill(
+                        "qwen2-0.5b", lr=1e-3, ckpt_dir=d, smoke=smoke,
+                        dtype="float32", device=device, verbose=False,
+                        **size, **kw)
+                reps[key]["phase_wall_s"] = time.perf_counter() - t0
+            saves.append(reps[key]["walls"]["save"])
+        launches, plain = kenc.launches, kenc.plain_calls
+    finally:
+        undo()
+    a, b = reps["a"], reps["b"]
+    pa, pb = a["parity"], b["parity"]
+    if not (a["shrink"]["restore_path"] == "disk"
+            and pa["params_bitwise_equal"] is True
+            and pa["max_abs_loss_diff"] == 0.0
+            and pa["steps_compared"] >= 3
+            and a["shrink"]["n_respecced"] > 0
+            and a["regrow"]["reused_executable"] is True
+            and a["regrow"]["gen_to"] == 2
+            and a["regrow"]["rollback_step"] is None
+            and a["recoveries"]["elastic"] == 2):
+        raise AssertionError(f"(a) rung 3b drill: parity {pa}, shrink "
+                             f"{a['shrink']}, regrow {a['regrow']}, "
+                             f"recoveries {a['recoveries']}")
+    if not (b["shrink"]["restore_path"] == "diskless"
+            and pb["steps_compared"] >= 3
+            and pb["params_max_abs_diff"] < 1e-4
+            and pb["max_abs_loss_diff"] < 1e-3
+            and b["recoveries"]["elastic"] == 1):
+        raise AssertionError(f"(b) rung 3a drill: parity {pb}, shrink "
+                             f"{b['shrink']}")
+    if not all(math.isfinite(v) for r in (a, b)
+               for v in r["losses"].values()):
+        raise AssertionError("a drill's loss is not finite")
+    # one launch per encoded leaf of every encode (the re-keys included)
+    want = (seen["leaves"], 0) if cuda else (0, seen["leaves"])
+    if (launches, plain) != want or sorted(seen["by_p"]) != [2, 4]:
+        raise AssertionError(f"kernel #3: {launches} launches, {plain} "
+                             f"plain calls over {seen['encodes']} encodes of "
+                             f"{seen['leaves']} leaves, p {sorted(seen['by_p'])}")
+    n_saves = [len(x) for x in saves]
+    if n_saves[0] > 5:
+        raise AssertionError(f"(a) wrote {n_saves[0]} disk saves")
+    for key, r in reps.items():
+        log("elastic", f"({key}) mesh {tuple(r['mesh'])}: shrink "
+                       f"{json.dumps(r['shrink'])}")
+        if r["regrow"]:
+            log("elastic", f"({key}) regrow {json.dumps(r['regrow'])}")
+        log("elastic", f"({key}) parity {json.dumps(r['parity'])}; "
+                       f"recoveries {r['recoveries']}; losses "
+                       f"{list(r['losses'].values())}; "
+                       f"{len(r['walls']['save'])} disk saves, host copy "
+                       f"walls {[round(x, 3) for x in r['walls']['save']]} "
+                       f"s; drill {r['phase_wall_s']:.2f} s")
+
+    # (c) kernel #3 against its plain version on the states the drills
+    # encoded, one whole-state encode summed over its launches
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=device) \
+        if cuda else None
+    enc = {}
+    for p in (4, 2):
+        a_m = checkpoint_matrix(1, p, device=device)
+        tot = dict(p=p, leaves=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                   library_ms=0.0, bound_ms=0.0, gbytes=0.0,
+                   bound_by="bytes")
+        for x in tree_leaves(seen["by_p"][p]):
+            if not (x.is_floating_point() and x.dim() >= 1
+                    and x.shape[0] == p):
+                continue
+            v = encode_view(x, p)
+            if cuda:
+                got = kenc.checksum_encode_cuda(v, a_m)
+            else:
+                got = kenc.checksum_encode_plain(v, a_m)
+            want_ = kenc.checksum_encode_plain(v, a_m)
+            terms = torch.matmul(a_m.abs(), v.reshape(p, -1).float().abs()) \
+                .reshape(want_.shape)
+            diff = (got.float() - want_.float()).abs()
+            if not bool((diff <= 4 * p * 2.0 ** -24 * terms).all()):
+                raise AssertionError(f"kernel #3 at p = {p}: kernel and "
+                                     f"plain differ by {float(diff.max())}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], float(diff.max()))
+            tot["leaves"] += 1
+            del got, want_, terms, diff
+            if cuda:
+                ms, plain_ms, lib_ms = enc_times(torch, v, a_m, flush, 3)
+                tot["ms"] += ms
+                tot["plain_ms"] += plain_ms
+                tot["library_ms"] += lib_ms
+            p_, m_, n_ = v.shape
+            b_ms, b_by = enc_bound(p_, 1, m_, n_, x.element_size())
+            if b_by != "bytes":
+                tot["bound_by"] = "bytes and operations"
+            tot["bound_ms"] += b_ms
+            tot["gbytes"] += (p_ + 1) * m_ * n_ * x.element_size() / 1e9
+        enc[p] = tot
+        log("elastic", f"(c) kernel #3 at p = {p}: " + json.dumps(tot))
+    seen["by_p"].clear()
+
+    # (d) every other cost
+    walls = {k: _dp_walls(r) for k, r in reps.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    log("elastic", f"(d) median step wall (s) at DP 4 / DP 2 (a): "
+                   f"{walls['a']['full']:.4f} / {walls['a']['survivor']:.4f};"
+                   f" at DP 2 / DP 1 (b): {walls['b']['full']:.4f} / "
+                   f"{walls['b']['survivor']:.4f}; reshard walls (s) "
+                   f"{[r['shrink']['reshard_wall_s'] for r in reps.values()]}"
+                   f" shrink, {a['regrow']['reshard_wall_s']:.4f} re-grow; "
+                   f"build walls (s) {a['shrink']['build_s']:.4f}; peak "
+                   f"{peak if peak is None else round(peak, 2)} GB; kernel "
+                   f"#3 {launches} launches over {seen['encodes']} encodes; "
+                   f"phase {time.perf_counter() - t_phase:.1f} s; {card}")
+    record["elastic"] = dict(
+        a={k: v for k, v in a.items() if k != "walls"},
+        b={k: v for k, v in b.items() if k != "walls"},
+        step_walls=walls, saves=saves, encode=enc, peak_gb=peak,
+        launches=launches, encodes=seen["encodes"],
+        phase_s=time.perf_counter() - t_phase, card=card)
+    if cuda:
+        del flush
+        torch.cuda.empty_cache()
+    return launches
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3414,6 +3661,7 @@ def main():
     phase_solver(torch, record, f"{name} ({smi})")
     families_launches, families_err = phase_families(torch, record,
                                                      f"{name} ({smi})")
+    elastic_launches = phase_elastic(torch, record, f"{name} ({smi})")
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -3479,6 +3727,8 @@ def main():
         # verifies
         "train_ft_launches": ft_launches,
         "chaos_launches": chaos_counts["encode"],
+        # phase 17: the pod-loss drills at p = 4 and p = 2, re-keys included
+        "elastic_launches": elastic_launches,
     }, {
         # the Qwen2-0.5B attention at full width (4 x 14 heads, S 4096,
         # D 64, causal, fp32), the shape SDPA computes the same function

@@ -16,16 +16,21 @@ calls for, injects exactly that fault, and classifies what happened:
     yet, or more devices than one; the row says why.  A spec is never
     dropped.
 
-Everything runs on the runner's device, one device, as the reference's
-campaign runs on one device, from the same ``np.random.RandomState`` draws:
+Everything runs on the runner's device, one device, from the same
+``np.random.RandomState`` draws as the reference's campaign on its 8
+devices: the port's meshes are logical (`dist.sharding.Mesh`, a shape
+placed on one device), so they always have the shape asked for:
 
-  * the train workload: an `ft.runtime.ElasticRuntime` loop (mesh 1 x 1)
-    with SDC in the protected gradient reduction (``abft_reduce``), DRAM
-    flips under the at-rest scrub (which re-encodes on kernel #3 on a CUDA
-    tensor), and shard loss with diskless recovery at ``p = 1``;
-  * the serve workload: a drilled `serve.engine.ServeEngine` (model extent
-    1) with SDC in the verified unembed's reduction and KV-cache and params
-    flips under its scrub;
+  * the train workload: an `ft.runtime.ElasticRuntime` loop with SDC in
+    the protected gradient reduction (``abft_reduce``) and DRAM flips under
+    the at-rest scrub (which re-encodes on kernel #3 on a CUDA tensor) on a
+    1 x 1 mesh, and on the (pod, data, model) pod mesh shard loss with
+    diskless recovery at ``p`` = the DP extent, pod loss through the
+    elastic shrink (rung 3a or 3b) and re-grow, and a slow pod demoted by
+    the straggler detector;
+  * the serve workload: a drilled `serve.engine.ServeEngine` on the (data,
+    model) mesh of `ServeConfig` (model extent 2) with SDC in the verified
+    unembed's reduction and KV-cache and params flips under its scrub;
   * the traffic workload: the paged `serve.engine.PagedServeEngine`
     replaying a small open-loop trace (`serve.traffic`) with SDC in the
     same reduction, page flips repaired by the page-granular scrub and
@@ -42,9 +47,7 @@ campaign runs on one device, from the same ``np.random.RandomState`` draws:
     #4), and the rmsnorm and embedding-gather invariants of
     ``models/layers.py``.
 
-Pod-loss and slow-pod faults of the train workload need a pod mesh and
-the pod paths of port slice 13: their rows are ``skipped`` and name the
-slice.  Traffic episodes are ``skipped`` as in the reference (it has no
+Traffic episodes are ``skipped`` as in the reference (it has no
 traffic episode adapter).
 """
 from __future__ import annotations
@@ -69,10 +72,6 @@ from repro_torch.tree import (keystr, stacked_leaves_with_path, tree_leaves,
 __all__ = ["TrainConfig", "ServeConfig", "TrafficConfig", "FaultResult",
            "CampaignResult", "CampaignRunner", "classify",
            "episode_outcome", "SOLVER_TOL"]
-
-# the slice that brings the runtime the skipped handlers need
-_ELASTIC = ("port slice 13 (multi-process distribution and "
-            "ElasticRuntime's pod paths)")
 
 # end-state tolerance for the solver workload: both the drilled and the
 # golden solve converge to ||b - A x|| <= rtol*||b||, so their iterates
@@ -110,8 +109,7 @@ class ServeConfig:
     n_requests: int = 4
     prompt_len: int = 8
     max_new_tokens: int = 5
-    mesh: Tuple[int, int] = (4, 2)          # (data, model) where the
-    #                                         devices exist; else (1, 1)
+    mesh: Tuple[int, int] = (4, 2)          # (data, model) logical mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -648,18 +646,13 @@ class CampaignRunner:
     # -- train workload -------------------------------------------------------
 
     def _train_mesh(self, spec: FaultSpec):
-        """(mesh_shape, axis_names, opts_tag) for one spec: every train
-        fault the port drills runs on one device.  SDC and DRAM faults run
-        under the fully protected step (deferred reduction + abft_reduce=
-        "correct"); shard loss degrades to one device as the reference's
-        does below a pod mesh (p = 1: the single logical shard is lost and
-        rebuilt); pod faults need the pod mesh."""
-        if spec.kind in ("pod_loss", "slow_pod"):
-            raise _Skip(f"needs {math.prod(self.train.pod_mesh)} devices for "
-                        f"pod mesh {self.train.pod_mesh}, have 1: the pod "
-                        f"paths come with {_ELASTIC}")
-        if spec.kind == "shard_loss":
-            return (1, 1), ("data", "model"), "plain"
+        """(mesh_shape, axis_names, opts_tag) for one spec: topology and
+        erasure faults run on the (logical) pod mesh, SDC and DRAM faults
+        on 1 x 1 under the fully protected step (deferred reduction +
+        abft_reduce="correct"), as the reference's campaign does with its
+        8 devices."""
+        if spec.kind in ("pod_loss", "slow_pod", "shard_loss"):
+            return self.train.pod_mesh, ("pod", "data", "model"), "plain"
         return (1, 1), ("data", "model"), "protected"
 
     def _train_opts(self, tag: str):
@@ -767,13 +760,13 @@ class CampaignRunner:
         if spec.kind != "slow_pod" and spec.step >= self.train.steps:
             raise _Skip(f"fire step {spec.step} >= workload steps "
                         f"{self.train.steps}: fault would never inject")
-        if spec.kind in ("pod_loss", "slow_pod"):
-            self._train_mesh(spec)      # raises _Skip: no pod mesh here
         handlers = {
             "sdc_collective": self._train_sdc,
             "dram_params": self._train_dram,
             "dram_opt_state": self._train_dram,
             "shard_loss": self._train_shard_loss,
+            "pod_loss": self._train_pod_loss,
+            "slow_pod": self._train_slow_pod,
         }
         return handlers[spec.kind](spec)
 
@@ -882,8 +875,7 @@ class CampaignRunner:
                                      spec.failure_plan()))
         if not 0 <= spec.shard < rt.p:
             rt.close()
-            raise _Skip(f"shard {spec.shard} outside DP extent {rt.p}: a "
-                        f"DP extent above 1 comes with {_ELASTIC}")
+            raise _Skip(f"shard {spec.shard} outside DP extent {rt.p}")
         try:
             state = rt.init_state(0)
             detected = False
@@ -913,12 +905,134 @@ class CampaignRunner:
                  "lost shard solved from the checksums, rollback bounded "
                  "by the encode cadence")
 
+    def _train_pod_loss(self, spec: FaultSpec) -> FaultResult:
+        """Whole-pod loss -> rung-3 elastic shrink (then re-grow), by the
+        variant-selected restore path: checksum capacity f=2 keeps the
+        loss within the diskless solve (rung 3a), f=1 forces the disk
+        restore (rung 3b)."""
+        from repro_torch.ft.runtime import FTPolicy
+
+        mesh_shape, names, tag = self._train_mesh(spec)
+        golden = self._golden_train(mesh_shape, names, tag)
+        f = 2 if spec.variant == "diskless" else 1
+        policy = FTPolicy(diskless_every=1, disk_every=1, f=f)
+        rt = self._train_runtime(mesh_shape, names, tag, policy=policy,
+                                 with_disk=True)
+        regrow_at = min(spec.step + 2, self.train.steps - 1)
+        try:
+            state = rt.init_state(0)
+            fired = regrown = False
+            rung = latency = rollback = None
+            rep = None
+            i = 0
+            while i < self.train.steps:
+                if not fired and i == spec.step:
+                    rt.ckpt.wait()      # in-flight async save must land
+                    state, rollback, rep = rt.lose_pod(state)
+                    fired = True
+                    rung = f"elastic:{rep.restore_path}"
+                    latency = rep.reshard_wall_s
+                    i = rollback
+                    continue
+                if fired and not regrown and i == regrow_at:
+                    state, _ = rt.regrow(state, at_step=i)
+                    regrown = True
+                rt.checkpoint(i, state)
+                state, _ = rt.train_step(i, state)
+                i += 1
+            if rt.ckpt is not None:
+                rt.ckpt.wait()
+            end_state, diff = _compare_trees(_host(state), golden["final"],
+                                             self.train.tol)
+        finally:
+            rt.close()
+        note = ""
+        if rep is not None:
+            note = (f"shrink {rep.mesh_from}->{rep.mesh_to} via "
+                    f"{rep.restore_path}, rollback to {rollback}, "
+                    f"{rep.bytes_respecced}/{rep.bytes_total} bytes "
+                    f"re-specced, build {rep.build_s:.3f}s"
+                    + (", regrown" if regrown else ""))
+        return self._result(
+            spec, detected=fired, corrected=fired, rung=rung,
+            latency=latency, end_state=end_state, max_abs_diff=diff,
+            # the reshard wall never includes a build: MeshGeneration
+            # measures it apart, and the eager step compiles nothing
+            warm_s=latency,
+            compile_s=rep.compile_s if rep is not None else None,
+            note=note)
+
+    def _train_slow_pod(self, spec: FaultSpec) -> FaultResult:
+        """Straggler: one pod's heartbeat reports (and really incurs) a
+        threshold-exceeding per-step delay; the EWMA detector must trip
+        and demote it through the elastic rung."""
+        from repro_torch.ft.runtime import FTPolicy
+
+        mesh_shape, names, tag = self._train_mesh(spec)
+        golden = self._golden_train(mesh_shape, names, tag)
+        policy = FTPolicy(diskless_every=1, disk_every=1, f=1,
+                          slow_pod_threshold=2.0, straggler_warmup=2)
+        rt = self._train_runtime(mesh_shape, names, tag, policy=policy,
+                                 with_disk=True)
+        n_pods = mesh_shape[0]
+        if not 0 <= spec.pod < n_pods:
+            rt.close()
+            raise _Skip(f"pod {spec.pod} outside pod extent {n_pods}")
+
+        def heartbeat(step, wall):
+            # the slow pod's host callback really is late: it sleeps past
+            # the demotion threshold (floor delay_s) and reports the wall
+            # it took
+            extra = spec.delay_s + policy.slow_pod_threshold * wall
+            time.sleep(min(extra, 0.5))
+            walls = [wall] * n_pods
+            walls[spec.pod] = wall + extra
+            return walls
+
+        rt.pod_heartbeat = heartbeat
+        try:
+            state = rt.init_state(0)
+            demoted = False
+            rung = latency = None
+            trip_step = None
+            rep = None
+            i = 0
+            while i < self.train.steps:
+                rt.checkpoint(i, state)
+                state, _ = rt.train_step(i, state)
+                pod = rt.maybe_straggler()
+                if pod is not None and not demoted:
+                    rt.pod_heartbeat = None   # the slow pod is drained
+                    state, rollback, rep = rt.demote_pod(state, pod)
+                    demoted = True
+                    trip_step = i
+                    rung = f"demote:{rep.restore_path}"
+                    latency = rep.reshard_wall_s
+                    i = rollback
+                    continue
+                i += 1
+            if rt.ckpt is not None:
+                rt.ckpt.wait()
+            end_state, diff = _compare_trees(_host(state), golden["final"],
+                                             self.train.tol)
+        finally:
+            rt.close()
+        return self._result(
+            spec, detected=demoted, corrected=demoted, rung=rung,
+            latency=latency, end_state=end_state, max_abs_diff=diff,
+            warm_s=latency,
+            compile_s=rep.compile_s if rep is not None else None,
+            note=(f"EWMA tripped at step {trip_step} "
+                  f"(threshold {policy.slow_pod_threshold}x, warmup "
+                  f"{policy.straggler_warmup}); demoted pod via lose_pod"
+                  if demoted else "detector never tripped"))
+
     # -- serve workload -------------------------------------------------------
 
     def _serve_mesh(self):
-        """One device: the model extent is 1 (the reference's fallback
-        below ``prod(ServeConfig.mesh)`` devices)."""
-        return (1, 1)
+        """The logical (data, model) mesh of `ServeConfig`: the model
+        extent the verified unembed reduces over."""
+        return tuple(self.serve.mesh)
 
     def _serve_prompts(self):
         from repro_torch.configs.base import smoke_config
@@ -945,7 +1059,8 @@ class CampaignRunner:
         params = tf.init_params(gen, cfg)
         eng = ServeEngine(cfg, params, slots=self.serve.slots,
                           max_len=self.serve.max_len, abft_reduce="correct",
-                          sdc=sdc, scrub_every=scrub)
+                          mesh=self._serve_mesh(), sdc=sdc,
+                          scrub_every=scrub)
         eng.warm(prompt_len=self.serve.prompt_len)
         if sdc is None:
             if scrub:
@@ -980,8 +1095,7 @@ class CampaignRunner:
             m_ext = self._serve_mesh()[1]
             if not 0 <= spec.shard < m_ext:
                 raise _Skip(f"shard {spec.shard} outside model extent "
-                            f"{m_ext}: a model extent above 1 comes with "
-                            f"{_ELASTIC}")
+                            f"{m_ext}")
             eng, prompts = self._serve_engine(
                 sdc=SDCInjector(spec.sdc_plan()))
             outputs = self._drive(eng, prompts)
@@ -1610,11 +1724,11 @@ class CampaignRunner:
 
     def _episode_train(self, ep: Episode) -> List[FaultResult]:
         """All events through ONE live ElasticRuntime loop.  Per-step
-        order: encode (clean) -> DRAM flips -> shard failures -> scrub ->
-        (drilled) step.  A shard-loss recovery restores the step's
-        pre-flip encode, so a DRAM flip landing in the same window is
-        ABSORBED by the rollback: attributed to the episode, not reported
-        as a miss."""
+        order: re-grow -> encode (clean) -> DRAM flips -> pod loss -> shard
+        failures -> scrub -> (drilled) step.  A pod-loss or shard-loss
+        recovery restores the step's pre-flip encode, so a DRAM flip
+        landing in the same window is ABSORBED by the rollback: attributed
+        to the episode, not reported as a miss."""
         from repro_torch.ft.runtime import FTPolicy
 
         specs = ep.resolved()
@@ -1624,27 +1738,41 @@ class CampaignRunner:
         if kinds - supported:
             raise _Skip(f"no train episode adapter for kinds "
                         f"{sorted(kinds - supported)}")
-        if "pod_loss" in kinds:
-            raise _Skip(f"needs {math.prod(self.train.pod_mesh)} devices "
-                        f"for pod mesh {self.train.pod_mesh}, have 1: the "
-                        f"pod paths come with {_ELASTIC}")
         needs_sdc = "sdc_collective" in kinds
-        mesh_shape, names = (1, 1), ("data", "model")
-        tag = "protected" if needs_sdc else "plain"
+        needs_pod = "pod_loss" in kinds
+        if needs_sdc and needs_pod:
+            # as in the reference, whose protected step and pod mesh do not
+            # share one episode
+            raise _Skip("sdc_collective and pod_loss cannot share one "
+                        "train episode")
+        if needs_pod:
+            mesh_shape, names = self.train.pod_mesh, ("pod", "data",
+                                                      "model")
+            tag = "plain"
+        else:
+            mesh_shape, names = (1, 1), ("data", "model")
+            tag = "protected" if needs_sdc else "plain"
         horizon = max(self.train.steps, max(sp.step for sp in specs) + 2)
         golden = self._golden_train(mesh_shape, names, tag, steps=horizon)
         any_dram = bool(kinds & {"dram_params", "dram_opt_state"})
-        policy = FTPolicy(diskless_every=1, disk_every=10 ** 6, f=1,
-                          scrub_every=1)
-        rt = self._train_runtime(mesh_shape, names, tag, policy=policy)
+        f = 2 if any(sp.variant != "disk" for sp in specs
+                     if sp.kind == "pod_loss") else 1
+        policy = FTPolicy(diskless_every=1,
+                          disk_every=1 if needs_pod else 10 ** 6,
+                          f=f, scrub_every=1)
+        rt = self._train_runtime(mesh_shape, names, tag, policy=policy,
+                                 with_disk=needs_pod)
         ev = self._fresh_events(specs)
         false_alarms = 0
-        by_step: Dict[str, Dict[int, List[int]]] = {"sdc": {}, "dram": {}}
+        by_step: Dict[str, Dict[int, List[int]]] = {
+            "sdc": {}, "dram": {}, "pod": {}}
         for j, sp in enumerate(specs):
             if sp.kind == "sdc_collective":
                 by_step["sdc"].setdefault(sp.step, []).append(j)
             elif sp.kind in ("dram_params", "dram_opt_state"):
                 by_step["dram"].setdefault(sp.step, []).append(j)
+            elif sp.kind == "pod_loss":
+                by_step["pod"].setdefault(sp.step, []).append(j)
         try:
             rt.injectors = tuple(
                 FailureInjector(dataclasses.replace(
@@ -1656,12 +1784,17 @@ class CampaignRunner:
                 for step, js in by_step["sdc"].items()}
             state = rt.init_state(0)
             pending_dram: List[int] = []
+            shrunk = False
+            regrow_at = None
             i = 0
             spins = 0
             while i < horizon:
                 spins += 1
                 if spins > 8 * horizon:
                     raise RuntimeError("episode loop did not converge")
+                if shrunk and regrow_at is not None and i >= regrow_at:
+                    state, _ = rt.regrow(state, at_step=i)
+                    shrunk = False
                 # encode BEFORE this step's faults: the snapshot any
                 # recovery restores is clean by construction
                 rt.checkpoint(i, state)
@@ -1676,16 +1809,36 @@ class CampaignRunner:
                     ev[j]["note"] = (f"bit {sp.bit} in {group} leaf "
                                      f"{leaf!r} at step {i}")
                     pending_dram.append(j)
-                t1 = time.perf_counter()
-                state, rollback = rt.maybe_shard_failure(i, state)
-                if rollback is not None:
-                    lat = time.perf_counter() - t1
-                    for j, sp in enumerate(specs):
-                        if (sp.kind == "shard_loss" and sp.step == i
-                                and not ev[j]["fired"]):
-                            ev[j].update(fired=True, detected=True,
-                                         corrected=True, rung="diskless",
-                                         latency=lat)
+                rolled_back = None
+                for j in by_step["pod"].get(i, []):
+                    if ev[j]["fired"]:
+                        continue
+                    rt.ckpt.wait()
+                    state, rollback, erep = rt.lose_pod(state)
+                    ev[j].update(
+                        fired=True, detected=True, corrected=True,
+                        rung=f"elastic:{erep.restore_path}",
+                        latency=erep.reshard_wall_s,
+                        note=f"shrink {erep.mesh_from}->{erep.mesh_to} at "
+                             f"step {i} via {erep.restore_path}, rollback "
+                             f"to {rollback}")
+                    shrunk = True
+                    regrow_at = min(i + 2, horizon - 1)
+                    rolled_back = rollback
+                    break   # one topology change per window; replay next
+                if rolled_back is None:
+                    t1 = time.perf_counter()
+                    state, rollback = rt.maybe_shard_failure(i, state)
+                    if rollback is not None:
+                        lat = time.perf_counter() - t1
+                        for j, sp in enumerate(specs):
+                            if (sp.kind == "shard_loss" and sp.step == i
+                                    and not ev[j]["fired"]):
+                                ev[j].update(fired=True, detected=True,
+                                             corrected=True,
+                                             rung="diskless", latency=lat)
+                        rolled_back = rollback
+                if rolled_back is not None:
                     # the recovery restored this step's pre-flip encode:
                     # co-windowed flips were erased before any detector
                     # saw them — absorbed by the episode, not missed
@@ -1695,7 +1848,7 @@ class CampaignRunner:
                             note=ev[k]["note"] + "; absorbed by the "
                                                  "recovery rollback")
                     pending_dram = []
-                    i = rollback
+                    i = rolled_back
                     continue
                 if any_dram:
                     state, srep = rt.scrub(i, state)
@@ -1728,6 +1881,8 @@ class CampaignRunner:
                     if "abft_ok" in m and not bool(m["abft_ok"]):
                         false_alarms += 1
                 i += 1
+            if rt.ckpt is not None:
+                rt.ckpt.wait()
             end_state, diff = _compare_trees(_host(state), golden["final"],
                                              self.train.tol)
         finally:

@@ -170,16 +170,6 @@ register_surface(
     note="optimizer moments between steps; ft.runtime registers the "
          "at-rest scrub that protects them")
 
-# a protection domain whose owning module the port has not brought up yet.
-# A fault spec aimed at it is reported as a ``skipped`` campaign row, and
-# the row needs the surface; the owning module registers it protected when
-# its slice lands (a protected registration wins).
-register_surface(
-    "ft.runtime/topology", owner="repro_torch.chaos.faults",
-    protected=False, kinds=("pod_loss", "slow_pod"),
-    note="not ported yet: comes with port slice 13 (multi-process "
-         "distribution and ElasticRuntime's pod paths)")
-
 
 # ---------------------------------------------------------------------------
 # the FaultSpec taxonomy

@@ -12,8 +12,11 @@ Host copies are made on the caller's thread (cheap next to a train step);
 the write runs on a background thread, so the device never waits on disk.
 An error of that thread is raised by the next ``wait``/``save``.
 
-Counterpart of the reference package's ``repro/ckpt/disk.py`` (its
-mesh-sharded restore comes with the distribution slice).
+Restore takes a ``sharding_tree`` (`dist.sharding.to_shardings` records)
+to place every leaf on its mesh's device: the stored leaves are global, so the same checkpoint
+restores onto any logical mesh (`ckpt.elastic.reshard_restore`).
+
+Counterpart of the reference package's ``repro/ckpt/disk.py``.
 """
 from __future__ import annotations
 
@@ -114,11 +117,20 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, sharding_tree=None):
         """Restore into the structure of `like` (a tree of tensors; meta
         tensors do).  Each leaf comes back in `like`'s dtype, on the like
-        leaf's device (the CPU for a meta tensor)."""
+        leaf's device (the CPU for a meta tensor), or with
+        ``sharding_tree`` on the device of its sharding's mesh."""
         self.wait()
+        place = None
+        if sharding_tree is not None:
+            # a logical mesh places every leaf whole on its one device
+            devices = {s.device for s in tree_leaves(sharding_tree)}
+            if len(devices) != 1:
+                raise ValueError(f"sharding_tree spans devices {devices}: "
+                                 "a restore places onto one mesh")
+            place = devices.pop()
         path = self.dir / f"step_{step}"
         if not path.exists():
             raise FileNotFoundError(
@@ -139,7 +151,10 @@ class CheckpointManager:
                     raise ValueError(
                         f"checkpoint step {step} leaf {i}: saved shape "
                         f"{tuple(a.shape)} vs expected {tuple(ref.shape)}")
-                dev = "cpu" if ref.device.type == "meta" else ref.device
+                if place is not None:
+                    dev = place
+                else:
+                    dev = "cpu" if ref.device.type == "meta" else ref.device
                 out.append(_from_host(a, dtypes[i]).to(device=dev,
                                                        dtype=ref.dtype))
         return tree_unflatten(like, out)

@@ -17,7 +17,7 @@ location and the repair.
 
 Counterpart of the reference package's ``repro/dist/collectives.py``; its
 int8 error-feedback reduction (``ef_psum_tree``, ``ef_wire_bytes``) comes
-with port slice 13.
+with port slice 14.
 """
 from __future__ import annotations
 

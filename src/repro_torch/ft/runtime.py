@@ -1,5 +1,6 @@
 """Fault-tolerant training runtimes: the paper's recovery timeline (§3.3)
-as a training-loop wrapper.
+as a training-loop wrapper, grown into an elastic runtime that survives
+topology loss, not just shard loss.
 
 The recovery ladder, cheapest rung first:
 
@@ -10,16 +11,32 @@ The recovery ladder, cheapest rung first:
      step completes with the repaired values;
   2. **diskless rollback**: a lost DP shard is rebuilt from the checksums
      of `ckpt.diskless`, a bounded rollback to the last encode, no disk;
-     the disk restore is the fallback when more than `f` shards are lost.
+     the disk restore is the fallback when more than `f` shards are lost;
+  3. **elastic reshard**: a pod is gone.  Build the survivor mesh,
+     re-place params and ZeRO-1 opt state through the mesh-agnostic
+     `train.step.state_specs`, re-split the global batch
+     (`data.pipeline.resplit`: sample order unchanged) and resume; the
+     mirror operation re-grows when the pod returns.  Rung 3a reuses the
+     surviving diskless state when the loss fits its capacity
+     (`DisklessCheckpoint.reshard`, which re-encodes on kernel #3 at the
+     survivor extent), rung 3b restores from disk
+     (`ckpt.elastic.reshard_restore`).
 
-`FTRuntime` wraps both rungs around a caller-built step function, with SDC
+`FTRuntime` wraps rungs 1-2 around a caller-built step function, with SDC
 drills (`sdc_injector` / ``run_step(run_step_sdc=)``).  `ElasticRuntime`
-owns the step on one device (mesh 1 x 1, DP extent 1): it builds the
-eager step, the deterministic data stream, the cadenced diskless and disk
-checkpoints, shard-loss recovery at ``p = 1`` and the at-rest scrub, which
-re-encodes the live state on kernel #3 and rolls a DRAM flip back to the
-snapshot.  Its pod paths (rung 3: `lose_pod`, `regrow`, `demote_pod`, the
-straggler detector) come with port slice 13.
+owns the step: it builds and versions a `MeshGeneration` (logical mesh,
+placement records, the eager step at the mesh's DP extent, data split)
+and switches generations on `lose_pod` / `regrow` / `demote_pod`, logging
+an `ElasticReport` (placement diff, bytes moved, reshard wall, build wall)
+per switch.  The mesh is logical (`dist.sharding.Mesh`): one device runs
+every DP shard of the step, and the diskless checkpoint encodes over
+``p`` = the DP extent logical shards.  The step is eager, so nothing
+compiles: ``compile_s`` is 0.0 and a generation fetched from the cache
+(keyed on the mesh shape) reports ``reused``.
+
+Straggler mitigation: `StragglerDetector` keeps a per-pod step-time EWMA
+fed from the ``train/pod_walls`` events `train_step` publishes on the obs
+bus; a persistently slow pod is demoted through the elastic path.
 
 The DP axis is simulated on one device as ``p`` logical shards: the
 stacked view of `stack_view` splits each leaf's leading axis by ``p``.  The
@@ -34,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -44,11 +62,24 @@ from repro_torch.ckpt.diskless import DisklessCheckpoint
 from repro_torch.ft.failures import FailureInjector, SDCInjector
 from repro_torch.tree import stack_layers, tree_map, unstack_layers
 
-__all__ = ["FTPolicy", "FTRuntime", "ElasticRuntime", "ScrubReport",
-           "stack_view", "unstack_view"]
+__all__ = ["FTPolicy", "FTRuntime", "ElasticRuntime", "MeshGeneration",
+           "ElasticReport", "ScrubReport", "StragglerDetector", "stack_view",
+           "unstack_view"]
 
-_POD_PATHS = ("port slice 13 (multi-process distribution and "
-              "ElasticRuntime's pod paths)")
+# the protection domain this module owns: TOPOLOGY faults, a pod that is
+# gone (platform-signaled) or persistently slow (step-time EWMA straggler
+# detector), handled by the rung-3 elastic shrink/re-grow ladder
+register_surface(
+    "ft.runtime/topology", owner=__name__, protected=True,
+    promise="tolerance",
+    detector="pod loss: platform failure signal; slow pod: per-pod "
+             "step-time EWMA exceeding slow_pod_threshold x the median "
+             "(StragglerDetector) — both demote through lose_pod()",
+    kinds=("pod_loss", "slow_pod"),
+    note="rung 3b (disk restore) resumes bit-identically; rung 3a "
+         "(diskless checksum solve) is near-exact, hence the tolerance "
+         "promise; demotion rolls back to the last checkpoint and replays "
+         "deterministically")
 
 # at-rest scrub: upgrades the chaos.faults placeholders to protected.  The
 # cadenced `ElasticRuntime.scrub` re-runs the diskless encode over the live
@@ -83,9 +114,11 @@ class FTPolicy:
     fallback when more than `f` shards die at once), `f` the simultaneous
     failures the diskless encoding survives.  `scrub_every` is the at-rest
     scrub cadence (0 = off); a scrub fires only at encode points, so a
-    useful cadence is a multiple of `diskless_every`.  The straggler
-    fields are the reference's; the detector that reads them comes with
-    port slice 13."""
+    useful cadence is a multiple of `diskless_every`.
+    `slow_pod_threshold` demotes a pod persistently slower than this
+    multiple of the median step time (EWMA-smoothed: `straggler_alpha` is
+    the smoothing factor, `straggler_warmup` the observations required
+    before the detector may trip)."""
     diskless_every: int = 10
     disk_every: int = 100
     f: int = 1
@@ -127,13 +160,16 @@ def _sync() -> None:
 
 
 def _pub_rung(rung: str, wall_s: float, step: Optional[int] = None,
-              **attrs) -> None:
+              compile_s: Optional[float] = None,
+              warm_s: Optional[float] = None, **attrs) -> None:
     """Publish one recovery-ladder firing to the obs bus: the
     ``repro_recoveries_total{rung=...}`` counter and a ``recovery/<rung>``
-    span carrying the measured wall."""
+    span carrying the measured wall (and the compile/warm split where the
+    caller has it: the elastic rungs do)."""
     obs.counter("repro_recoveries_total",
                 "recovery-ladder rungs fired").inc(rung=rung)
-    obs.recovery(rung, wall_s, step=step, **attrs)
+    obs.recovery(rung, wall_s, step=step, compile_s=compile_s,
+                 warm_s=warm_s, **attrs)
 
 
 class FTRuntime:
@@ -269,6 +305,77 @@ class FTRuntime:
             f"{self.policy.f}, no disk checkpoint")
 
 
+# ---------------------------------------------------------------------------
+# straggler detection: per-pod step-time EWMA
+# ---------------------------------------------------------------------------
+
+
+class StragglerDetector:
+    """Per-pod step-time EWMA; trips when one pod's EWMA exceeds
+    ``threshold`` x the median EWMA of the OTHER pods.
+
+    Synchronous data parallelism runs each step at the slowest pod's
+    pace, so per-pod walls come from a heartbeat (each pod's host callback
+    reports its own step wall; `ElasticRuntime.train_step` synthesizes a
+    uniform heartbeat when none is installed).  The EWMA smooths one-off
+    hiccups away (only a persistently slow pod trips, and only after
+    `warmup` observations) and the median baseline keeps a uniformly slow
+    fleet from demoting itself."""
+
+    def __init__(self, n_pods: int, threshold: float, *,
+                 alpha: float = 0.5, warmup: int = 3):
+        self.n_pods = n_pods
+        self.threshold = threshold
+        self.alpha = alpha
+        self.warmup = warmup
+        self.ewma = [None] * n_pods
+        self.observations = 0
+
+    def observe(self, walls) -> Optional[int]:
+        """Feed one step's per-pod walls; returns the pod to demote (the
+        worst offender) or None.  Never trips with fewer than 2 pods."""
+        if len(walls) != self.n_pods:
+            raise ValueError(f"expected {self.n_pods} pod walls, got "
+                             f"{len(walls)}")
+        a = self.alpha
+        self.ewma = [w if e is None else a * w + (1 - a) * e
+                     for e, w in zip(self.ewma, walls)]
+        self.observations += 1
+        if self.n_pods < 2 or self.observations < self.warmup:
+            return None
+        worst = max(range(self.n_pods), key=lambda i: self.ewma[i])
+        others = sorted(e for i, e in enumerate(self.ewma) if i != worst)
+        median = others[len(others) // 2]
+        if median > 0 and self.ewma[worst] > self.threshold * median:
+            return worst
+        return None
+
+
+# ---------------------------------------------------------------------------
+# elastic runtime: versioned mesh generations + the full ladder
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MeshGeneration:
+    """One versioned bundle: everything a topology needs to take a step.
+
+    Built (or fetched from the generation cache) on every elastic
+    transition; nothing outside the bundle depends on the mesh shape, so
+    switching generations is the topology change."""
+    gen: int                    # monotonically increasing generation id
+    mesh: object                # dist.sharding.Mesh
+    step_fn: Callable           # eager (state, batch) -> (state, metrics)
+    in_shardings: Tuple         # (state shardings, batch shardings)
+    out_shardings: Tuple
+    state_shapes: dict          # meta-tensor tree of the state
+    dp_extent: int              # product of the non-"model" axis sizes
+    split: int                  # data-pipeline split (batch-dividing DP)
+    build_s: float              # wall of build_train_step and the specs
+    compile_s: float            # 0.0: the eager step compiles nothing
+    reused: bool = False        # fetched from the generation cache
+
+
 @dataclasses.dataclass(frozen=True)
 class ScrubReport:
     """One at-rest scrub that tripped (clean scrubs return None)."""
@@ -279,63 +386,162 @@ class ScrubReport:
     rolled_back: bool           # snapshot restore applied
 
 
-def _dp_extent(mesh) -> int:
-    """The DP extent of ``mesh`` (None, a shape tuple, or a dict of axis
-    sizes); anything but one device raises."""
-    if mesh is None:
-        return 1
-    sizes = list(mesh.values()) if isinstance(mesh, dict) else list(mesh)
-    if any(int(v) != 1 for v in sizes):
-        raise NotImplementedError(
-            f"ElasticRuntime on mesh {mesh!r}: the port runs one device "
-            f"(mesh 1 x 1); larger meshes come with {_POD_PATHS}")
-    return 1
+@dataclasses.dataclass(frozen=True)
+class ElasticReport:
+    """What one elastic transition did and what it cost: the placement
+    diff summary (`ckpt.elastic.plan_reshard`) plus measured walls."""
+    kind: str                   # "shrink" | "regrow"
+    gen_from: int
+    gen_to: int
+    mesh_from: dict
+    mesh_to: dict
+    restore_path: str           # "diskless" (rung 3a) | "disk" (3b) | "live"
+    rollback_step: Optional[int]
+    n_leaves: int
+    n_respecced: int
+    bytes_total: int
+    bytes_respecced: int
+    reshard_wall_s: float
+    build_s: float
+    compile_s: float
+    reused_executable: bool
+
+    def summary(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 class ElasticRuntime(FTRuntime):
-    """Owns the step on one device and runs rungs 1 and 2 around it.
+    """Owns mesh generations and executes the three-rung recovery ladder.
 
     Unlike `FTRuntime`, which wraps a caller-built step, this runtime
-    builds the eager step (`train.step.build_train_step`) and the
-    deterministic data stream, and drives the cadenced checkpoints
-    (`checkpoint`), the at-rest scrub (`scrub`) and shard-loss recovery
-    (`maybe_shard_failure`).  ``mesh`` is None or a shape of all ones: the
-    DP extent is 1, so the diskless encode and recovery run at ``p = 1``
-    (the single logical shard is lost and rebuilt from its checksum).  The
-    step runs on ``device`` (``"cuda"`` by default, which raises without a
-    GPU)."""
+    builds the step per topology: construction builds generation 0 on
+    `mesh` (None is 1 x 1; a shape tuple or a dict of axis sizes, or a
+    `dist.sharding.Mesh`); `lose_pod` shrinks onto the survivor mesh (rung
+    3) and `regrow` returns to the full mesh when the pod comes back.
+    Rungs 1-2 ride along: rung 1 is built into every generation's step via
+    `opts`, rung 2 is `maybe_shard_failure` (diskless first, at ``p`` =
+    the DP extent).  Every step runs on ``device`` (``"cuda"`` by default,
+    which raises without a GPU).
+
+    Determinism contract (what the parity drills assert): the data stream
+    is global and (seed, step)-deterministic, checkpoints hold global
+    leaves, and the specs are mesh-agnostic functions of the state, so a
+    drilled shrink resumes bit-identically to a survivor-mesh-from-scratch
+    restore of the same checkpoint."""
 
     def __init__(self, cfg, shape, mesh=None, *, adamw=None, opts=None,
                  policy: Optional[FTPolicy] = None, data_cfg=None,
                  ckpt_manager=None, injector=None, sdc_injector=None,
                  device="cuda"):
         from repro_torch.data.pipeline import DataConfig, DataPipeline
+        from repro_torch.dist.sharding import as_mesh
         from repro_torch.launch.serve import resolve_device
         from repro_torch.train.optimizer import AdamWConfig
-        from repro_torch.train.step import StepOptions, build_train_step
+        from repro_torch.train.step import StepOptions, state_shapes
 
-        p = _dp_extent(mesh)
         self.device = resolve_device(str(device))
         self.cfg = cfg
         self.shape = shape
         self.adamw = adamw or AdamWConfig()
         self.opts = opts or StepOptions()
-        self.mesh = mesh
-        obs.event("train/build_step", arch=cfg.name,
-                  mesh={"data": 1, "model": 1},
-                  abft_mode=self.opts.abft_mode,
-                  abft_reduce=self.opts.abft_reduce)
-        t0 = time.perf_counter()
-        self.step_fn = build_train_step(cfg, shape, self.adamw, self.opts)
-        self.build_s = time.perf_counter() - t0
-        super().__init__(p, policy or FTPolicy(), injector=injector,
-                         ckpt_manager=ckpt_manager,
+        self.full_mesh = as_mesh(mesh, self.device)
+        self._next_gen = 0
+        self._gen_cache = {}       # mesh-shape key -> MeshGeneration
+        self.reports: List[ElasticReport] = []
+        self._state_shapes = state_shapes(cfg)
+        gen = self._build_generation(self.full_mesh)
+        super().__init__(gen.dp_extent, policy or FTPolicy(),
+                         injector=injector, ckpt_manager=ckpt_manager,
                          sdc_injector=sdc_injector)
+        self.gen = gen
         self.recoveries["elastic"] = 0
         self.recoveries["demote"] = 0
         self.data_cfg = data_cfg or DataConfig(
             cfg.vocab_size, shape.seq_len, shape.global_batch)
-        self.pipe = DataPipeline(self.data_cfg)
+        self.pipe = DataPipeline(self.data_cfg, split=gen.split)
+        # straggler path: `pod_heartbeat(step, wall) -> per-pod walls` is
+        # each pod's host callback reporting its own step time (drills
+        # delay one pod's: chaos FaultSpec kind="slow_pod"); None means a
+        # uniform heartbeat
+        self.pod_heartbeat = None
+        self._slow_pod = None
+        self._straggler = self._fresh_straggler(gen.mesh)
+        self._obs_id = id(self)
+        self._obs_sub = None
+        self._attach_straggler()
+
+    @property
+    def mesh(self):
+        """The current generation's mesh."""
+        return self.gen.mesh
+
+    def _attach_straggler(self):
+        """Attach the straggler detector through the bus: `train_step`
+        publishes each step's per-pod walls as a ``train/pod_walls`` event
+        and the detector consumes them via ``obs.subscribe``.  The
+        subscription holds only a weakref to the runtime; a dropped runtime
+        detaches itself on its next event."""
+        wr = weakref.ref(self)
+
+        def _feed(ev, _wr=wr):
+            rt = _wr()
+            if rt is None:
+                obs.unsubscribe(_feed)
+                return
+            if (ev.name != "train/pod_walls"
+                    or ev.attrs.get("runtime") != rt._obs_id):
+                return
+            slow = rt._straggler.observe(list(ev.attrs["walls"]))
+            rt._slow_pod = slow
+            if slow is not None:
+                obs.counter("repro_straggler_trips_total",
+                            "EWMA straggler detector trips").inc()
+                obs.event("straggler/trip", step=ev.step, pod=slow,
+                          ewma=list(rt._straggler.ewma))
+
+        self._obs_sub = _feed
+        obs.subscribe(_feed)
+
+    # -- generation lifecycle ------------------------------------------------
+
+    def _build_generation(self, mesh) -> MeshGeneration:
+        """Build (or cache-fetch) the bundle for `mesh`.  The cache is keyed
+        on the mesh shape: re-growing onto a topology seen before reuses
+        its step."""
+        from repro_torch.dist import sharding as shd
+        from repro_torch.train.step import build_train_step, state_specs
+
+        cached = self._gen_cache.get(mesh.key())
+        if cached is not None:
+            gen = dataclasses.replace(cached, gen=self._next_gen,
+                                      compile_s=0.0, reused=True)
+            self._next_gen += 1
+            return gen
+        obs.event("train/build_step", arch=self.cfg.name,
+                  mesh={k: int(v) for k, v in mesh.shape.items()},
+                  abft_mode=self.opts.abft_mode,
+                  abft_reduce=self.opts.abft_reduce)
+        t0 = time.perf_counter()
+        step_fn = build_train_step(self.cfg, self.shape, self.adamw,
+                                   self.opts, mesh=mesh)
+        state_sh = shd.to_shardings(
+            state_specs(self._state_shapes, mesh, self.opts, self.cfg),
+            mesh)
+        bspec = shd.batch_specs(mesh, self.shape.global_batch)
+        batch_sh = {k: shd.NamedSharding(mesh, shd.P(*bspec, None))
+                    for k in ("tokens", "labels")}
+        metric_sh = {k: shd.NamedSharding(mesh, shd.P())
+                     for k in ("grad_norm", "lr", "loss")}
+        build_s = time.perf_counter() - t0
+        gen = MeshGeneration(
+            gen=self._next_gen, mesh=mesh, step_fn=step_fn,
+            in_shardings=(state_sh, batch_sh),
+            out_shardings=(state_sh, metric_sh),
+            state_shapes=self._state_shapes, dp_extent=shd.dp_extent(mesh),
+            split=step_fn.split, build_s=build_s, compile_s=0.0)
+        self._next_gen += 1
+        self._gen_cache[mesh.key()] = gen
+        return gen
 
     def init_state(self, seed: int = 0):
         """A fresh train state, params drawn from ``seed`` on the device."""
@@ -346,26 +552,61 @@ class ElasticRuntime(FTRuntime):
     # -- the step + cadence --------------------------------------------------
 
     def place_batch(self, step: int):
-        """The deterministic global batch for `step`, on the device."""
+        """The deterministic global batch for `step`, on the device (the
+        same stream whatever the topology; the step splits it)."""
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in self.pipe.batch_at(step).items()}
 
+    def _fresh_straggler(self, mesh) -> StragglerDetector:
+        return StragglerDetector(
+            mesh.shape.get("pod", 1), self.policy.slow_pod_threshold,
+            alpha=self.policy.straggler_alpha,
+            warmup=self.policy.straggler_warmup)
+
     def train_step(self, step_idx: int, state):
-        """Run step `step_idx`: ``(state, metrics)``."""
+        """Run step `step_idx` under the current generation: ``(state,
+        metrics)``.  Feeds the per-pod heartbeat to the straggler detector;
+        poll `maybe_straggler()` after the step and demote via
+        `demote_pod`."""
         batch = self.place_batch(step_idx)
         obs.set_step(step_idx)
-        with obs.span("train/step", step=step_idx, gen=0):
+        with obs.span("train/step", step=step_idx, gen=self.gen.gen):
             t0 = time.perf_counter()
-            state, metrics = self.step_fn(state, batch)
+            state, metrics = self.gen.step_fn(state, batch)
             _sync()
             wall = time.perf_counter() - t0
         self.step_times.append(wall)
         obs.counter("repro_train_steps_total", "elastic train steps").inc()
+        n_pods = self._straggler.n_pods
+        walls = (self.pod_heartbeat(step_idx, wall)
+                 if self.pod_heartbeat is not None else [wall] * n_pods)
+        # the straggler detector consumes this through obs.subscribe
+        obs.event("train/pod_walls", step=step_idx, walls=list(walls),
+                  runtime=self._obs_id)
         return state, metrics
 
+    def maybe_straggler(self) -> Optional[int]:
+        """The pod the EWMA detector wants demoted (None = all healthy)."""
+        return self._slow_pod
+
+    def demote_pod(self, state, pod: int):
+        """Demote a persistently slow pod through the elastic rung: drop it
+        and keep the batch.  `lose_pod` shrinks onto the survivor mesh as
+        if the pod had died (rollback to the last checkpoint, reshard,
+        replay).  `pod` is the detector's index (the survivor mesh shrinks
+        the pod axis).  Returns ``(state, rollback_step, report)``."""
+        state, rollback, report = self.lose_pod(state)
+        self.recoveries["demote"] += 1
+        self._slow_pod = None
+        _pub_rung("demote:" + report.restore_path, report.reshard_wall_s,
+                  compile_s=report.compile_s,
+                  warm_s=report.reshard_wall_s, pod=pod)
+        return state, rollback, report
+
     def checkpoint(self, step: int, state):
-        """Cadenced rung-2 state capture: diskless over the stacked view,
-        disk over the state itself.  The saved data state carries this
+        """Cadenced rung-2/3 state capture: diskless over the stacked view
+        (``p`` = the DP extent), disk over the state itself (the elastic
+        restore needs global leaves).  The saved data state carries this
         step as its cursor."""
         if step % self.policy.diskless_every == 0:
             _sync()
@@ -374,10 +615,12 @@ class ElasticRuntime(FTRuntime):
             _sync()
             self.timings["encode"].append(time.perf_counter() - t0)
         if self.ckpt is not None and step % self.policy.disk_every == 0:
+            t0 = time.perf_counter()
             self.ckpt.save(step, state, aux={
                 "data_step": step,
                 "data": dict(self.pipe.state_dict(), step=step),
-                "gen": 0, "mesh": {"data": 1, "model": 1}})
+                "gen": self.gen.gen, "mesh": dict(self.gen.mesh.shape)})
+            self.timings["save"].append(time.perf_counter() - t0)
 
     # -- at-rest scrub (state.params_at_rest / state.opt_state_at_rest) ------
 
@@ -421,7 +664,7 @@ class ElasticRuntime(FTRuntime):
                   leaf=str(leaf), residual=float(resid))
         return state, report
 
-    # -- rung 2: shard loss ----------------------------------------------------
+    # -- rung 2: shard loss on an unchanged topology ---------------------------
 
     def maybe_shard_failure(self, step: int, state):
         """Drive the `FailureInjector`(s) through rung 2: ``(state,
@@ -450,7 +693,8 @@ class ElasticRuntime(FTRuntime):
             self.ckpt.wait()
             self.recoveries["disk"] += 1
             rollback = self.ckpt.latest_step()
-            state = self.ckpt.restore(rollback, state)
+            state = self.ckpt.restore(rollback, self.gen.state_shapes,
+                                      sharding_tree=self.gen.in_shardings[0])
             rung = "disk"
         else:
             raise RuntimeError(
@@ -462,16 +706,112 @@ class ElasticRuntime(FTRuntime):
                   rollback_step=rollback)
         return state, rollback
 
-    # -- rung 3: not on one device ----------------------------------------------
+    # -- rung 3: topology change -----------------------------------------------
+
+    def _switch(self, gen: MeshGeneration, at_step: Optional[int]):
+        self.gen = gen
+        self.p = gen.dp_extent
+        self.pipe = self.pipe.resplit(gen.split, at_step=at_step)
+        # pod count changed: stale EWMAs would misattribute; start fresh
+        self._straggler = self._fresh_straggler(gen.mesh)
+        self._slow_pod = None
+
+    def _report(self, kind, old, gen, plan, path, rollback, wall):
+        report = ElasticReport(
+            kind=kind, gen_from=old.gen, gen_to=gen.gen,
+            mesh_from=dict(old.mesh.shape), mesh_to=dict(gen.mesh.shape),
+            restore_path=path, rollback_step=rollback,
+            n_leaves=len(plan.leaves), n_respecced=plan.n_respecced,
+            bytes_total=plan.bytes_total,
+            bytes_respecced=plan.bytes_respecced,
+            reshard_wall_s=wall, build_s=gen.build_s,
+            compile_s=gen.compile_s, reused_executable=gen.reused)
+        self.reports.append(report)
+        return report
 
     def lose_pod(self, state, failed_pods: int = 1):
-        raise NotImplementedError(f"lose_pod comes with {_POD_PATHS}")
+        """Rung 3: a pod is gone.  Shrink onto the survivor mesh.
+
+        Returns ``(state_on_survivors, rollback_step, report)``.  Rung 3a
+        when the dead pod's slice of the diskless stacking fits the
+        checksum capacity `f` (the state survives in memory: the lost
+        shards are solved and re-encoded at the survivor extent); rung 3b
+        otherwise (the latest disk checkpoint through
+        `ckpt.elastic.reshard_restore`)."""
+        from repro_torch.ckpt.elastic import (plan_reshard, reshard_restore,
+                                              reshard_state, survivor_mesh)
+
+        old = self.gen
+        new_mesh = survivor_mesh(failed_pods=failed_pods, mesh=old.mesh)
+        gen = self._build_generation(new_mesh)
+        plan = plan_reshard(old.state_shapes, old.mesh, new_mesh,
+                            self.opts, self.cfg)
+        lost_shards = self.p * failed_pods // old.mesh.shape["pod"]
+        _sync()
+        t0 = time.perf_counter()
+        if self.diskless.step is not None and lost_shards <= self.policy.f:
+            rollback = self.diskless.step
+            failed = list(range(self.p - lost_shards, self.p))
+            self.diskless = self.diskless.reshard(gen.dp_extent,
+                                                  failed=failed)
+            restored = unstack_view(self.diskless.snapshot(), state)
+            state = reshard_state(restored, new_mesh, self.opts, self.cfg)
+            path = "diskless"
+        else:
+            if self.ckpt is not None:
+                self.ckpt.wait()          # flush the in-flight async save
+            if self.ckpt is None or self.ckpt.latest_step() is None:
+                raise RuntimeError(
+                    f"pod loss beyond diskless capacity (lost {lost_shards} "
+                    f"shards > f={self.policy.f}) and no disk checkpoint")
+            rollback = self.ckpt.latest_step()
+            state = reshard_restore(self.ckpt, rollback, old.state_shapes,
+                                    new_mesh, self.opts, self.cfg)
+            self.diskless = DisklessCheckpoint(gen.dp_extent, self.policy.f)
+            path = "disk"
+        _sync()
+        wall = time.perf_counter() - t0
+        self._switch(gen, at_step=rollback)
+        self.recoveries["elastic"] += 1
+        report = self._report("shrink", old, gen, plan, path, rollback, wall)
+        _pub_rung("elastic:" + path, wall, compile_s=gen.compile_s,
+                  warm_s=wall, gen_to=gen.gen, rollback_step=rollback,
+                  reused=gen.reused)
+        return state, rollback, report
 
     def regrow(self, state, mesh=None, at_step: Optional[int] = None):
-        raise NotImplementedError(f"regrow comes with {_POD_PATHS}")
+        """The pod returns: spread the LIVE survivor state back over the
+        full mesh (or `mesh`).  Nothing was lost, so no rollback; the
+        diskless checkpoint is re-keyed across the grow (re-encoded on
+        kernel #3 at the new extent) to keep its recovery point.  Pass
+        `at_step` (the step about to run) so the re-split pipeline's
+        cursor is the resumption point.  Returns ``(state, report)``."""
+        from repro_torch.ckpt.elastic import plan_reshard, reshard_state
+        from repro_torch.dist.sharding import as_mesh
 
-    def demote_pod(self, state, pod: int):
-        raise NotImplementedError(f"demote_pod comes with {_POD_PATHS}")
+        old = self.gen
+        new_mesh = self.full_mesh if mesh is None \
+            else as_mesh(mesh, self.device)
+        gen = self._build_generation(new_mesh)
+        plan = plan_reshard(old.state_shapes, old.mesh, new_mesh,
+                            self.opts, self.cfg)
+        _sync()
+        t0 = time.perf_counter()
+        state = reshard_state(state, new_mesh, self.opts, self.cfg)
+        wall = time.perf_counter() - t0
+        if self.diskless.step is not None:
+            self.diskless = self.diskless.reshard(gen.dp_extent)
+        else:
+            self.diskless = DisklessCheckpoint(gen.dp_extent, self.policy.f)
+        self._switch(gen, at_step=at_step)
+        self.recoveries["elastic"] += 1
+        report = self._report("regrow", old, gen, plan, "live", None, wall)
+        _pub_rung("elastic:live", wall, compile_s=gen.compile_s,
+                  warm_s=wall, gen_to=gen.gen, reused=gen.reused)
+        return state, report
 
     def close(self):
+        if self._obs_sub is not None:
+            obs.unsubscribe(self._obs_sub)
+            self._obs_sub = None
         self.pipe.close()

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import (ModelConfig, get_config,
                                       list_configs, smoke_config)
+from repro_torch.dist.sharding import Mesh
 from repro_torch.ft.failures import SDCInjector, SDCPlan
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Request, ServeEngine
@@ -74,6 +75,7 @@ def run(arch: str, *, smoke: bool = True, requests: int = 6, slots: int = 2,
         prompt_len: int = 8, prompt_lens: Optional[Sequence[int]] = None,
         gen: int = 16, abft_mode: str = "off", abft_backend: str = "auto",
         kernel_dtype: str = "fp32", abft_reduce: str = "off",
+        mesh_shape: Optional[tuple] = None,
         drill: Optional[SDCPlan] = None, scrub_every: int = 0,
         dtype: Optional[str] = None, layers: Optional[int] = None,
         seed: int = 0, device: str = "cuda",
@@ -84,7 +86,8 @@ def run(arch: str, *, smoke: bool = True, requests: int = 6, slots: int = 2,
     `requests` requests, return ``(finished_requests, engine)``.
 
     ``prompt_lens`` gives each request its own prompt length (default:
-    ``prompt_len`` for all); ``drill`` is the SDC plan fired into the
+    ``prompt_len`` for all); ``mesh_shape`` is a logical ``(data, model)``
+    mesh whose model extent the verified unembed reduces over; ``drill`` is the SDC plan fired into the
     protected reduction (needs ``abft_reduce``); ``dtype`` overrides the
     config's parameter dtype; ``layers`` cuts the model to its first
     ``layers`` blocks (`cut_layers`); ``on_warm(engine)`` runs after the warm-up
@@ -110,6 +113,9 @@ def run(arch: str, *, smoke: bool = True, requests: int = 6, slots: int = 2,
                          max_len=max(lens) + gen + 8, abft_mode=abft_mode,
                          abft_backend=abft_backend, kernel_dtype=kernel_dtype,
                          abft_reduce=abft_reduce, scrub_every=scrub_every,
+                         mesh=(Mesh(tuple(mesh_shape), ("data", "model"),
+                                    dev) if mesh_shape is not None
+                               else None),
                          sdc=SDCInjector(drill) if drill is not None
                          else None)
     engine.warm(prompt_len=lens[0])
@@ -168,6 +174,8 @@ def main(argv=None):
     ap.add_argument("--reduce", default="off",
                     choices=["off", "verify", "correct"],
                     help="checksum-protect the decode-path logits reduction")
+    ap.add_argument("--mesh", default=None, metavar="RxM",
+                    help="logical (data=R, model=M) mesh, e.g. 4x2")
     ap.add_argument("--drill-step", type=int, default=None,
                     help="engine decode step to fire an SDC drill at")
     ap.add_argument("--drill-shard", type=int, default=0,
@@ -176,6 +184,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    mesh_shape = (tuple(int(v) for v in args.mesh.split("x"))
+                  if args.mesh else None)
     drill = None
     if args.drill_step is not None:
         if args.reduce == "off":
@@ -186,7 +196,7 @@ def main(argv=None):
                slots=args.slots, prompt_len=args.prompt_len, gen=args.gen,
                abft_mode=args.abft, abft_backend=args.backend,
                kernel_dtype=args.kernel_dtype, abft_reduce=args.reduce,
-               drill=drill, seed=args.seed, device=args.device)
+               mesh_shape=mesh_shape, drill=drill, seed=args.seed, device=args.device)
 
 
 if __name__ == "__main__":

@@ -15,9 +15,21 @@ get seeded frame or image embeddings with every batch (their stubbed
 front ends' output, drawn from ``--seed`` and the step, so a replay after a
 recovery sees the same inputs).
 
+The pod-loss drill (`run_elastic_drill`, ``--kill-pod-at-step``) drives
+`ft.runtime.ElasticRuntime` end to end on a logical (pod, data, model)
+mesh: shrink onto the survivor mesh at step N (rung 3a through the
+diskless checkpoint when the lost shards fit its capacity, else rung 3b
+from disk), resume, re-grow at step M, then check step-for-step loss
+parity against a survivor-mesh runtime rebuilt from scratch that restores
+the same checkpoint.  Every diskless encode runs at p = the DP extent
+(kernel #3 on the GPU).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 12 --batch 8 --seq 32 --inject-failures 1 --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --drill-mesh 2x2x2 --kill-pod-at-step 3 --regrow-at-step 8 \
+      --steps 10 --batch 8 --seq 32 --drill-json drill.json
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 30 \
       --abft verify --inject-failures 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -27,7 +39,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import shutil
+import tempfile
 import time
+from pathlib import Path
 from typing import List, Optional
 
 import torch
@@ -37,13 +54,13 @@ from repro_torch.configs.base import (ModelConfig, ShapeConfig, get_config,
                                       list_configs, smoke_config)
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.ft.failures import FailureInjector, FailurePlan
-from repro_torch.ft.runtime import (FTPolicy, FTRuntime, stack_view,
-                                    unstack_view)
+from repro_torch.ft.runtime import (ElasticRuntime, FTPolicy, FTRuntime,
+                                    stack_view, unstack_view)
 from repro_torch.launch.serve import resolve_device
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import StepOptions, build_train_step, init_state
 
-__all__ = ["TrainResult", "run", "main"]
+__all__ = ["TrainResult", "run", "run_elastic_drill", "main"]
 
 P_LOGICAL = 4   # logical DP shards the state is checksummed over
 
@@ -173,6 +190,222 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 16,
                        step_walls=walls, resumed_from=resumed_from)
 
 
+# ---------------------------------------------------------------------------
+# pod-loss drill: shrink -> resume -> re-grow, with a parity reference
+# ---------------------------------------------------------------------------
+
+
+def _link_or_copy(src, dst):
+    """A hard link of ``src`` at ``dst``, or a copy where the file system
+    has none."""
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)
+
+
+def _bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.is_floating_point():
+        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = a.view(iv[a.element_size()]), b.view(iv[b.element_size()])
+    return bool(torch.equal(a, b))
+
+
+def _params_parity(a, b):
+    """(bit for bit equal, max |a - b|) over two trees' leaves."""
+    from repro_torch.tree import tree_leaves
+    equal, worst = True, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        y = y.to(x.device)
+        equal = equal and x.dtype == y.dtype and _bitwise_equal(x, y)
+        if x.numel():
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return equal, worst
+
+
+def run_elastic_drill(arch: str = "qwen2-0.5b", *, steps: int = 10,
+                      kill_pod_at: int = 4, regrow_at: Optional[int] = None,
+                      batch: int = 8, seq: int = 32, mesh_shape=(2, 2, 2),
+                      lr: float = 1e-3, seed: int = 0,
+                      ckpt_dir: Optional[str] = None,
+                      diskless_every: int = 1, disk_every: int = 1,
+                      f: int = 1, keep: Optional[int] = None,
+                      verbose: bool = True, smoke: bool = True,
+                      dtype: Optional[str] = None,
+                      device: str = "cuda") -> dict:
+    """Drive `ElasticRuntime` through the pod-loss drill.
+
+    Timeline: train on the full ``(pod, data, model)`` logical mesh; at
+    step `kill_pod_at` a pod dies -> rung 3 shrinks onto the survivor mesh
+    (rollback to the latest checkpoint, re-place params and ZeRO-1 opt
+    state, re-split the batch) and replays forward; at `regrow_at` the pod
+    returns -> re-grow onto the full mesh, no rollback.
+
+    Afterwards a reference run builds the survivor mesh from scratch,
+    restores the pre-kill disk checkpoint at the rollback step and replays
+    the post-shrink window: the drilled run must match it step for step
+    (bit-identical restored params, equal losses).  Returns a
+    JSON-serializable report with the reference's keys: losses of both
+    runs, the parity result and the elastic transitions' costs.
+
+    ``smoke=False`` trains the config at its published width; ``f`` is the
+    diskless capacity (rung 3a needs the lost pod's shards to fit it);
+    ``keep`` bounds the disk checkpoints kept (default: every one; the
+    rollback step's is copied aside for the reference at the kill);
+    ``dtype`` overrides the config's parameter dtype."""
+    if kill_pod_at < 1:
+        raise ValueError("need at least one checkpointed step before the "
+                         "kill")
+    from repro_torch.ckpt.elastic import reshard_restore
+    from repro_torch.dist.sharding import Mesh
+
+    dev = resolve_device(device)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    shape = ShapeConfig("drill", seq, batch, "train")
+    adamw = AdamWConfig(lr=lr, total_steps=steps,
+                        warmup_steps=max(steps // 10, 1))
+    opts = StepOptions(remat=False if smoke else True)
+    policy = FTPolicy(diskless_every=diskless_every, disk_every=disk_every,
+                      f=f)
+    tmp = None
+    if ckpt_dir is None:
+        tmp = tempfile.TemporaryDirectory()
+        ckpt_dir = tmp.name
+    try:
+        mesh = Mesh(tuple(mesh_shape), ("pod", "data", "model"), dev)
+        rt = ElasticRuntime(cfg, shape, mesh, adamw=adamw, opts=opts,
+                            policy=policy, device=dev,
+                            ckpt_manager=CheckpointManager(
+                                ckpt_dir, keep=keep or steps + 1))
+        state = rt.init_state(seed)
+        losses = {}
+        killed = regrown = False
+        rollback = None
+        shrink_rep = regrow_rep = None
+        post_shrink = None
+        _sync(dev)
+        t_start = time.perf_counter()
+        i = 0
+        while i < steps:
+            if not killed and i == kill_pod_at:
+                rt.ckpt.wait()       # the async save for step i-1 must land
+                state, rollback, shrink_rep = rt.lose_pod(state)
+                killed = True
+                # keep the PRE-KILL rollback checkpoint apart: the replay
+                # re-saves the same steps, and the parity reference must
+                # restore bits the drilled run cannot have rewritten.  A
+                # save writes new files and renames them over the old
+                # directory, never in place, so hard links hold the old
+                # bits without copying them
+                src = Path(ckpt_dir) / f"step_{rollback}"
+                if not src.exists():
+                    raise RuntimeError(
+                        f"no disk checkpoint at rollback step {rollback} "
+                        "for the parity reference (set disk_every=1)")
+                shutil.copytree(src, Path(ckpt_dir) / "ref"
+                                / f"step_{rollback}", dirs_exist_ok=True,
+                                copy_function=_link_or_copy)
+                if verbose:
+                    print(f"[drill] step {i}: pod lost -> "
+                          f"{shrink_rep.mesh_to} via "
+                          f"{shrink_rep.restore_path}, rollback to "
+                          f"{rollback}, reshard "
+                          f"{shrink_rep.reshard_wall_s * 1e3:.0f}ms, build "
+                          f"{shrink_rep.build_s:.2f}s")
+                # the restored params: the steps return new tensors, so
+                # these stay as restored for the parity check
+                post_shrink = state["params"]
+                i = rollback          # the deterministic stream replays
+                continue
+            if killed and not regrown and regrow_at is not None \
+                    and i == regrow_at:
+                state, regrow_rep = rt.regrow(state, at_step=i)
+                regrown = True
+                if verbose:
+                    print(f"[drill] step {i}: pod returned -> "
+                          f"{regrow_rep.mesh_to} (reshard "
+                          f"{regrow_rep.reshard_wall_s * 1e3:.0f}ms, step "
+                          f"{'reused' if regrow_rep.reused_executable else 'rebuilt'})")
+            rt.checkpoint(i, state)
+            state, m = rt.train_step(i, state)
+            losses[i] = float(m["loss"])
+            if verbose and i % max(steps // 10, 1) == 0:
+                print(f"[drill] step {i:4d} loss={losses[i]:.4f} "
+                      f"mesh={dict(rt.gen.mesh.shape)}")
+            i += 1
+        drill_wall = time.perf_counter() - t_start
+        rt.ckpt.wait()
+        recoveries = dict(rt.recoveries)
+        step_walls = {"steps": list(rt.step_times),
+                      "encode": list(rt.timings["encode"]),
+                      "save": list(rt.timings["save"])}
+        rt.close()
+        del state, rt
+
+        # ---- reference: survivor mesh FROM SCRATCH, restored at the same
+        # step from the pre-kill checkpoint
+        parity_end = regrow_at if regrown else steps
+        ref_losses = {}
+        params_bitwise_equal = params_max_abs_diff = None
+        if killed:
+            ref_mesh = Mesh(tuple(shrink_rep.mesh_to.values()),
+                            tuple(shrink_rep.mesh_to.keys()), dev)
+            ref_rt = ElasticRuntime(cfg, shape, ref_mesh, adamw=adamw,
+                                    opts=opts, policy=policy, device=dev)
+            manager = CheckpointManager(str(Path(ckpt_dir) / "ref"))
+            ref_state = reshard_restore(manager, rollback,
+                                        ref_rt.gen.state_shapes, ref_mesh,
+                                        opts, cfg)
+            if post_shrink is not None:
+                # rung 3a restores through the checksum SOLVE (float
+                # arithmetic): near-exact, not bit-exact; quantified
+                params_bitwise_equal, params_max_abs_diff = _params_parity(
+                    post_shrink, ref_state["params"])
+                post_shrink = None
+            for j in range(rollback, parity_end):
+                ref_state, m = ref_rt.train_step(j, ref_state)
+                ref_losses[j] = float(m["loss"])
+            ref_rt.close()
+            del ref_state
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+    window = [k for k in sorted(ref_losses) if k in losses]
+    diffs = [abs(losses[k] - ref_losses[k]) for k in window]
+    max_diff = max(diffs) if diffs else None
+    report = {
+        "arch": arch, "mesh": list(mesh_shape),
+        "survivor_mesh": shrink_rep.mesh_to if shrink_rep else None,
+        "steps": steps, "kill_pod_at": kill_pod_at, "regrow_at": regrow_at,
+        "rollback_step": rollback,
+        "losses": {str(k): v for k, v in sorted(losses.items())},
+        "ref_losses": {str(k): v for k, v in sorted(ref_losses.items())},
+        "parity": {
+            "window": [rollback, parity_end] if killed else None,
+            "steps_compared": len(window),
+            "max_abs_loss_diff": max_diff,
+            "loss_parity": (max_diff is not None and max_diff == 0.0),
+            "params_bitwise_equal": params_bitwise_equal,
+            "params_max_abs_diff": params_max_abs_diff,
+        },
+        "shrink": shrink_rep.summary() if shrink_rep else None,
+        "regrow": regrow_rep.summary() if regrow_rep else None,
+        "recoveries": recoveries,
+        "drill_wall_s": drill_wall,
+        "walls": step_walls,
+    }
+    if verbose:
+        p = report["parity"]
+        print(f"[drill] parity over steps {p['window']}: "
+              f"{p['steps_compared']} compared, "
+              f"max |dloss|={p['max_abs_loss_diff']}, "
+              f"params bit-identical={p['params_bitwise_equal']}")
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b", choices=list_configs())
@@ -190,22 +423,28 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda")
-    # the reference's pod-loss drill flags: the elastic runtime is not
-    # ported yet
-    ap.add_argument("--kill-pod-at-step", type=int, default=None)
-    ap.add_argument("--regrow-at-step", type=int, default=None)
-    ap.add_argument("--drill-mesh", default=None)
-    ap.add_argument("--drill-json", default=None)
+    # the pod-loss drill (ElasticRuntime end to end)
+    ap.add_argument("--kill-pod-at-step", type=int, default=None,
+                    help="run the pod-loss drill: lose a pod at this step")
+    ap.add_argument("--regrow-at-step", type=int, default=None,
+                    help="re-grow onto the full mesh at this step")
+    ap.add_argument("--drill-mesh", default="2x2x2",
+                    help="logical drill mesh PxDxM")
+    ap.add_argument("--drill-json", default=None,
+                    help="write the drill report JSON here")
     args = ap.parse_args(argv)
-    drill = {"--kill-pod-at-step": args.kill_pod_at_step,
-             "--regrow-at-step": args.regrow_at_step,
-             "--drill-mesh": args.drill_mesh,
-             "--drill-json": args.drill_json}
-    given = [k for k, v in drill.items() if v is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the pod-loss drill (ElasticRuntime) comes "
-            "with the distribution + elastic-FT slice of ROADMAP.md")
+    if args.kill_pod_at_step is not None:
+        mesh_shape = tuple(int(x) for x in args.drill_mesh.split("x"))
+        report = run_elastic_drill(
+            args.arch, steps=args.steps, kill_pod_at=args.kill_pod_at_step,
+            regrow_at=args.regrow_at_step, batch=args.batch, seq=args.seq,
+            mesh_shape=mesh_shape, lr=args.lr, ckpt_dir=args.ckpt_dir,
+            smoke=args.smoke, device=args.device)
+        if args.drill_json:
+            with open(args.drill_json, "w") as fh:
+                json.dump(report, fh, indent=1)
+            print(f"[drill] report -> {args.drill_json}")
+        return report
     run(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
         seq=args.seq, microbatches=args.microbatches, abft_mode=args.abft,
         inject_failures=args.inject_failures, ckpt_dir=args.ckpt_dir,

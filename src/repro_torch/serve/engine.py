@@ -17,8 +17,12 @@ package's ``repro/serve/engine.py`` (contiguous ``ServeEngine``):
     of prefill and decode; with ``abft_backend="cuda"`` (or "auto" on the
     GPU) they run the fused dual-checksum CUDA kernel.
 
-Fault tolerance while serving, on one device (model extent 1, as the
-reference's engine on its 1 x 1 mesh):
+Fault tolerance while serving, on one device.  ``mesh`` is a logical mesh
+(`dist.sharding.Mesh`, an ``(R, M)`` shape or None): its ``model`` extent
+is the number of feature slices the verified unembed reduces over, and the
+param and cache specs it records (`infer_param_specs`, `cache_specs`) are
+the reference's placements; every leaf stays whole on the device.  A
+protected engine with no mesh runs on 1 x 1, as the reference's does:
   * ``abft_reduce="verify"|"correct"`` restructures the decode's final
     projection as the reference's row-parallel unembed: the partial logits
     of each feature slice are reduced through `dist.collectives.abft_psum`
@@ -45,8 +49,8 @@ the scrub covers them as params leaves of their own.
 
 `PagedServeEngine` serves from a paged KV cache (`serve.paged_kv`) with
 page-granular checksums, prefix caching, chunked prefill and an optional
-SLO scheduler (`serve.scheduler`).  ``mesh`` sharding (a model extent
-above 1) comes with port slice 13.
+SLO scheduler (`serve.scheduler`); it takes ``mesh`` through its keywords
+into the base class.
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ from repro_torch.chaos.faults import (SDCInjector, register_surface,
                                       scatter_delta)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.abft_gemm import encode_weight
+from repro_torch.dist import sharding as shd
 from repro_torch.dist.collectives import abft_psum
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import softcap_fn
@@ -97,10 +102,6 @@ register_surface(
          "enabled via ServeEngine(scrub_every=N).  The same cadence "
          "verifies the params fingerprints and restores a tripped leaf "
          "from the held origin copy (stand-in for a checkpoint re-fetch)")
-
-_SLICE_MESH = ("port slice 13 (multi-process distribution: a model extent "
-               "above 1)")
-
 
 @dataclasses.dataclass
 class Request:
@@ -238,9 +239,6 @@ class ServeEngine:
             raise ValueError("sdc drills corrupt the protected logits "
                              "reduction — set abft_reduce to 'verify' or "
                              "'correct'")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh sharding comes with "
-                                      f"{_SLICE_MESH}")
         self.cfg = cfg
         self.slots = slots
         self.max_len = max_len
@@ -249,23 +247,50 @@ class ServeEngine:
         self.sdc = sdc
         self._protected = abft_reduce != "off"
         self._warming = False
-        # one device: the protected reduction runs over a model extent of
-        # 1, as the reference's engine does on its 1 x 1 mesh
-        self.model_extent = 1
-        if sdc is not None:
-            bad = [e for e in sdc.plan.events
-                   if not 0 <= e[1] < self.model_extent]
-            if bad:
+        self.device = params["embed"]["table"].device
+        if mesh is None and self._protected:
+            # the protected reduction needs a model axis to reduce over; a
+            # 1 x 1 mesh keeps one code path (a reduction over extent 1)
+            mesh = (1, 1)
+        self.mesh = shd.as_mesh(mesh, self.device) if mesh is not None \
+            else None
+        self.model_extent = 1 if self.mesh is None \
+            else self.mesh.shape.get(shd.MODEL_AXIS, 1)
+        if self._protected:
+            m_ext = self.model_extent
+            if shd.MODEL_AXIS not in self.mesh.axis_names:
                 raise ValueError(
-                    f"SDC plan targets model-axis shards "
-                    f"{sorted(e[1] for e in bad)} but the model extent is "
-                    f"{self.model_extent}: the drill would inject nothing "
-                    f"(shard must be in [0, {self.model_extent}))")
+                    f"abft_reduce needs a '{shd.MODEL_AXIS}' mesh axis to "
+                    f"reduce over (got axes {self.mesh.axis_names})")
+            if cfg.d_model % m_ext:
+                raise ValueError(
+                    f"d_model={cfg.d_model} must divide over the model axis "
+                    f"(extent {m_ext}) for the row-parallel verified unembed")
+            if sdc is not None:
+                # an out-of-range shard would inject nothing and the drill
+                # would report detected=False
+                bad = [e for e in sdc.plan.events if not 0 <= e[1] < m_ext]
+                if bad:
+                    raise ValueError(
+                        f"SDC plan targets model-axis shards "
+                        f"{sorted(e[1] for e in bad)} but the mesh's model "
+                        f"extent is {m_ext}: the drill would inject nothing "
+                        f"(shard must be in [0, {m_ext}))")
+        # the reference's placements on the mesh, as records
+        self.param_specs = self.cache_specs = None
+        if self.mesh is not None:
+            self.param_specs = shd.infer_param_specs(params, self.mesh, cfg)
+            shapes = tf.init_cache(cfg, slots, max_len, device="meta")
+            shapes = _tree_map(
+                lambda p, x: torch.empty((x.shape[0], slots),
+                                         dtype=torch.int64, device="meta")
+                if p[-1] == "index" else x, shapes)
+            self.cache_specs = shd.map_with_path(
+                shd.cache_specs(self.mesh, slots, cfg), shapes)
         self.kernel_dtype = kernel_dtype
         self.abft = StepOptions(abft_mode=abft_mode,
                                 abft_backend=abft_backend,
                                 kernel_dtype=kernel_dtype).abft
-        self.device = params["embed"]["table"].device
         self.params = self._prepare(params)
         # recurrent state reads every token it is given: prefill exactly
         self._recurrent = tf.is_recurrent(cfg)

@@ -6,8 +6,11 @@ fp32 and is rounded once to the param dtype; the schedule is computed in
 float32.  Plain functions on trees of tensors that return new tensors, as
 the reference's pure functions do.
 
-Counterpart of the reference package's ``repro/train/optimizer.py``; its
-ZeRO-1 spec helper comes with the distribution slice.
+`adamw_opt_specs` gives the optimizer state's placement on a logical
+mesh (`dist.sharding`): m and v inherit the param specs, ZeRO-1 adds the
+DP axes along each leaf's ZeRO dim, the count replicates.
+
+Counterpart of the reference package's ``repro/train/optimizer.py``.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_opt_specs",
+           "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +56,31 @@ def adamw_init(params):
         "v": tree_map(zeros, params),
         "count": torch.zeros((), dtype=torch.int32, device=leaf.device),
     }
+
+
+def adamw_opt_specs(param_specs, param_shapes=None, mesh=None,
+                    zero1: bool = False):
+    """PartitionSpec tree for `adamw_init`'s state, mirroring its structure
+    (in the reference's stacked layout, as `param_specs` is).
+
+    m and v inherit the param spec and the count replicates, so consumers
+    (`train.step.state_specs`, and through it `ckpt.elastic`) never
+    hardcode this optimizer's state.  With ``zero1=True`` (needs
+    `param_shapes`, the port's params or their stacked shapes, and `mesh`)
+    m and v are additionally sharded over the DP axes along their ZeRO dim
+    (`dist.sharding.zero1_spec`)."""
+    from repro_torch.dist import sharding as shd
+
+    if zero1:
+        if param_shapes is None or mesh is None:
+            raise ValueError("zero1 opt specs need param_shapes and mesh")
+        shapes = shd.stacked_shapes(param_shapes)
+        opt_p = tree_map(lambda s, sh: shd.zero1_spec(s, tuple(sh.shape),
+                                                      mesh),
+                         param_specs, shapes)
+    else:
+        opt_p = param_specs
+    return {"m": opt_p, "v": opt_p, "count": shd.P()}
 
 
 def global_norm(tree) -> torch.Tensor:

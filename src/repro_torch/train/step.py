@@ -14,25 +14,29 @@ encoder input) and ``img_emb`` (the vision stub's) beside ``tokens`` and
 construction checks inside the loss and reports their AND as
 ``metrics["inv_ok"]`` (1.0 when every check held, over every microbatch).
 
-The deferred gradient reduction runs at DP extent 1, as the reference's
-does on one device: ``defer_grad_reduce`` reduces once after the
-microbatches, and ``abft_reduce`` sends the gradients through the
-checksum-verified reduction (`dist.collectives.abft_psum_tree`) in the
-reference's leaf layout (each layout group's layers stacked into one
-leaf), with ``sdc_inject`` corrupting it mid-reduction; the result is
-``metrics["abft_ok"]``.
+With a logical mesh (``mesh=``, `dist.sharding.Mesh`) the step runs at
+its DP extent: the global batch splits ``split`` ways, ``split`` being the
+extent of ``batch_specs(mesh, global_batch)[0]``, as in the reference's
+`ft.runtime` generations.  Each DP shard runs its own microbatch loop on
+its local batch and writes its gradients into one slice of a stacked
+``[split, ...]`` buffer in the reference's leaf layout (each layout
+group's layers stacked into one leaf); the loss is the mean of the shard
+losses and the gradients are reduced over the stacked axis: a plain mean,
+or with ``abft_reduce`` the checksum-verified reduction
+(`dist.collectives.abft_psum_tree`), where ``sdc_inject=(j, delta)`` hits
+shard j's contribution.  At split 1 the step is the one-device step, bit
+for bit: ``defer_grad_reduce`` reduces once after the microbatches, and
+``abft_reduce`` runs the verified reduction over one shard.
 
 ``zero1`` (on by default, as in the reference) shards the optimizer state
-over the DP axes; at DP extent 1, the only extent the port's step runs at
-(``ElasticRuntime`` raises on a larger mesh, naming port slice 13), that
-layout is the unsharded one, so it changes nothing, as the reference's
-``dist/sharding.py::zero1_spec`` makes it there.  ``remat_policy`` selects
-what the block checkpoints recompute (``"nothing"`` saved, or the
+over the DP axes; on the logical mesh that is a layout the specs record
+(`state_specs`): the device holds each moment whole.  ``remat_policy``
+selects what the block checkpoints recompute (``"nothing"`` saved, or the
 ``"dots"``), never the result.
 
 Counterpart of the reference package's ``repro/train/step.py``.  Gradient
 compression, ZeRO-2 and FSDP raise ``NotImplementedError`` naming port
-slice 13; its prefill and serve steps have no counterpart, since the
+slice 14; its prefill and serve steps have no counterpart, since the
 serving engine calls the model directly.
 """
 from __future__ import annotations
@@ -49,20 +53,22 @@ from repro_torch.dist.collectives import abft_psum_tree
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update)
-from repro_torch.tree import (stack_layers, tree_leaves, tree_map,
-                              tree_unflatten, unstack_layers)
+from repro_torch.tree import (stack_layers, stacked_leaves_with_path,
+                              tree_get, tree_leaves, tree_leaves_with_path,
+                              tree_map, tree_unflatten, unstack_layers)
 
-__all__ = ["StepOptions", "build_train_step", "init_state"]
+__all__ = ["StepOptions", "build_train_step", "init_state", "state_specs",
+           "state_shapes"]
 
-_DIST = "port slice 13 (multi-process distribution) of ROADMAP.md"
+_DIST = "port slice 14 (tuning and cost accounting) of ROADMAP.md"
 
 
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
     microbatches: int = 1
     remat: bool = True
-    # ZeRO-1: the optimizer state sharded over DP, the identity at DP
-    # extent 1 (the only extent the port's step runs at)
+    # ZeRO-1: the optimizer state sharded over DP (a layout the specs
+    # record on the logical mesh; the identity at DP extent 1)
     zero1: bool = True
     abft_mode: str = "off"         # off | checksum | verify | correct
     abft_f: int = 2
@@ -75,7 +81,7 @@ class StepOptions:
     # dtype-aware detection eps (core.abft_gemm).
     kernel_dtype: str = "fp32"
     aux_weight: float = 0.01
-    # reduce the gradients once, after the microbatches (DP extent 1)
+    # reduce the gradients once, after the microbatches
     defer_grad_reduce: bool = False
     # checksum-protect that reduction (dist.collectives.abft_psum_tree):
     # "verify" detects (metrics["abft_ok"]), "correct" also repairs a
@@ -147,23 +153,115 @@ def init_state(gen: torch.Generator, cfg: ModelConfig):
             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
 
 
+def state_shapes(cfg: ModelConfig):
+    """The train state's tree with a meta tensor (shape and type, no
+    storage) at every leaf: the port's counterpart of the reference's
+    ``jax.eval_shape`` of `init_state`."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_state(torch.Generator(), cfg)
+    return tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
+                                          device="meta"), fake)
+
+
+def state_specs(state_shapes, mesh, opts: StepOptions, cfg=None):
+    """Mesh-agnostic PartitionSpec tree for a whole train state, in the
+    reference's stacked leaf layout.
+
+    Param rules come from `dist.sharding`, optimizer-state rules from the
+    optimizer itself (`adamw_opt_specs`), so `ckpt.elastic` re-places
+    params AND ZeRO-1 opt state onto a survivor mesh with one call."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.train.optimizer import adamw_opt_specs
+
+    params = shd.stacked_shapes(state_shapes["params"])
+    pspecs = shd.infer_param_specs(params, mesh, cfg)
+    if opts.fsdp:
+        # params carry the DP sharding; the opt state shares it
+        pspecs = tree_map(lambda sp, sh: shd.zero1_spec(
+            sp, tuple(sh.shape), mesh), pspecs, params)
+        opt = adamw_opt_specs(pspecs)
+    else:
+        opt = adamw_opt_specs(pspecs, params, mesh, zero1=opts.zero1)
+    return {"params": pspecs, "opt": opt, "step": shd.P()}
+
+
 def _as_tokens(x, device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
     return x.to(device=device, dtype=torch.int64)
 
 
+def _moe_cfg(cfg: ModelConfig, groups: int) -> ModelConfig:
+    """MoE dispatch groups set to ``groups``: the groups of ONE DP shard's
+    local batch.  The reference sorts device-locally: its standard path
+    cuts the global batch into DP-extent contiguous groups (one shard's
+    rows each, so ``ndp / split`` a shard here), its deferred region one
+    group a shard."""
+    if not cfg.n_experts or cfg.moe_groups == groups:
+        return cfg
+    return cfg.scaled(moe_groups=groups)
+
+
+class _StackedGrads:
+    """The stacked ``[split, ...]`` gradient buffer in the reference's leaf
+    layout, allocated once a step: shard j's gradients are copied into
+    slice j as they come, so the per-layer gradients of one shard are the
+    only other copy alive."""
+
+    def __init__(self, params, split: int):
+        self.parts = []     # [(stacked?, [port paths])] in reference order
+        self.bufs = []
+        for ref_path, parts in stacked_leaves_with_path(params):
+            stacked = parts[0][0] != ref_path
+            p0 = parts[0][1]
+            shape = ((split, len(parts)) if stacked else (split,)) \
+                + tuple(p0.shape)
+            dt = torch.float32 if p0.is_floating_point() else p0.dtype
+            self.bufs.append(torch.empty(shape, dtype=dt, device=p0.device))
+            self.parts.append((stacked, [path for path, _ in parts]))
+
+    def put(self, j: int, grads) -> None:
+        for buf, (stacked, paths) in zip(self.bufs, self.parts):
+            if stacked:
+                for r, path in enumerate(paths):
+                    buf[j, r].copy_(tree_get(grads, path))
+            else:
+                buf[j].copy_(tree_get(grads, paths[0]))
+
+    def unstack(self, reduced, params):
+        """The reduced stacked leaves (one per buffer) back in ``params``'
+        per-layer structure, as views."""
+        by_path = {}
+        for y, (stacked, paths) in zip(reduced, self.parts):
+            for r, path in enumerate(paths):
+                by_path[path] = y[r] if stacked else y
+        return tree_unflatten(params, [
+            by_path[path].to(p.dtype)
+            for path, p in tree_leaves_with_path(params)])
+
+
 def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                      adamw: AdamWConfig = AdamWConfig(),
-                     opts: StepOptions = StepOptions()):
+                     opts: StepOptions = StepOptions(), mesh=None):
     """Returns ``step_fn(state, batch) -> (new_state, metrics)``; ``batch``
     holds ``tokens`` and ``labels`` [global_batch, seq_len] (numpy arrays
-    or tensors)."""
+    or tensors).  ``mesh`` (a `dist.sharding.Mesh`, or None for one
+    device) sets the DP split of the batch."""
+    from repro_torch.dist import sharding as shd
+
     _check_options(opts)
     m = max(opts.microbatches, 1)
-    if shape.global_batch % m:
-        raise ValueError(f"{m} microbatches do not divide the global batch "
-                         f"{shape.global_batch}")
+    split, ndp = 1, 1
+    if mesh is not None:
+        ndp = shd.dp_extent(mesh)
+        split = shd._entry_extent(
+            mesh, shd.batch_specs(mesh, shape.global_batch)[0])
+    if shape.global_batch % (m * split):
+        raise ValueError(f"{m} microbatches x {split} DP shards do not "
+                         f"divide the global batch {shape.global_batch}")
+    cfg = _moe_cfg(cfg, 1 if opts.defer_grad_reduce
+                   else max(ndp // split, 1))
     abft = opts.abft
 
     inv_on = opts.invariant_checks
@@ -201,13 +299,9 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         return (loss_acc / m, tree_map(lambda g: g / m, g_acc),
                 ok_acc if inv_on else None)
 
-    def step_fn(state, batch):
-        params = state["params"]
-        dev = tree_leaves(params)[0].device
-        tokens = _as_tokens(batch["tokens"], dev)
-        labels = _as_tokens(batch["labels"], dev)
-        extra = {k: torch.as_tensor(batch[k], device=dev)
-                 for k in ("frames", "img_emb") if batch.get(k) is not None}
+    def one_shard(params, tokens, labels, extra):
+        """The step's gradients at split 1: ``(loss, grads, inv_ok,
+        reduce_ok)``, the one-device step bit for bit."""
         loss, grads, inv_ok = accumulate(params, tokens, labels, extra)
         reduce_ok = None
         if opts.abft_reduce != "off":
@@ -219,6 +313,47 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                 tree_map(lambda g: g[None], stacked), 0, 1,
                 mode=opts.abft_reduce, inject=opts.sdc_inject)
             grads = unstack_layers(reduced, grads)
+        return loss, grads, inv_ok, reduce_ok
+
+    def dp_shards(params, tokens, labels, extra):
+        """The step's gradients over ``split`` DP shards: each shard's
+        microbatch loop on its local batch, its gradients into slice j of
+        the stacked buffer, then one reduction over the stacked axis."""
+        buf = _StackedGrads(params, split)
+        losses, oks = [], []
+        local = [x.chunk(split) for x in (tokens, labels, *extra.values())]
+        for j in range(split):
+            ex = {k: v[j] for k, v in zip(extra, local[2:])}
+            loss, grads, ok = accumulate(params, local[0][j], local[1][j],
+                                         ex)
+            buf.put(j, grads)
+            del grads
+            losses.append(loss.float())
+            if ok is not None:
+                oks.append(ok)
+        loss = torch.stack(losses).sum() / split
+        inv_ok = torch.stack(oks).all() if inv_on else None
+        reduce_ok = None
+        if opts.abft_reduce != "off":
+            reduced, reduce_ok = abft_psum_tree(
+                buf.bufs, 0, split, mode=opts.abft_reduce,
+                inject=opts.sdc_inject)
+        else:
+            reduced = [b.sum(0) / split for b in buf.bufs]
+        del buf.bufs
+        return loss, buf.unstack(reduced, params), inv_ok, reduce_ok
+
+    grads_of = one_shard if split == 1 else dp_shards
+
+    def step_fn(state, batch):
+        params = state["params"]
+        dev = tree_leaves(params)[0].device
+        tokens = _as_tokens(batch["tokens"], dev)
+        labels = _as_tokens(batch["labels"], dev)
+        extra = {k: torch.as_tensor(batch[k], device=dev)
+                 for k in ("frames", "img_emb") if batch.get(k) is not None}
+        loss, grads, inv_ok, reduce_ok = grads_of(params, tokens, labels,
+                                                  extra)
         new_params, new_opt, metrics = adamw_update(grads, state["opt"],
                                                     params, adamw)
         new_state = {"params": new_params, "opt": new_opt,
@@ -230,4 +365,5 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
             metrics["inv_ok"] = inv_ok.float()
         return new_state, metrics
 
+    step_fn.split = split
     return step_fn

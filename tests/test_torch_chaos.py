@@ -334,14 +334,18 @@ def test_drills_match_the_committed_campaign():
     assert seen == 5
 
 
-# the rows that still skip on one device, with the slice they wait for;
-# the train and serve runtimes that run the other rows are held against the
-# reference in tests/test_torch_chaos_ft.py
+# the rows that skipped while the port ran one device: each now runs on the
+# logical pod mesh (2, 2, 2) or serve mesh (4, 2) and is held to the
+# reference's campaign on 8 devices (CAMPAIGN_PR7.json); the train and serve
+# runtimes that run the other rows are held against the reference in
+# tests/test_torch_chaos_ft.py
 STILL_SKIPPED = ("serve:sdc_collective:s3:sh1:d-30000:seed1",
                  "train:shard_loss:s3:sh1:seed1",
                  "train:pod_loss:s3:diskless", "train:pod_loss:s3:disk:seed1",
                  "train:slow_pod:s1")
 STILL_SKIPPED_EPISODES = ("train:dram+podloss", "train:pod_repeat")
+PR7_EVENTS = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                         / "CAMPAIGN_PR7.json").read_text())["events"]
 
 
 def _workload_rows(results, workload):
@@ -352,8 +356,11 @@ def _workload_rows(results, workload):
 def test_skipped_handlers_name_their_slice():
     """The solver workload runs row for row as the reference's one-device
     campaign runs it; the traffic workload's golden is a clean sweep
-    (tests/test_torch_chaos_ft.py holds its rows to the reference); the
-    train and serve rows that still skip on one device name slice 13."""
+    (tests/test_torch_chaos_ft.py holds its rows to the reference).  The
+    train and serve rows that skipped on one device until the pod paths
+    were ported each run alone, at the campaign's own sizes, with the
+    outcome, rung and end state of the reference's 8-device campaign
+    (CAMPAIGN_PR7.json)."""
     runner = campaign.CampaignRunner(faults.FaultSpace.default(),
                                      device="cpu")
     res = runner.run(("solver", "traffic"))
@@ -390,14 +397,24 @@ def test_skipped_handlers_name_their_slice():
         "sustained_rate_per_1k"] == 400.0
     assert res.meta["solver"] == ref.meta["solver"]
     assert res.meta["backend"] == "cpu" and res.meta["n_devices"] == 1
+    def key(r):
+        return (r["name"], r["outcome"], r["rung"], r["end_state"]) \
+            if isinstance(r, dict) else \
+            (r.name, r.outcome, r.rung, r.end_state)
+
+    pr7 = {e["name"]: key(e) for e in PR7_EVENTS}
     specs = {s.name: s for s in faults.FaultSpace.default().specs}
     for name in STILL_SKIPPED:
-        with pytest.raises(campaign._Skip, match="slice 13"):
-            runner._run_spec(specs[name])
+        got = runner._run_spec(specs[name])
+        assert key(got) == pr7[name], got.note
     eps = {ep.name: ep for ep in faults.FaultSpace.default().episodes}
     for name in STILL_SKIPPED_EPISODES:
-        with pytest.raises(campaign._Skip, match="slice 13"):
-            runner._run_episode(eps[name])
+        rows = runner._run_episode(eps[name])
+        want = [key(e) for e in PR7_EVENTS
+                if e["name"].startswith(name + "::")
+                or e["name"] == f"episode:{name}"]
+        assert [key(r) for r in rows] == want, [r.note for r in rows]
+        assert len(want) >= 3
 
 
 def test_acc_plan_tiles_the_drill_exactly():
@@ -446,11 +463,12 @@ def test_cli_smoke_on_cpu(tmp_path, capsys):
     # the replay path rebuilds the same space from the artifact
     space = cli.space_from_artifact(d)
     assert [s.name for s in space] == [s.name for s in smoke_train]
-    # the reference's gate, unchanged: the uncovered ledger (the pod
-    # surface, ft.runtime/topology, still unported) fails it
-    assert d["uncovered_surfaces"]
+    # the reference's gate, unchanged: the uncovered ledger is empty (the
+    # pod surface, ft.runtime/topology, is protected by the ported pod
+    # paths), so the gate passes
+    assert d["uncovered_surfaces"] == []
     assert cli.main(["--device", "cpu", "--space", "smoke", "--workload",
-                     "train", "--check", "--quiet"]) == 1
+                     "train", "--check", "--quiet"]) == 0
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):

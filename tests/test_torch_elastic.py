@@ -1,6 +1,6 @@
-"""The port's protected train step, its SDC drills in `FTRuntime` and the
-single-device `ElasticRuntime` (scrub, shard loss at p = 1) against the JAX
-reference.
+"""The port's protected train step, its SDC drills in `FTRuntime` and
+`ElasticRuntime` on a 1 x 1 mesh (scrub, shard loss at p = 1) against the
+JAX reference.
 
 Smoke size (d 64, 2 layers, vocab 512) in fp32.  The reference's step is
 built on a one-device mesh with ``Auto`` axes, as in
@@ -241,21 +241,34 @@ def test_elastic_shard_loss_recovers_at_p1():
 
 
 def test_elastic_runtime_is_one_device():
-    for mesh in ((2, 1), {"data": 1, "model": 2}):
-        with pytest.raises(NotImplementedError, match="slice 13"):
-            _runtime(mesh=mesh)
+    """One device runs every mesh: a DP extent above 1 (it raised before
+    the pod paths were ported) builds a generation whose step splits the
+    batch over the DP extent, and the pod paths run on a pod mesh
+    (tests/test_torch_elastic_pods.py holds them to the reference).  On
+    1 x 1 there is no pod to lose."""
+    for mesh, p in (((2, 1), 2), ({"data": 1, "model": 2}, 1)):
+        rt = _runtime(mesh=mesh)
+        try:
+            assert (rt.p, rt.gen.dp_extent, rt.gen.split) == (p, p, p)
+            assert rt.mesh.device.type == "cpu"
+        finally:
+            rt.close()
     rt = _runtime(mesh={"data": 1, "model": 1})
     try:
         state = rt.init_state(0)
-        for call in (lambda: rt.lose_pod(state), lambda: rt.regrow(state),
+        for call in (lambda: rt.lose_pod(state),
                      lambda: rt.demote_pod(state, 0)):
-            with pytest.raises(NotImplementedError, match="slice 13"):
+            with pytest.raises(ValueError, match="no 'pod' axis"):
                 call()
         assert set(rt.recoveries) == {"diskless", "disk", "sdc", "elastic",
                                       "demote"}
         b = rt.place_batch(4)
         assert b["tokens"].shape == (8, 16) and b["tokens"].device.type == \
             "cpu"
+        # a re-grow onto the mesh the runtime already runs reuses its step
+        state, rep = rt.regrow(state)
+        assert rep.reused_executable and rep.rollback_step is None
+        assert rep.n_respecced == 0 and rep.compile_s == 0.0
     finally:
         rt.close()
     if not torch.cuda.is_available():

@@ -6,7 +6,7 @@ package exports it too; the names it lacks are exactly the ones
 ``ROADMAP.md`` lists as not ported.  A fresh process imports all of them
 without importing ``jax`` or ``repro``.  ``StepOptions()`` equals the
 reference's field by field, and its ``zero1`` and ``remat_policy`` run at
-DP extent 1.
+DP extent 1 and above.
 """
 import ast
 import dataclasses
@@ -27,12 +27,13 @@ from repro_torch.tree import tree_leaves
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("core", "chaos", "ft", "train", "models", "kernels", "solvers",
-            "configs")
+            "configs", "dist", "ckpt")
 
 # the reference's exports the port has no counterpart of yet, with the
 # slice that brings each
 NOT_PORTED = {
-    "ft": {"ElasticReport", "MeshGeneration"},                   # slice 13
+    "ft": set(),
+    "dist": {"ef_psum_tree"},                                    # slice 14
     "train": {"build_prefill_step", "build_serve_step",
               "make_inputs"},                                    # slice 14
     "models": set(),
@@ -101,7 +102,9 @@ def test_the_exports_import_without_jax():
     code = "\n".join(
         [f"from repro_torch.{pkg} import {', '.join(ns)}"
          for pkg, ns in names.items()]
-        + ["import sys",
+        # the pod paths' modules (dist, ckpt are in PACKAGES)
+        + ["import repro_torch.launch.mesh, repro_torch.launch.train",
+           "import sys",
            "bad = [m for m in sys.modules if m == 'jax' or "
            "m.startswith(('jax.', 'repro.')) or m == 'repro']",
            "assert not bad, bad",
@@ -199,7 +202,24 @@ def test_zero1_and_remat_policy_run_at_dp_extent_one(abft):
 
 
 def test_dp_extent_above_one_still_raises():
+    """A DP extent above one runs (it raised before the pod paths were
+    ported): ElasticRuntime on (2, 1) builds a step at DP 2 whose zero1
+    layout its specs record, while the options that come with slice 14
+    still raise, naming it."""
     from repro_torch.ft.runtime import ElasticRuntime
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        ElasticRuntime(smoke_config("qwen2-0.5b"), SHAPE, (2, 1),
-                       opts=StepOptions(zero1=True), device="cpu")
+    rt = ElasticRuntime(smoke_config("qwen2-0.5b"), SHAPE, (2, 1),
+                        opts=StepOptions(zero1=True, remat=False),
+                        device="cpu")
+    try:
+        assert (rt.p, rt.gen.split) == (2, 2)
+        specs = tree_leaves(rt.gen.in_shardings[0])
+        assert any("'data'" in str(s.spec) for s in specs)
+        state, m = rt.train_step(0, rt.init_state(0))
+        assert np.isfinite(float(m["loss"]))
+    finally:
+        rt.close()
+    for opts in (StepOptions(zero2=True, defer_grad_reduce=True),
+                 StepOptions(fsdp=True),
+                 StepOptions(grad_compression="int8_ef")):
+        with pytest.raises(NotImplementedError, match="slice 14"):
+            build_train_step(smoke_config("qwen2-0.5b"), SHAPE, opts=opts)

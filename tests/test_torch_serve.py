@@ -70,9 +70,10 @@ def test_engine_reset_and_unported_options():
     eng.warm(prompt_len=4)
     assert eng.stats.prefills == eng.stats.decode_steps == 0
     assert eng.cache["groups"][0]["b0"]["index"].shape == (2, 2)
-    # abft_reduce, sdc and scrub_every are ported
-    # (tests/test_torch_serve_ft.py); a mesh is not
-    with pytest.raises(NotImplementedError):
+    # abft_reduce, sdc, scrub_every (tests/test_torch_serve_ft.py) and the
+    # mesh (tests/test_torch_serve_mesh.py) are ported; a mesh that is not
+    # a shape, a dict or a Mesh is refused
+    with pytest.raises(TypeError):
         ServeEngine(cfg, params, mesh=object())
 
 

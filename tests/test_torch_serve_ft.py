@@ -162,8 +162,14 @@ def test_engine_checks_match_reference(params):
             ServeEngine(tsmoke(ARCH), pt,
                         sdc=SDCInjector(SDCPlan(sdc)) if sdc else None,
                         **kw)
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        ServeEngine(tsmoke(ARCH), pt, mesh=(1, 2))
+    # a model extent above 1 runs (it raised before the mesh was ported):
+    # its SDC plans reach shard 1, and shard 2 is refused
+    eng = ServeEngine(tsmoke(ARCH), pt, mesh=(1, 2), abft_reduce="verify",
+                      sdc=SDCInjector(SDCPlan(((1, 1, 1.0),))))
+    assert eng.model_extent == 2
+    with pytest.raises(ValueError, match="model extent is 2"):
+        ServeEngine(tsmoke(ARCH), pt, mesh=(1, 2), abft_reduce="verify",
+                    sdc=SDCInjector(SDCPlan(((1, 2, 1.0),))))
 
 
 def test_stats_summary_keys_match_reference():
