@@ -22,7 +22,11 @@ and run the LM's other families at their published widths: MoE, the
 Mamba/attention hybrid, xLSTM, Whisper's encoder-decoder and the vision
 config's cross attention, and train Qwen2-0.5B at full width through the
 pod-loss drill on a logical (pod, data, model) mesh: shrink, resume and
-re-grow, with loss parity against a survivor mesh built from scratch.
+re-grow, with loss parity against a survivor mesh built from scratch,
+and tune kernels #1 and #2 with the measured autotuner, train it
+compressed (int8 error feedback, ZeRO-2, FSDP), plan its cells with the
+dry run against two of them run for real, and serve Whisper-large-v3
+through the step builders.
 
     python3 chip_smoke.py
 
@@ -229,7 +233,45 @@ exits non-zero without printing a result):
                 encoded, kernel, plain, torch.matmul and bound times of one
                 whole-state encode; (d) each transition's report (bytes
                 moved and re-specced, reshard and build walls), the step
-                wall at each DP extent and peak memory.
+                wall at each DP extent and peak memory;
+ 18. tuning   — (a) repro_torch.launch.autotune.main in-process on the
+                bench set and Qwen2-0.5B's served projection shapes (m =
+                1024 and 4; fp32, bf16, int8; family one, kernel #1),
+                then kernels.autotune on the SUMMA's 3072^3 accumulate
+                shape (require_exact, kernel #2), into the run's own
+                cache (main sets REPRO_TORCH_AUTOTUNE_CACHE to a fresh
+                file first, so phases 1-17 plan cold): per key the
+                model plan's and the winner's times, blocks and route;
+                every winner held to its plain version (phases 3 and 6
+                tolerances); a warm re-run with 0 measurements; a
+                protected projection and a SUMMA step (grid 2 of 3072
+                blocks) from the cache; the host time of one dispatch,
+                best_plan warm and cold beside pick_blocks; (b)
+                Qwen2-0.5B at full width in fp32, batch 16 x seq 128, on
+                the logical (1, 4, 1) mesh through ElasticRuntime, 10
+                steps each from one seeded state: int8-EF with zero2
+                (an encode at steps 0 and 5 on kernel #3, ef_residual
+                included), deferred, zero2 and fsdp; every compressed
+                reduction within int8 error feedback's bounds (each new
+                residual within half a level of its shard's scale, the
+                mean within the mean half level of the exact mean), the
+                compressed run converging (its loss falls at least half
+                as far as the uncompressed run's over the 10 steps) and
+                its loss gap to the uncompressed run printed; zero2 and
+                fsdp bit for bit; (c) launch.dryrun of every valid Qwen2-0.5B
+                cell on pod1 and pod2 (meta tensors, a process of its own
+                beside (a) and (b)); train_4k cut to a global batch of 2
+                on (1, 1) with remat (the FA-2 backward at seq 4096) and
+                decode_32k cut to batch 1 (a prefill of 4096 tokens, 4
+                decode steps) run for real through the builders, the dry
+                run's argument + temp bytes and FLOPs beside the measured
+                peak and walls; the attention backward's peak memory,
+                FA-2 against autograd through the chunk loop; (d)
+                Whisper-large-v3 in fp32 through build_prefill_step and
+                build_serve_step (a prefill of 2 x 8 over 1500 frames, 8
+                greedy decode steps, ABFT verify on kernel #1: 2,217
+                launches, no plain call), the tokens held to greedy
+                decoding by the full forward (phase 16's rule).
 The line before the last is the per-kernel JSON record, the last line the
 device record.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -238,6 +280,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import pathlib
 import shutil
 import subprocess
@@ -3626,6 +3669,699 @@ def phase_elastic(torch, record, card, device="cuda", smoke=False):
         torch.cuda.empty_cache()
     return launches
 
+TUNE_STEPS = 10
+TUNE_MESH = (1, 4, 1)        # (pod, data, model): DP 4 on the logical mesh
+EF_CONVERGE = 0.5            # the compressed run's loss falls at least
+                             # this share of the uncompressed run's fall
+                             # (0.96 at smoke size on the CPU, 0.81 at
+                             # full width on an H100)
+TRAIN4K_BATCH = 2            # train_4k cut to a global batch of 2
+DECODE_PROMPT = 4096         # prompt prefilled into the decode_32k cache
+DECODE_STEPS = 4
+WHISPER_PROMPT, WHISPER_NEW = 8, 8
+
+
+def _dispatch_us(fn, n):
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def _hold_acc(torch, kmm, ops, plan, dt, g, device):
+    """Kernel #2 on the winner's tile against its plain version: a clean
+    two-call chain (phase 6's checks: c within RTOL, int8 bit-exact, the
+    state within the terms' RTOL, the chain re-verified with residual 0).
+    Returns max |c - plain|."""
+    m, k, n = plan.m, plan.k, plan.n
+    if device == "cuda":
+        a0, b0, out = _acc_inputs(torch, g, m, k, n, dt)
+        a, b, _ = _acc_inputs(torch, g, m, k, n, dt)
+    else:
+        a0, b0, a, b = (torch.randn((m, k) if i % 2 == 0 else (k, n),
+                                    generator=g) for i in range(4))
+        out = torch.float32
+    wm = ops.kernel_weights(m, device=device)
+    wn = ops.kernel_weights(n, device=device).T.contiguous()
+    st0 = ops.acc_state_zeros(plan, device=device)
+    kw = dict(bm=plan.bm, bn=plan.bn, verify=True,
+              eps_c=ops.detection_eps(out))
+    c0 = torch.zeros((m, n), dtype=out, device=device)
+    c1, ccol1, crow1, _ = kmm.abft_matmul_acc_cuda(a0, b0, c0, *st0, wm, wn,
+                                                   **kw)
+    got = kmm.abft_matmul_acc_cuda(a, b, c1, ccol1, crow1, wm, wn, **kw)
+    want = kmm.abft_matmul_acc_plain(a, b, c1, ccol1, crow1, wm, wn, **kw)
+    if float(got[3][..., 4:6].abs().max()) != 0.0:
+        raise AssertionError("autotuned kernel #2: the clean chain "
+                             "re-verified with a residual")
+    cg, cp = got[0].double(), want[0].double()
+    if out == torch.int32 and not torch.equal(got[0], want[0]):
+        raise AssertionError("autotuned kernel #2: int8 c not bit-exact")
+    if not within(cg, cp, float(cp.abs().max())):
+        raise AssertionError("autotuned kernel #2: c differs from plain")
+    terms = float((wm.abs().double() @ cp.abs()).max())
+    for x, y in zip(got[1:3], want[1:3]):
+        if not within(x.double(), y.double(), terms):
+            raise AssertionError("autotuned kernel #2: state differs")
+    return float((cg - cp).abs().max())
+
+
+def _tune_autotune(torch, row, device, smoke, tmp):
+    """(a) The autotuner over kernels #1 and #2: the CLI's bench set and
+    Qwen2-0.5B's served projection shapes (family one, every operand
+    type), then the SUMMA's accumulate shape; each winner held against its
+    plain version; a warm re-run; dispatch from the warmed cache."""
+    import repro_torch.core as core
+    from repro_torch.core import abft_gemm as ag
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import ops
+    from repro_torch.launch import autotune as cli
+    from repro_torch.launch import stress
+
+    cfg_shapes = [(1024, k, n) for k, n, _ in SERVE_SHAPES] + \
+        [(4, k, n) for k, n, _ in SERVE_SHAPES]
+    acc_shape = (SUMMA_NB,) * 3
+    if smoke:
+        cfg_shapes = [(64, 96, 130), (4, 96, 34)]
+        acc_shape = (128, 128, 128)
+    args = sum((["--shape", "x".join(map(str, s))] for s in cfg_shapes), [])
+    if not smoke:
+        args += ["--shapes", "bench"]
+    args += ["--dtypes", "float32,bfloat16,int8", "--top-k", "4", "--reps",
+             "3", "--device", device]
+    cuda = device == "cuda"
+    runs = []
+    kmm.reset_counts()                       # the tuning's launches
+    for tag in ("cold", "warm"):
+        out = tmp / f"autotune-{tag}.json"
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            cli.main(args + ["--json", str(out)])
+        summary = json.loads(out.read_text())
+        at.reset_stats()
+        acc_plan, acc_info = at.autotune(*acc_shape, carry=True,
+                                         require_exact=True, top_k=4, reps=3,
+                                         device=device)
+        summary["acc"] = dict(acc_info, measurements=at.stats()[
+            "measurements"], blocks=[acc_plan.bm, acc_plan.bn, acc_plan.bk],
+            route=acc_plan.route)
+        runs.append(summary)
+        if tag == "cold":
+            launches = (kmm.launches, kmm.acc_launches) if cuda \
+                else (kmm.plain_calls, kmm.acc_plain_calls)
+    cold, warm = runs
+    if cuda and (launches[0] == 0 or launches[1] == 0):
+        raise AssertionError(f"autotune launched kernel #1 {launches[0]} "
+                             f"and kernel #2 {launches[1]} times")
+    if warm["measurements"] != 0 or warm["acc"]["measurements"] != 0 \
+            or warm["cache_hits"] != len(warm["plans"]) \
+            or warm["acc"]["source"] != "cache":
+        raise AssertionError(f"the warm re-run measured: {warm}")
+    if cold["acc"]["source"] != "measured" or cold["measurements"] == 0:
+        raise AssertionError("the cold run measured nothing")
+    for r in cold["plans"]:
+        log("tuning", f"(a) {r['key']}: model {r['model_us']:.1f} us, "
+                      f"winner {r['blocks']} ({r['route']}) "
+                      f"{r['best_us']:.1f} us")
+    acc = cold["acc"]
+    mb = "x".join(map(str, acc["model_blocks"]))
+    log("tuning", f"(a) {acc['key']}: model {acc['measured_us'][mb]:.1f} "
+                  f"us, winner {acc['blocks']} ({acc['route']}) "
+                  f"{acc['best_us']:.1f} us")
+    # every winner against its plain version (phases 3 and 6 tolerances)
+    g = torch.Generator(device=device).manual_seed(18)
+    errs = []
+    for r in cold["plans"]:
+        dims, dt_name = r["key"].split("/")[-1], r["key"].split("/")[3]
+        m, k, n = map(int, dims.split("x"))
+        dt = getattr(torch, dt_name.split("->")[0])
+        out = torch.int32 if dt == torch.int8 else torch.float32
+        plan = at.best_plan(m, k, n, in_dtype=dt, out_dtype=out,
+                            device=device)
+        if f"{plan.bm}x{plan.bn}x{plan.bk}" != r["blocks"]:
+            raise AssertionError(f"{r['key']}: dispatch plans {plan}")
+        if dt == torch.int8:
+            a = torch.randint(-127, 128, (m, k), generator=g, device=device,
+                              dtype=torch.int8)
+            b = torch.randint(-127, 128, (k, n), generator=g, device=device,
+                              dtype=torch.int8)
+        else:
+            a = torch.randn((m, k), generator=g, device=device).to(dt)
+            b = (torch.randn((k, n), generator=g, device=device)
+                 * k ** -0.5).to(dt)
+        wm = ops.kernel_weights(m, device=device)
+        wn = ops.kernel_weights(n, device=device).T.contiguous()
+        kw = dict(bm=plan.bm, bn=plan.bn, bk=plan.bk, out_dtype=out)
+        got = kmm.abft_matmul_cuda(a, b, wm, wn, splits=plan.splits, **kw)
+        if cuda and (kmm.last_route["route"] != plan.route
+                     or kmm.last_route["splits"] != plan.splits):
+            raise AssertionError(f"{r['key']} ran {kmm.last_route}")
+        errs.append(hold_oneshot(torch, kmm, (a, b, wm, wn), kw, got)[0])
+    acc_plan = at.best_plan(*acc_shape, carry=True, require_exact=True,
+                            device=device)
+    errs.append(_hold_acc(torch, kmm, ops, acc_plan, torch.float32, g,
+                          device))
+    # dispatch from the warmed cache: a protected projection and a SUMMA
+    m, k, n = cfg_shapes[0]
+    at.reset_stats()
+    x = torch.randn((m, k), generator=g, device=device)
+    w = torch.randn((k, n - 2), generator=g, device=device) * k ** -0.5
+    acfg = ag.ABFTConfig(mode="verify", backend="auto" if cuda else "cuda")
+    y, ok = ag.abft_matmul(x, ag.encode_weight(w, acfg), acfg)
+    want_plan = at.best_plan(m, k, n, out_dtype=torch.float32,
+                             device=device)
+    proj_hits = at.stats()["cache_hits"]
+    if cuda and (kmm.last_route["route"] != want_plan.route
+                 or kmm.last_route["splits"] != want_plan.splits):
+        raise AssertionError(f"the projection ran {kmm.last_route}, cached "
+                             f"{want_plan}")
+    if not bool(ok):
+        raise AssertionError("the protected projection flagged a clean "
+                             "product")
+    nb = acc_shape[0]
+    spec = core.make_spec(1, 1, 1, device=device)
+    sa = torch.randn((nb, 2 * nb), generator=g, device=device)
+    sb = torch.randn((2 * nb, nb), generator=g, device=device)
+    sx = torch.randn((nb,), generator=g, device=device)
+    a_enc, b_enc = core.encode_operands(sa, sb, spec)
+    c_enc = core.abft_summa(a_enc, b_enc, 2, spec=spec,
+                            local_update="auto" if cuda else "cuda")
+    resid = stress.residual_check(core.strip(c_enc, nb, nb), sa, sb, sx)
+    st = at.stats()
+    if proj_hits < 1 or st["cache_hits"] < proj_hits + 1 \
+            or not resid < stress.THRESHOLD:
+        raise AssertionError(f"dispatch from the cache: stats {st}, "
+                             f"projection hits {proj_hits}, SUMMA residual "
+                             f"{resid}")
+    if cuda and tuple(kmm.last_acc_route["tile"]) != (acc_plan.bm,
+                                                      acc_plan.bn):
+        raise AssertionError(f"the SUMMA ran {kmm.last_acc_route}, cached "
+                             f"{acc_plan}")
+    # the host time of one dispatch
+    kwp = dict(in_dtype=torch.float32, out_dtype=torch.float32,
+               device=torch.device(device))
+    warm_us = _dispatch_us(lambda: at.best_plan(m, k, n, **kwp), 20000)
+
+    def cold_once():
+        at.refresh()
+        at.best_plan(m, k, n, **kwp)
+    cold_us = _dispatch_us(cold_once, 200)
+    pick_us = _dispatch_us(lambda: ops.pick_blocks(
+        m, k, n, in_dtype=torch.float32, out_bytes=4, f=2), 20000)
+
+    def pick_cold():
+        ops.pick_blocks.cache_clear()
+        ops.pick_blocks(m, k, n, in_dtype=torch.float32, out_bytes=4, f=2)
+    pick_cold_us = _dispatch_us(pick_cold, 200)
+    row.update(
+        keys=len(cold["plans"]) + 1, measurements=cold["measurements"]
+        + cold["acc"]["measurements"], warm_measurements=0,
+        kernel1_launches=launches[0], kernel2_launches=launches[1],
+        max_abs_err=max(errs), projection_cache_hits=proj_hits,
+        summa_cache_hits=st["cache_hits"] - proj_hits, summa_residual=resid,
+        plans=cold["plans"], acc=acc, dispatch_us=dict(
+            best_plan_warm=warm_us, best_plan_cold=cold_us,
+            pick_blocks_warm=pick_us, pick_blocks_cold=pick_cold_us))
+    log("tuning", f"(a) {row['keys']} keys, {row['measurements']} "
+                  f"measurements (kernel #1 {launches[0]}, kernel #2 "
+                  f"{launches[1]} launches), warm re-run 0; every winner "
+                  f"held to its plain version, max |c - plain| "
+                  f"{max(errs):.4g}; the projection and the SUMMA step "
+                  f"from the cache ({st['cache_hits']} hits, SUMMA residual "
+                  f"{resid:.4g}); one dispatch: best_plan {warm_us:.2f} us "
+                  f"warm, {cold_us:.2f} us cold; pick_blocks {pick_us:.2f} "
+                  f"us memoized, {pick_cold_us:.2f} us cold")
+    return launches
+
+
+def _checked_ef(torch, real, seen):
+    """``ef_psum_tree`` that also holds each reduction to int8 error
+    feedback's own bounds, per leaf: every new residual within half a
+    quantization level of its shard (|r'_j| <= scale_j / 2), and the mean
+    within the mean of those half levels of the exact mean of gradients
+    plus carried residuals.  Records the worst ratios in ``seen``."""
+    from repro_torch.tree import tree_leaves
+
+    def fn(grads, residual, axes, ndp, **kw):
+        mean, new_res = real(grads, residual, axes, ndp, **kw)
+        for g, r, mu, nr in zip(tree_leaves(grads), tree_leaves(residual),
+                                tree_leaves(mean), tree_leaves(new_res)):
+            x = (g.float() + r).reshape(ndp, -1)
+            amax = x.abs().amax(dim=1)
+            # half a level, plus the fp32 rounding of x - q * scale
+            half = torch.clamp(amax, min=1e-30) / 254.0 + 2.0 ** -22 * amax
+            r_ratio = (nr.reshape(ndp, -1).abs()
+                       / half[:, None]).amax()
+            m_ratio = ((mu.reshape(-1) - x.mean(dim=0)).abs().amax()
+                       / (half.sum() / ndp))
+            seen["residual"] = max(seen.get("residual", 0.0), float(r_ratio))
+            seen["mean"] = max(seen.get("mean", 0.0), float(m_ratio))
+            del x
+        seen["reductions"] = seen.get("reductions", 0) + 1
+        return mean, new_res
+    return fn
+
+
+def _tune_compressed(torch, row, device, smoke):
+    """(b) Qwen2-0.5B at full width in fp32 on the logical (1, 4, 1) mesh
+    through ElasticRuntime, 10 steps each from the same seeded state:
+    int8-EF with zero2, the uncompressed deferred step, zero2, fsdp."""
+    from repro_torch.configs.base import ShapeConfig, get_config, \
+        smoke_config
+    from repro_torch.ft.runtime import ElasticRuntime, FTPolicy
+    from repro_torch.kernels import checksum_encode as kenc
+    from repro_torch.train import step as tstep
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import StepOptions
+    from repro_torch.tree import tree_leaves
+
+    name = "qwen2-0.5b"
+    cfg = dataclasses.replace(
+        smoke_config(name) if smoke else get_config(name), dtype="float32")
+    shape = ShapeConfig("tune", 16 if smoke else 128, 16, "train")
+    cuda = device == "cuda"
+    variants = [
+        ("int8_ef+zero2", dict(defer_grad_reduce=True, zero2=True,
+                               grad_compression="int8_ef")),
+        ("deferred", dict(defer_grad_reduce=True)),
+        ("zero2", dict(defer_grad_reduce=True, zero2=True)),
+        ("fsdp", dict(defer_grad_reduce=True, fsdp=True)),
+    ]
+    runs = {}
+    for key, kw in variants:
+        _free(torch, device)
+        rt = ElasticRuntime(cfg, shape, TUNE_MESH,
+                            opts=StepOptions(**kw),
+                            adamw=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=TUNE_STEPS),
+                            policy=FTPolicy(diskless_every=5),
+                            device=device)
+        real_ef = tstep.ef_psum_tree
+        bounds = {}
+        try:
+            state = rt.init_state(0)
+            compressed = "grad_compression" in kw
+            if compressed:
+                tstep.ef_psum_tree = _checked_ef(torch, real_ef, bounds)
+            kenc.reset_counts()
+            losses = []
+            for i in range(TUNE_STEPS):
+                state, m = rt.train_step(i, state)
+                losses.append(float(m["loss"]))
+                if compressed:
+                    rt.checkpoint(i, state)
+            if cuda:
+                torch.cuda.synchronize()
+            enc = (kenc.launches, kenc.plain_calls) if cuda \
+                else (kenc.plain_calls, 0)
+            out = dict(losses=losses, step_walls=list(rt.step_times),
+                       peak_gb=_gb(torch, device), split=rt.gen.split,
+                       params=[x.clone() for x in tree_leaves(
+                           state["params"])] if key != "int8_ef+zero2"
+                       else None)
+            if compressed:
+                res = tree_leaves(state["ef_residual"])
+                out.update(
+                    residual_norm=float(torch.sqrt(sum(
+                        (x.double() ** 2).sum() for x in res))),
+                    residual_bytes=sum(x.numel() * 4 for x in res),
+                    encode_launches=enc[0], encode_plain=enc[1],
+                    encodes=len(rt.timings["encode"]), ef_bounds=bounds)
+                if enc[0] == 0 or enc[1] != 0:
+                    raise AssertionError(f"the compressed run's encodes: "
+                                         f"kernel #3 {enc[0]} launches, "
+                                         f"{enc[1]} plain calls")
+            runs[key] = out
+        finally:
+            tstep.ef_psum_tree = real_ef
+            rt.close()
+            del rt
+            state = None
+    base = runs["deferred"]["losses"]
+    ef = runs["int8_ef+zero2"]
+    dl = [a - b for a, b in zip(ef["losses"], base)]
+    worst = max(abs(d) / abs(b) for d, b in zip(dl, base))
+    b = ef["ef_bounds"]
+    if b.get("reductions") != TUNE_STEPS or b["residual"] > 1.0 \
+            or b["mean"] > 1.0:
+        raise AssertionError(f"int8-EF reductions leave their bounds: {b}")
+    fall, base_fall = ef["losses"][0] - ef["losses"][-1], base[0] - base[-1]
+    if not all(math.isfinite(x) for x in ef["losses"]) \
+            or not 0 < EF_CONVERGE * base_fall <= fall:
+        raise AssertionError(f"int8-EF run does not converge: "
+                             f"{ef['losses']} against {base}")
+    for key in ("zero2", "fsdp"):
+        r = runs[key]
+        same = r["losses"] == base and all(torch.equal(a, b) for a, b in zip(
+            r["params"], runs["deferred"]["params"]))
+        if not same:
+            raise AssertionError(f"{key} is not the deferred step bit for "
+                                 f"bit: losses {r['losses']} against {base}")
+    for r in runs.values():
+        r.pop("params", None)
+    row.update(runs=runs, loss_diff=dl, worst_rel_loss_diff=worst,
+               fall=fall, base_fall=base_fall, converge=EF_CONVERGE)
+    med = {k: _median(r["step_walls"][1:]) for k, r in runs.items()}
+    log("tuning", f"(b) {cfg.name} fp32 on {TUNE_MESH}, {TUNE_STEPS} steps "
+                  f"each: int8-EF + zero2 loss - uncompressed "
+                  f"{[round(d, 6) for d in dl]} (worst {worst:.3g} of the "
+                  f"loss; it falls {fall:.4g}, {fall / base_fall:.3f} of "
+                  f"the uncompressed fall >= {EF_CONVERGE}); every "
+                  f"reduction within int8 "
+                  f"error feedback's bounds (worst residual {b['residual']:.3f}"
+                  f" and mean {b['mean']:.3f} of their bounds); residual norm "
+                  f"{ef['residual_norm']:.4g} ({ef['residual_bytes'] / 1e9:.2f}"
+                  f" GB); zero2 and fsdp bit for bit the deferred step; "
+                  f"median step walls (s) {json.dumps(med)}; peak GB "
+                  f"{json.dumps({k: r['peak_gb'] for k, r in runs.items()})}"
+                  f"; kernel #3 {ef['encode_launches']} launches over "
+                  f"{ef['encodes']} encodes")
+    return ef["encode_launches"]
+
+
+def _start_dryrun(tmp, smoke):
+    """(c)'s dry run of every valid Qwen2-0.5B cell on pod1 and pod2, in a
+    process of its own (meta tensors only: host work beside the card's)."""
+    out = tmp / "dryrun"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "qwen2-0.5b", "--all", "--meshes", "pod1,pod2", "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if smoke:
+        cmd = [sys.executable, "-c", "print('skipped at smoke size')"]
+    log_f = open(tmp / "dryrun.log", "w")
+    proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                            env=env, cwd=str(ROOT))
+    return proc, out, log_f
+
+
+def _tune_dryrun(torch, row, device, smoke, dry):
+    """(c) The dry run's cells, then two of them cut to one card and run
+    for real through the builders: train_4k (global batch 2, mesh (1, 1),
+    remat, so seq 4096 takes the FA-2 backward) and decode_32k (batch 1:
+    a prefill of 4096 tokens into the 32k cache, then decode steps); the
+    dry run's memory and FLOPs beside the measured ones, and the
+    attention backward's peak memory, FA-2 against autograd through the
+    chunk loop."""
+    from repro_torch.configs.base import ShapeConfig, get_config, \
+        smoke_config
+    from repro_torch.launch.dryrun import dryrun_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import (StepOptions, build_prefill_step,
+                                        build_serve_step, build_train_step,
+                                        init_state, make_inputs)
+
+    proc, out_dir, log_f = dry
+    rc = proc.wait(timeout=600)
+    log_f.close()
+    if rc != 0:
+        raise AssertionError(f"the dry run failed ({rc}): "
+                             + (out_dir.parent / "dryrun.log").read_text()
+                             [-2000:])
+    cells = [json.loads(p.read_text())
+             for p in sorted(out_dir.glob("*.json"))] if not smoke else []
+    if not smoke and len(cells) != 6:
+        raise AssertionError(f"dry run wrote {len(cells)} cells, not 6")
+    for c in cells:
+        mem = c["memory"]
+        log("tuning", f"(c) dry run {c['shape']} on {c['tag']} "
+                      f"{tuple(c['mesh'].values())}: flops/device "
+                      f"{c['flops_per_device']:.4g}, argument "
+                      f"{mem['argument_bytes'] / 1e9:.3f} GB + temp "
+                      f"{mem['temp_bytes'] / 1e9:.3f} GB a device, "
+                      f"collectives {c['collective_bytes_per_device']}, "
+                      f"planned in {c['account_s']} s")
+    name = "qwen2-0.5b"
+    cfg = smoke_config(name) if smoke else get_config(name)
+    cuda = device == "cuda"
+    seq = 1040 if smoke else 4096
+    mesh = make_mesh((1, 1), ("data", "model"), device=device)
+    meta = make_mesh((1, 1), ("data", "model"), device="meta")
+    g = torch.Generator(device=device).manual_seed(4)
+    real = {}
+
+    # train_4k cut to a global batch of 2, two microbatches of 1
+    shape = ShapeConfig("train_4k", seq, TRAIN4K_BATCH, "train")
+    opts = StepOptions(microbatches=TRAIN4K_BATCH, remat=True)
+    dry_t = dryrun_cell(name, shape, meta, opts=opts, verbose=False,
+                        cfg_overrides=None if not smoke else
+                        {f.name: getattr(cfg, f.name) for f in
+                         dataclasses.fields(cfg) if f.name != "name"})
+    _free(torch, device)
+    fn = build_train_step(cfg, shape, opts=opts, mesh=mesh)
+    state = init_state(g, cfg, opts, mesh)
+    batch = make_inputs(cfg, shape, structs=False, device=device)
+    for k in ("tokens", "labels"):
+        batch[k] = torch.randint(0, cfg.vocab_size, batch[k].shape,
+                                 generator=g, device=device,
+                                 dtype=batch[k].dtype)
+    base = _gb(torch, device, peak=False)
+    walls = []
+    for _ in range(2):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not math.isfinite(float(m["loss"])):
+        raise AssertionError("train_4k loss is not finite")
+    real["train_4k"] = dict(wall_s=walls[-1], peak_gb=_gb(torch, device),
+                            state_gb=base, loss=float(m["loss"]),
+                            tflops=dry_t["step_flops"] / walls[-1] / 1e12)
+    del state, batch, fn, m
+    # decode_32k cut to batch 1: one prefill, then decode steps
+    _free(torch, device)
+    cache_len = 2 * seq if smoke else 32768
+    prompt = seq
+    dshape = ShapeConfig("decode_32k", cache_len, 1, "decode")
+    pshape = ShapeConfig("prefill", cache_len, 1, "prefill")
+    dry_d = dryrun_cell(name, dshape, meta, verbose=False,
+                        cfg_overrides=None if not smoke else
+                        {f.name: getattr(cfg, f.name) for f in
+                         dataclasses.fields(cfg) if f.name != "name"})
+    params = tf.init_params(g, cfg)
+    pf, _, _ = build_prefill_step(cfg, mesh, pshape)
+    sf, _, _ = build_serve_step(cfg, mesh, dshape)
+    cache = tf.init_cache(cfg, 1, cache_len, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                        device=device, dtype=torch.int32)
+    with torch.no_grad():
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pf(params, {"tokens": tok}, cache)
+        if cuda:
+            torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        dwalls = []
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for i in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = sf(params, {"tokens": nxt, "pos": torch.tensor(
+                prompt + i, dtype=torch.int32, device=device)}, cache)
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            if cuda:
+                torch.cuda.synchronize()
+            dwalls.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode_32k logits are not finite")
+    real["decode_32k"] = dict(prefill_s=t_prefill,
+                              decode_step_s=_median(dwalls[1:]),
+                              peak_gb=_gb(torch, device),
+                              tflops=dry_d["step_flops"]
+                              / _median(dwalls[1:]) / 1e12)
+    del params, cache, logits
+    # the attention layer's backward at seq 4096: FA-2 against autograd
+    # through the chunk loop (the path it replaces)
+    _free(torch, device)
+    hd = cfg.resolved_head_dim
+    g_kv, grp = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q = torch.randn((1, seq, g_kv, grp, hd), generator=g, device=device)
+    kk = torch.randn((1, seq, g_kv, hd), generator=g, device=device)
+    vv = torch.randn((1, seq, g_kv, hd), generator=g, device=device)
+    pos = torch.arange(seq, device=device)
+    kw = dict(scale=hd ** -0.5, softcap=None, causal=True, window=None,
+              kc=512)
+    attn_peak = {}
+    grads = {}
+    for key in ("fa2", "autograd"):
+        _free(torch, device)
+        x = [t.clone().requires_grad_(True) for t in (q, kk, vv)]
+        base = _gb(torch, device, peak=False)
+        if key == "fa2":
+            o = tattn._sdpa_flash(*x, q_pos=pos, k_pos=pos, **kw)
+        else:
+            o = tattn._flash_fwd_impl(*x, pos, pos, **kw)[0]
+        o.sum().backward()
+        attn_peak[key] = _gb(torch, device) - base
+        grads[key] = [t.grad for t in x]
+    gerr = max(float((a - b).abs().max()) for a, b in zip(*grads.values()))
+    if gerr > 1e-3 * max(float(b.abs().max()) for b in grads["autograd"]):
+        raise AssertionError(f"FA-2 gradients leave autograd's: {gerr}")
+    row.update(dry_cells=[{k: c[k] for k in ("shape", "tag",
+                                              "flops_per_device", "memory",
+                                              "collective_bytes_per_device",
+                                              "account_s")} for c in cells],
+               train_4k=dict(dry=dict(flops=dry_t["step_flops"],
+                                      memory=dry_t["memory"]),
+                             real=real["train_4k"]),
+               decode_32k=dict(dry=dict(flops=dry_d["step_flops"],
+                                        memory=dry_d["memory"]),
+                               real=real["decode_32k"]),
+               attention_bwd_peak_gb=attn_peak, fa2_grad_err=gerr)
+    for key, dry_r in (("train_4k", dry_t), ("decode_32k", dry_d)):
+        mem = dry_r["memory"]
+        est = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e9
+        r = real[key]
+        log("tuning", f"(c) {key} cut to one card: dry run argument + temp "
+                      f"{est:.3f} GB against a measured peak of "
+                      f"{r['peak_gb']:.3f} GB ({r['peak_gb'] / est:.2f}x); "
+                      f"{dry_r['step_flops']:.4g} FLOPs a step, measured "
+                      + (f"{r['wall_s']:.3f} s a step" if key == "train_4k"
+                         else f"prefill {r['prefill_s']:.3f} s, "
+                              f"{r['decode_step_s'] * 1e3:.2f} ms a decode "
+                              f"step") + f" ({r['tflops']:.3g} TFLOP/s)")
+    log("tuning", f"(c) attention backward at seq {seq}: FA-2 peak "
+                  f"{attn_peak['fa2']:.4f} GB, autograd through the chunk "
+                  f"loop {attn_peak['autograd']:.4f} GB; gradients within "
+                  f"{gerr:.3g}")
+
+
+def _tune_whisper(torch, row, device, smoke):
+    """(d) Whisper-large-v3 at full width in fp32 through the builders: a
+    prefill over the frames, then greedy decode steps, every protected
+    projection on kernel #1; the tokens held to greedy decoding by the full
+    forward over the same frames (phase 16's rule)."""
+    from repro_torch.configs.base import ShapeConfig, get_config, \
+        smoke_config
+    from repro_torch.core.abft_gemm import ABFTConfig
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import (StepOptions, build_prefill_step,
+                                        build_serve_step)
+
+    _free(torch, device)
+    name = "whisper-large-v3"
+    cfg = dataclasses.replace(
+        smoke_config(name) if smoke else get_config(name), dtype="float32")
+    cuda = device == "cuda"
+    g = torch.Generator(device=device).manual_seed(5)
+    params = tf.init_params(g, cfg)
+    b, sp, new = 2, WHISPER_PROMPT, WHISPER_NEW
+    s = sp + new + 1
+    frames = torch.randn((b, cfg.n_frames, cfg.d_model), generator=g,
+                         device=device)
+    prompt = torch.randint(0, cfg.vocab_size, (b, sp), generator=g,
+                           device=device, dtype=torch.int32)
+    opts = StepOptions(abft_mode="verify",
+                       abft_backend="auto" if cuda else "cuda")
+    mesh = make_mesh((1, 1), ("data", "model"), device=device)
+    pf, _, _ = build_prefill_step(cfg, mesh, ShapeConfig("p", s, b,
+                                                         "prefill"), opts)
+    sf, _, _ = build_serve_step(cfg, mesh, ShapeConfig("d", s, b, "decode"),
+                                opts)
+    kmm.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = tf.init_cache(cfg, b, s, device=device)
+        logits, cache = pf(params, {"tokens": prompt, "frames": frames},
+                           cache)
+        out = [logits.argmax(-1)]
+        for i in range(new):
+            logits, cache = sf(params, {
+                "tokens": out[-1].to(torch.int32)[:, None],
+                "pos": torch.tensor(sp + i, dtype=torch.int32,
+                                    device=device)}, cache)
+            out.append(logits.argmax(-1))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, other = _counts(kmm, device)
+    want = protected_per_pass(cfg, stash=True) + \
+        new * protected_per_pass(cfg, decode=True)
+    if launches != want or other != 0:
+        raise AssertionError(f"whisper through the builders: kernel #1 "
+                             f"{launches} launches (want {want}), {other} "
+                             "plain calls")
+    emitted = torch.stack(out, dim=1)                       # [b, new + 1]
+    seq = torch.cat([prompt.long(), emitted[:, :-1]], dim=1)
+    plain = ABFTConfig(mode="verify", backend="ref")
+    with torch.no_grad():
+        lk = tf.forward(params, seq, cfg, frames=frames,
+                        abft=opts.abft)[0][:, sp - 1:].float()
+        lp = tf.forward(params, seq, cfg, frames=frames,
+                        abft=plain)[0][:, sp - 1:].float()
+    noise = float((lk - lp).abs().max())
+    chosen = lk.gather(2, emitted[..., None])[..., 0]
+    short = (lk.max(dim=2).values - chosen)
+    exact = int((short == 0).sum())
+    if exact < short.numel() and float(short.max()) > 2 * noise:
+        raise AssertionError(f"whisper's greedy tokens leave the full "
+                             f"forward: short {short.tolist()}, noise "
+                             f"{noise}")
+    row.update(tokens=emitted.tolist(), exact=exact, of=short.numel(),
+               worst_short=float(short.max()), noise=noise,
+               launches=launches, wall_s=wall, peak_gb=_gb(torch, device))
+    log("tuning", f"(d) {name} fp32 through build_prefill_step and "
+                  f"build_serve_step: prefill {b} x {sp} over "
+                  f"{cfg.n_frames} frames, {new} greedy decode steps; "
+                  f"{exact} of {short.numel()} tokens the full forward's "
+                  f"argmax, the rest within 2 x noise {2 * noise:.3g}; "
+                  f"kernel #1 {launches} launches, no plain call; "
+                  f"{wall:.2f} s, peak {row['peak_gb']:.2f} GB")
+    del params, cache
+    return launches
+
+
+def phase_tuning(torch, record, card, device="cuda", smoke=False):
+    """Phase 18: tune, then plan, then train compressed, then serve
+    through the step builders.  Returns the launches of kernels #1, #2
+    and #3 on its path: (autotune #1, autotune #2, the compressed run's
+    encodes #3, Whisper's #1)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    rows = {k: {} for k in "abcd"}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tmp = pathlib.Path(d)
+        # run alone (not from main), the phase tunes into a cache of its own
+        os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE",
+                              str(tmp / "autotune.json"))
+        dry = _start_dryrun(tmp, smoke)
+        walls = {}
+        try:
+            t0 = time.perf_counter()
+            launches = _tune_autotune(torch, rows["a"], device, smoke, tmp)
+            walls["a"] = time.perf_counter() - t0
+            enc = _tune_compressed(torch, rows["b"], device, smoke)
+            walls["b"] = time.perf_counter() - t0 - walls["a"]
+            _tune_dryrun(torch, rows["c"], device, smoke, dry)
+            walls["c"] = time.perf_counter() - t0 - walls["a"] - walls["b"]
+            whisper = _tune_whisper(torch, rows["d"], device, smoke)
+            walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+        finally:
+            if dry[0].poll() is None:
+                dry[0].kill()
+                dry[0].wait()
+            dry[2].close()
+    _free(torch, device)
+    wall = time.perf_counter() - t_phase
+    log("tuning", f"phase {wall:.1f} s (parts (s): "
+                  f"{json.dumps({k: round(v, 1) for k, v in walls.items()})})"
+                  f"; {card}")
+    record["tuning"] = dict(rows, phase_s=wall, part_s=walls, card=card)
+    return launches[0], launches[1], enc, whisper
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3634,6 +4370,14 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE fp32 everywhere
     torch.backends.cudnn.allow_tf32 = False
+    # a fresh autotune cache of this run's own: phases 1-17 plan cold (the
+    # time model), phase 18 warms it
+    (ROOT / "build").mkdir(exist_ok=True)
+    at_cache = ROOT / "build" / f"autotune-{os.getpid()}.json"
+    at_cache.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(at_cache)
+    for knob in ("REPRO_TORCH_AUTOTUNE_PLAN", "REPRO_TORCH_AUTOTUNE_DISABLE"):
+        os.environ.pop(knob, None)
     from repro_torch.kernels import build
 
     record = {}
@@ -3662,6 +4406,9 @@ def main():
     families_launches, families_err = phase_families(torch, record,
                                                      f"{name} ({smi})")
     elastic_launches = phase_elastic(torch, record, f"{name} ({smi})")
+    tune1, tune2, tune_enc, tune_whisper = phase_tuning(
+        torch, record, f"{name} ({smi})")
+    at_cache.unlink(missing_ok=True)
 
     # one record per kernel: one prefill layer (m = 1024) plus one decode
     # layer (m = 4) of fp32 operands, as served: 7 projections each
@@ -3696,6 +4443,10 @@ def main():
         "traffic_launches": traffic_launches,
         # phase 16: the MoE, hybrid, recurrent, Whisper and vision configs
         "families_launches": families_launches,
+        # phase 18: the autotuner's measurements and winner holds, and
+        # Whisper served through the step builders
+        "autotune_launches": tune1,
+        "builders_launches": tune_whisper,
     }, {
         "name": "abft_matmul_acc",
         "route": "cuda",
@@ -3708,6 +4459,8 @@ def main():
         "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"],
         "library_ms": step["library_ms"],
+        # phase 18: the autotuner's accumulate-family measurements
+        "autotune_launches": tune2,
     }, {
         # one diskless encode of the full-width train state: 42 launches,
         # one per floating leaf, their times summed
@@ -3729,6 +4482,8 @@ def main():
         "chaos_launches": chaos_counts["encode"],
         # phase 17: the pod-loss drills at p = 4 and p = 2, re-keys included
         "elastic_launches": elastic_launches,
+        # phase 18: the int8-EF run's encodes, ef_residual included
+        "compressed_launches": tune_enc,
     }, {
         # the Qwen2-0.5B attention at full width (4 x 14 heads, S 4096,
         # D 64, causal, fp32), the shape SDPA computes the same function

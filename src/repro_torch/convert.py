@@ -53,12 +53,26 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
 def state_from_jax(tree, cfg: ModelConfig, device=None):
     """The reference's train state ``{"params", "opt": {"m", "v", "count"},
     "step"}`` -> the port's: params and both moments by the mapping of
-    `params_from_jax`, the counters as 0-d tensors."""
+    `params_from_jax`, the counters as 0-d tensors.  An ``ef_residual``
+    (int8-EF compression) keeps the reference's stacked layout, as the
+    port's state holds it."""
     opt = tree["opt"]
-    return {
+    out = {
         "params": params_from_jax(tree["params"], cfg, device),
         "opt": {"m": params_from_jax(opt["m"], cfg, device),
                 "v": params_from_jax(opt["v"], cfg, device),
                 "count": to_tensor(opt["count"], device)},
         "step": to_tensor(tree["step"], device),
     }
+    if "ef_residual" in tree:
+        out["ef_residual"] = _map_lists(tree["ef_residual"],
+                                        lambda x: to_tensor(x, device))
+    return out
+
+
+def _map_lists(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_lists(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_lists(v, fn) for v in tree)
+    return fn(tree)

@@ -118,11 +118,13 @@ def _fused_forward(x: torch.Tensor, w_enc: torch.Tensor, cfg: ABFTConfig):
     Dispatches through `kernels.ops.abft_matmul` with the row-checksum
     weights set to ``[w_r; -I]``, so the kernel epilogue reduces the §4.3
     verification residual from the accumulator — no separate verify
-    product, no extra read of Y.  The plan is ``ops.pick_blocks``'s.  The
-    reference drops to the plain path when the plan pads more than 25 %;
+    product, no extra read of Y.  The plan is ``autotune.best_plan``'s (a
+    measured winner when the cache holds one, the time model's otherwise).
+    The reference drops to the plain path when the plan pads more than 25 %;
     this kernel masks ragged edges instead of padding, so every shape
     (decode's m = slots included) takes it.
     """
+    from repro_torch.kernels import autotune as ktune
     from repro_torch.kernels import ops as kops  # lazy, as in the reference
 
     if not (cfg.backend == "cuda" or (cfg.backend == "auto" and x.is_cuda)):
@@ -134,8 +136,8 @@ def _fused_forward(x: torch.Tensor, w_enc: torch.Tensor, cfg: ABFTConfig):
         m *= d
     n_enc = w_enc.shape[-1]
     n = n_enc - cfg.f
-    plan = kops.pick_blocks(m, k, n_enc, in_dtype=x.dtype, out_bytes=4,
-                            f=cfg.f)
+    plan = ktune.best_plan(m, k, n_enc, in_dtype=x.dtype,
+                           out_dtype=torch.float32, f=cfg.f, device=x.device)
     wn_res = _residual_weights(n, cfg.f, cfg.seed, str(x.device))
     wm = kops.kernel_weights(m, cfg.f, device=x.device)
     y_f, _cs_col, res = kops.abft_matmul(

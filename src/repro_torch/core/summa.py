@@ -193,7 +193,7 @@ def _resolve_local_update(local_update: str, mb: int, kb: int, nb: int,
     tiling of the local blocks is preferred (``require_exact``); the kernel
     masks ragged edges, so where none exists the best ragged tiling runs.
     """
-    from repro_torch.kernels import ops as kops  # lazy: core <-> kernels
+    from repro_torch.kernels import autotune as ktune  # lazy: core <-> kernels
 
     if local_update == "torch" or (local_update == "auto"
                                    and device.type != "cuda"):
@@ -201,9 +201,11 @@ def _resolve_local_update(local_update: str, mb: int, kb: int, nb: int,
     if local_update not in ("auto", "cuda"):
         raise ValueError(f"unknown local_update {local_update!r}: auto, cuda "
                          "or torch")
-    kw = dict(in_dtype=dtype, out_bytes=4, carry=True)
-    plan = (kops.pick_blocks(mb, kb, nb, require_exact=True, **kw)
-            or kops.pick_blocks(mb, kb, nb, **kw))
+    # best_plan resolves a measured winner (env override or warmed cache)
+    # where one exists and the time model otherwise; it never measures
+    kw = dict(in_dtype=dtype, carry=True, device=device)
+    plan = (ktune.best_plan(mb, kb, nb, require_exact=True, **kw)
+            or ktune.best_plan(mb, kb, nb, **kw))
     if plan is None:
         raise ValueError(f"no tiling of the local blocks ({mb},{kb},{nb})")
     return plan

@@ -15,9 +15,21 @@ axis; at extent 1 this is the reference on its 1 x 1 mesh.  The algebra is
 the reference's: the grid, the packed checksums, the thresholds, the
 location and the repair.
 
-Counterpart of the reference package's ``repro/dist/collectives.py``; its
-int8 error-feedback reduction (``ef_psum_tree``, ``ef_wire_bytes``) comes
-with port slice 14.
+`ef_psum_tree` is the int8 error-feedback quantized mean of the DP
+gradients: each shard's contribution plus its carried residual is
+quantized to int8 with a per-shard fp32 scale, and the quantization error
+is the next step's residual.  Its ``int8`` wire is the reference's
+compressed exchange (all-to-all of the int8 payloads, a segment mean per
+shard, requantized and all-gathered), computed here on the stacked
+payloads.  `ef_wire_bytes` is the per-device wire accounting of the
+uncompressed and the compressed gradient reduction.
+
+The reductions announce what a device would send to
+`launch.hlo_accounting` through `note_collective`: one line per collective
+the reference issues, with its kind and per-device output bytes (the
+logical mesh moves nothing, so this is the only record of the wire).
+
+Counterpart of the reference package's ``repro/dist/collectives.py``.
 """
 from __future__ import annotations
 
@@ -30,7 +42,8 @@ import torch.nn.functional as F
 from repro_torch.chaos.faults import register_surface
 from repro_torch.tree import tree_leaves, tree_unflatten
 
-__all__ = ["abft_psum", "abft_psum_tree"]
+__all__ = ["ef_psum_tree", "abft_psum", "abft_psum_tree", "ef_wire_bytes",
+           "note_collective", "collective_hooks"]
 
 # checksums riding the reduction see a corruption of the reduction itself;
 # they cannot see garbage that was already in the contribution when its
@@ -48,6 +61,122 @@ register_surface(
          "to bit-identity (see serve.engine/logits_reduce)")
 
 _EPS32 = float(torch.finfo(torch.float32).eps)
+
+# callables (kind, per-device output bytes) that see every collective the
+# reductions stand for; `launch.hlo_accounting.account` installs one
+collective_hooks: list = []
+
+
+def note_collective(kind: str, nbytes: int) -> None:
+    """Report one collective of ``kind`` ("all-reduce", "reduce-scatter",
+    "all-to-all", "all-gather") whose per-device output is ``nbytes``.
+    Callers report only reductions over more than one shard: over one,
+    nothing moves."""
+    for hook in collective_hooks:
+        hook(kind, nbytes)
+
+
+def _quant(x: torch.Tensor):
+    """Per-shard int8 quantization of ``x`` [ndp, ...]: ``(q int8, scale
+    fp32 [ndp])`` with ``scale = max(max|x|, 1e-30) / 127`` and ``q =
+    clip(round(x / scale), -127, 127)`` (round half to even, as
+    ``jnp.round``)."""
+    flat = x.reshape(x.shape[0], -1)
+    scale = torch.clamp(flat.abs().amax(dim=1), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(flat / scale[:, None]), -127.0, 127.0)
+    return q.to(torch.int8).reshape(x.shape), scale
+
+
+def _ef_psum(x: torch.Tensor, ndp: int):
+    """The ``psum`` wire: dequantized payloads summed in fp32."""
+    q, scale = _quant(x)
+    deq = q.float() * scale.reshape((-1,) + (1,) * (x.dim() - 1))
+    if ndp > 1:
+        note_collective("all-reduce", deq[0].numel() * 4)
+    mean = deq[0].clone()
+    for j in range(1, ndp):
+        mean += deq[j]
+    return mean / ndp, x - deq, {"q": q, "scale": scale}
+
+
+def _ef_int8(x: torch.Tensor, ndp: int):
+    """The ``int8`` wire on stacked payloads: shard i owns segment i of
+    every shard's int8 payload (the reference's all-to-all), averages it
+    with the per-shard scales, requantizes it (its all-gather) and feeds
+    its segment's requantization error, times ``ndp``, back through its
+    own residual."""
+    shape = x.shape[1:]
+    flat = x.reshape(ndp, -1)
+    size = flat.shape[1]
+    seg = -(-size // ndp)
+    padded = torch.nn.functional.pad(flat, (0, seg * ndp - size))
+    q, scale = _quant(padded)                                 # [ndp, ndp*seg]
+    local_err = flat - (q.float() * scale[:, None])[:, :size]
+    chunks = q.reshape(ndp, ndp, seg)                         # [shard, owner]
+    note_collective("all-to-all", ndp * seg)
+    note_collective("all-gather", ndp * 4)
+    seg_sum = chunks[0].float() * scale[0]
+    for j in range(1, ndp):
+        seg_sum += chunks[j].float() * scale[j]
+    seg_mean = seg_sum / ndp                                  # [owner, seg]
+    q2, s2 = _quant(seg_mean)
+    note_collective("all-gather", ndp * seg)
+    note_collective("all-gather", ndp * 4)
+    deq2 = q2.float() * s2[:, None]
+    mean = deq2.reshape(-1)[:size].reshape(shape)
+    seg_err = torch.zeros((ndp, ndp, seg), dtype=torch.float32,
+                          device=x.device)
+    own = torch.arange(ndp, device=x.device)
+    seg_err[own, own] = ndp * (seg_mean - deq2)
+    new_r = local_err + seg_err.reshape(ndp, -1)[:, :size]
+    return mean, new_r.reshape(x.shape), {"q": q, "scale": scale, "q2": q2,
+                                          "scale2": s2}
+
+
+def ef_psum_tree(grads, residual, dp_axes, ndp: int, *, wire: str = "psum",
+                 with_info: bool = False):
+    """int8 error-feedback quantized DP gradient mean over the stacked
+    shard axis of every leaf (each ``[ndp, ...]``, as `abft_psum_tree`
+    takes them; ``residual`` the same tree in fp32).
+
+    Per leaf: add the carried residual, quantize each shard's sum to int8
+    with its own fp32 scale, reduce the dequantized payloads, and keep the
+    quantization error as the next step's residual.  Returns
+    ``(mean_grads, new_residual)``: the mean leaves ``[...]`` in fp32 (the
+    value every shard of the reference ends with), the residual leaves
+    ``[ndp, ...]``.  With ``with_info=True`` also a list, per leaf, of the
+    int8 payloads and scales (``q``, ``scale``; the ``int8`` wire adds the
+    requantized segments ``q2``, ``scale2``).
+
+    wire:
+      * "psum" — the dequantized values are summed: the gradient passes
+        through the int8 bottleneck, the wire would carry fp32 (the
+        reference's train step uses it);
+      * "int8" — the reference's compressed exchange: shard i's segment i
+        of every shard's payload is averaged, requantized and shared;
+        both quantization errors feed the residual.  At ``ndp`` 1 it is
+        the psum wire, as there.
+    """
+    if wire not in ("psum", "int8"):
+        raise ValueError(f"unknown wire {wire!r}: expected 'psum' or 'int8'")
+    _check_axes(dp_axes)
+    one = _ef_int8 if (wire == "int8" and ndp > 1) else _ef_psum
+    leaves = tree_leaves(grads)
+    r_leaves = tree_leaves(residual)
+    if len(r_leaves) != len(leaves):
+        raise ValueError("the residual tree does not match the gradients")
+    outs = []
+    for g, r in zip(leaves, r_leaves):
+        if g.shape[0] != ndp or tuple(r.shape) != tuple(g.shape):
+            raise ValueError(f"leaf of shape {tuple(g.shape)} (residual "
+                             f"{tuple(r.shape)}) is not stacked over {ndp} "
+                             "shards")
+        outs.append(one(g.float() + r.float(), ndp))
+    mean = tree_unflatten(grads, [o[0] for o in outs])
+    new_res = tree_unflatten(residual, [o[1] for o in outs])
+    if with_info:
+        return mean, new_res, [o[2] for o in outs]
+    return mean, new_res
 
 
 def _check_axes(axes) -> None:
@@ -129,6 +258,9 @@ def abft_psum(x: torch.Tensor, axes=0, *, f: int = 2, mode: str = "correct",
         v = v.clone()
         v[:, n // 2] += d.reshape(m)
     # one reduction of [v, rows, cols]: each position sums over the shards
+    if m > 1:
+        note_collective("all-reduce",
+                        4 * (n + rdim + (cdim if f >= 2 else 0)))
     y = v.sum(0)
     total_rows = rows.sum(0)
     y2 = grid(y)
@@ -214,3 +346,35 @@ def abft_psum_tree(grads, dp_axes, ndp: int, *, mode: str = "verify",
     else:
         all_ok = torch.ones((), dtype=torch.bool)
     return tree_unflatten(grads, outs), all_ok
+
+
+# ---------------------------------------------------------------------------
+# wire-byte accounting (no device work)
+# ---------------------------------------------------------------------------
+
+
+def ef_wire_bytes(param_shapes, ndp: int) -> dict:
+    """Per-device gradient-reduction wire bytes: fp32 ring all-reduce
+    against the int8-EF compressed exchange (``ef_psum_tree(wire="int8")``).
+
+    The fp32 baseline sends ``2 S (ndp - 1) / ndp`` bytes a device for an
+    S-byte payload (reduce-scatter and all-gather phases); the int8
+    exchange sends the same two phases at one byte an element plus one
+    fp32 scale per leaf per phase.  ``param_shapes`` is any tree of
+    tensors (meta tensors included): only shapes are read, over the
+    reference's stacked leaves (`dist.sharding.stacked_shapes`), so the
+    leaf count is the reference's."""
+    from repro_torch.dist.sharding import stacked_shapes
+    leaves = tree_leaves(stacked_shapes(param_shapes))
+    n_elems = sum(int(math.prod(x.shape)) for x in leaves)
+    n_leaves = len(leaves)
+    frac = (ndp - 1) / ndp if ndp > 1 else 0.0
+    f32 = 2 * 4 * n_elems * frac
+    int8 = 2 * 1 * n_elems * frac + 2 * 4 * n_leaves * frac
+    return {
+        "ndp": ndp,
+        "grad_elems": n_elems,
+        "f32_ring_bytes_per_device": f32,
+        "int8_ef_bytes_per_device": int8,
+        "saving": (f32 / int8) if int8 else 1.0,
+    }

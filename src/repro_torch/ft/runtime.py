@@ -448,7 +448,7 @@ class ElasticRuntime(FTRuntime):
         self._next_gen = 0
         self._gen_cache = {}       # mesh-shape key -> MeshGeneration
         self.reports: List[ElasticReport] = []
-        self._state_shapes = state_shapes(cfg)
+        self._state_shapes = state_shapes(cfg, self.opts, self.full_mesh)
         gen = self._build_generation(self.full_mesh)
         super().__init__(gen.dp_extent, policy or FTPolicy(),
                          injector=injector, ckpt_manager=ckpt_manager,
@@ -547,7 +547,7 @@ class ElasticRuntime(FTRuntime):
         """A fresh train state, params drawn from ``seed`` on the device."""
         from repro_torch.train.step import init_state
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return init_state(gen, self.cfg)
+        return init_state(gen, self.cfg, self.opts, self.gen.mesh)
 
     # -- the step + cadence --------------------------------------------------
 

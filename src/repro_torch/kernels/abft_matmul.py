@@ -88,6 +88,9 @@ last_route: dict = {}            # route, copy widths and splits of the last
                                  # kernel #1 launch
 last_acc_route: dict = {}        # route, tile and copy widths of the last
                                  # kernel #2 launch
+launch_hooks: list = []          # fn(op, tensors read, tensors written)
+                                 # after each launch of either kernel
+                                 # (launch.hlo_accounting counts them)
 
 
 def reset_counts() -> None:
@@ -281,6 +284,8 @@ def abft_matmul_cuda(a, b, wm, wn, *, bm: int = 128, bn: int = 128,
                            f"(m={m}, k={k}, n={n}, f={f}, tile=({bm}, {bn}), "
                            f"splits={splits}, {a.dtype} -> {out_dtype})")
     launches += 1
+    for hook in launch_hooks:
+        hook("abft_matmul", (a, b, wm, wn), (c, ccol, crow))
     last_route = dict(route=route, copy_a=info[1], copy_b=info[2],
                       splits=info[3])
     return c, ccol, crow
@@ -418,6 +423,9 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
                            f"(m={m}, k={k}, n={n}, f={f}, tile=({bm}, {bn}), "
                            f"{a.dtype} -> {out_dtype})")
     acc_launches += 1
+    for hook in launch_hooks:
+        hook("abft_matmul_acc", (a, b, wm, wn, c_in, ccol_in, crow_in),
+             (*out, stats))
     route = "mma" if info[0] == 1 else "cuda_core"
     if route != route_of(bm, bn, carry=True):
         raise RuntimeError(f"abft_matmul_acc ran tile ({bm}, {bn}) on "

@@ -24,8 +24,12 @@ cotangents folded into dC in the backward).  ``checksum_encode`` is the
 diskless-checkpoint encode: kernel #3 on a CUDA tensor, its plain version
 on a CPU one, at any [p, m, n].
 
-Counterpart of the reference package's ``repro/kernels/ops.py``.  The
-measured autotuner comes with a later slice.
+``plan_accounting`` is a plan's structural byte and FLOP terms (the
+reference's formulas, integer for integer) beside this time model's
+terms; ``kernels.autotune`` measures the top of ``rank_blocks`` on the
+card and ``abft_matmul`` resolves its plan through ``autotune.best_plan``.
+
+Counterpart of the reference package's ``repro/kernels/ops.py``.
 """
 from __future__ import annotations
 
@@ -45,8 +49,9 @@ from repro_torch.kernels import ref
 __all__ = [
     "BlockPlan", "abft_matmul", "abft_matmul_acc", "acc_state_zeros",
     "checksum_encode", "correct_from_state", "detection_eps",
-    "kernel_weights", "oneshot_smem_bytes", "pick_blocks", "rank_blocks",
-    "reduce_state", "smem_bytes", "tile_checksums",
+    "kernel_weights", "oneshot_smem_bytes", "pick_blocks",
+    "plan_accounting", "rank_blocks", "reduce_state", "smem_bytes",
+    "tensor_rate", "tile_checksums",
 ]
 
 KERNEL_F = 2  # checksums per direction: plain sum + one weighted row
@@ -244,6 +249,65 @@ def _oneshot_time(plan: BlockPlan, in_dtype, out_bytes: int, f: int,
     return max(total / HBM_BW, flops / rate) / fill, total
 
 
+def tensor_rate(in_dtype) -> float:
+    """Modeled FLOP/s of the tensor-core tiles for an A/B operand type
+    (the H100 counterpart of the reference's ``mxu_rate``)."""
+    return TENSOR_FLOPS[in_dtype]
+
+
+def plan_accounting(plan: BlockPlan, *, in_dtype=torch.float32,
+                    out_bytes: int = 4, f: int = KERNEL_F,
+                    carry: bool = False) -> dict:
+    """Structural byte and FLOP terms of ``plan`` beside the H100 time
+    model's.
+
+    The structural terms are the reference's formulas on the padded dims
+    (``repro/kernels/ops.py::plan_accounting``), integer for integer: A
+    streamed once per column of tiles, B once per row of tiles, C written
+    once (read and written once more with a carried state), the per-tile
+    checksum partials written (``cs_wr_bytes``) and no extra read of C for
+    either fused direction (``extra_hbm_rd_*`` 0), where an unfused encode
+    would read C once per direction (``unfused_extra_rd``).  The time
+    terms are this module's model of the route the plan runs
+    (``_oneshot_time`` for kernel #1 and kernel #2's tensor-core tiles,
+    ``_plan_time`` for kernel #2's CUDA-core tiles), which masks ragged
+    edges instead of padding them: ``model_bytes`` are its bytes and
+    ``t_total_s`` its seconds, the ranking ``rank_blocks`` sorts on."""
+    mt, nt, _ = plan.grid
+    in_bytes = in_dtype.itemsize
+    gemm_rd = (plan.pm * plan.pk * nt * in_bytes
+               + plan.pk * plan.pn * mt * in_bytes)
+    gemm_wr = plan.pm * plan.pn * out_bytes
+    cs_wr = mt * f * plan.pn * 4 + nt * plan.pm * f * 4
+    carry_bytes = 0
+    if carry:  # C_in read + carried-state read + stats write
+        carry_bytes = (plan.pm * plan.pn * out_bytes + cs_wr
+                       + mt * nt * kmm.STATS_WIDTH * 4)
+    if carry and plan.route == "cuda_core":
+        t, model_bytes = _plan_time(plan, in_bytes, out_bytes, f, carry)
+        rate = CUDA_CORE_FLOPS
+    else:
+        t, model_bytes = _oneshot_time(plan, in_dtype, out_bytes, f, carry)
+        rate = tensor_rate(in_dtype) if plan.route == "mma" \
+            else CUDA_CORE_FLOPS
+    return dict(
+        gemm_bytes=gemm_rd + gemm_wr,
+        extra_hbm_rd_col=0,
+        extra_hbm_rd_row=0,
+        cs_wr_bytes=cs_wr,
+        carry_bytes=carry_bytes,
+        unfused_extra_rd=2 * plan.pm * plan.pn * out_bytes,
+        flops=2 * plan.pm * plan.pk * plan.pn,
+        cs_flops=4 * f * plan.pm * plan.pn,
+        total_bytes=gemm_rd + gemm_wr + cs_wr + carry_bytes,
+        route=plan.route,
+        rate=rate,
+        model_bytes=model_bytes,
+        t_hbm_s=model_bytes / HBM_BW,
+        t_total_s=t,
+    )
+
+
 def _sms() -> int:
     """SMs of the current card, or the model's ``N_SM`` without one: what
     kernel #1's split count and its plans' SM fill are taken for."""
@@ -426,8 +490,12 @@ def abft_matmul(a: torch.Tensor, b: torch.Tensor, *, f: int = KERNEL_F,
     if tuple(wn.shape) != (n, f):
         raise ValueError(f"wn shape {tuple(wn.shape)} != ({n}, {f})")
     if plan is None:
-        plan = pick_blocks(m, k, n, in_dtype=a.dtype,
-                           out_bytes=out_dtype.itemsize, f=f)
+        # layered plan resolution: a measured winner when the autotune cache
+        # or its env override holds one, the time model otherwise (dispatch
+        # never measures)
+        from repro_torch.kernels import autotune  # lazy: autotune imports ops
+        plan = autotune.best_plan(m, k, n, in_dtype=a.dtype,
+                                  out_dtype=out_dtype, f=f, device=a.device)
     _publish_dispatch("abft_matmul", m, k, n,
                       str(a.dtype).replace("torch.", ""),
                       "cuda" if a.is_cuda else "plain")

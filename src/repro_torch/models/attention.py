@@ -4,7 +4,9 @@ Two compute paths, one semantic (plain PyTorch that mirrors the reference
 package's ``repro/models/attention.py`` math, which is jnp there as well):
   * dense  — masked einsum, for short sequences and every decode step
   * flash  — chunked online-softmax loop over KV chunks, O(S) memory, for
-             long prefill sequences (forward only)
+             long train and prefill sequences; its backward is FA-2's
+             (`_Flash`): the scores are recomputed one KV chunk at a time
+             from the saved log-sum-exp, so no S x S array is stored
 
 Both support GQA (n_kv <= n_heads), causal + window masks and logit
 softcapping.  Cross attention (``cross_kv``: keys and values projected from
@@ -102,11 +104,9 @@ def _flash_fwd_impl(q, k, v, q_pos, k_pos, *, scale, softcap, causal,
         # a ragged last chunk is just shorter.  (The reference pads it with
         # zero keys at position -1e9, which the causal test qp >= kp lets
         # through, so its chunked path is wrong when sk % kc != 0.)
-        k_c, v_c, kp_c = k[:, c0:c0 + kc], v[:, c0:c0 + kc], k_pos[c0:c0 + kc]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", q32, k_c.float()) * scale
-        s = softcap_fn(s, softcap)
-        msk = _mask(q_pos, kp_c, causal=causal, window=window)
-        s = torch.where(msk[None, None, None], s, NEG_INF)
+        k_c, v_c = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
+        s = _chunk_scores(q32, k_c, q_pos, k_pos[c0:c0 + kc], scale=scale,
+                          softcap=softcap, causal=causal, window=window)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -117,6 +117,74 @@ def _flash_fwd_impl(q, k, v, q_pos, k_pos, *, scale, softcap, causal,
     o = (acc / torch.clamp(l, min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
     lse = m + torch.log(torch.clamp(l, min=1e-30))
     return o.to(q.dtype), lse
+
+
+def _chunk_scores(q32, k_c, q_pos, kp_c, *, scale, softcap, causal,
+                  window):
+    """One KV chunk's masked scores [B,KV,g,Sq,kc] (masked = NEG_INF)."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q32, k_c.float()) * scale
+    s = softcap_fn(s, softcap)
+    msk = _mask(q_pos, kp_c, causal=causal, window=window)
+    return torch.where(msk[None, None, None], s, NEG_INF)
+
+
+class _Flash(torch.autograd.Function):
+    """FlashAttention-2 as an autograd function: the forward is
+    `_flash_fwd_impl`, which keeps only the per-row log-sum-exp; the
+    backward is the reference's ``_flash_bwd`` (``jax.custom_vjp`` there):
+    per KV chunk, recompute the scores, ``p = exp(s - lse)``, ``dV = p^T
+    dO``, ``dS = p (dO V^T - delta)`` with ``delta = sum(dO * O)``, the
+    softcap's derivative ``1 - (s / cap)^2`` taken only where the score is
+    not masked (a masked score is -1e30: its square would overflow and
+    0 * inf give NaN), then ``dQ += dS K``, ``dK = dS^T Q``.  A ragged last
+    chunk is taken as it is, unpadded, as the forward takes it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, scale, softcap, causal, window,
+                kc):
+        o, lse = _flash_fwd_impl(q, k, v, q_pos, k_pos, scale=scale,
+                                 softcap=softcap, causal=causal,
+                                 window=window, kc=kc)
+        ctx.save_for_backward(q, k, v, o, lse, q_pos, k_pos)
+        ctx.static = (scale, softcap, causal, window, min(kc, k.shape[1]))
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
+        scale, softcap, causal, window, kc = ctx.static
+        q32 = q.float()
+        do32 = do.float().permute(0, 2, 3, 1, 4)            # [B,KV,g,Sq,D]
+        delta = torch.sum(do32 * o.float().permute(0, 2, 3, 1, 4), dim=-1)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+        for c0 in range(0, k.shape[1], kc):
+            k_c, v_c = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
+            s = _chunk_scores(q32, k_c, q_pos, k_pos[c0:c0 + kc],
+                              scale=scale, softcap=softcap, causal=causal,
+                              window=window)
+            p = torch.exp(s - lse[..., None])               # [B,KV,g,Sq,kc]
+            dv[:, c0:c0 + kc] = torch.einsum("bhgqk,bhgqd->bkhd", p, do32)
+            dp = torch.einsum("bhgqd,bkhd->bhgqk", do32, v_c.float())
+            ds = p * (dp - delta[..., None])
+            if softcap:
+                sc = torch.where(s > NEG_INF / 2, s, 0.0)
+                ds = ds * (1.0 - torch.square(sc / softcap))
+            ds = ds * scale
+            dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_c.float())
+            dk[:, c0:c0 + kc] = torch.einsum("bhgqk,bqhgd->bkhd", ds, q32)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None, None, None)
+
+
+def _sdpa_flash(q, k, v, *, scale, softcap, q_pos, k_pos, causal, window,
+                kc: int = 512):
+    """Chunked online-softmax attention with the FA-2 backward (`_Flash`).
+    q: [B,Sq,KV,g,D]; k,v: [B,Sk,KV,D]; q_pos [Sq]; returns o
+    [B,Sq,KV,g,D] in q.dtype."""
+    return _Flash.apply(q, k, v, q_pos, k_pos, scale, softcap, causal,
+                        window, kc)
 
 
 def attn_apply(
@@ -186,9 +254,9 @@ def attn_apply(
         mask = _mask(positions, k_pos, causal=use_causal, window=window)
         o = _sdpa_dense(qh, k, v, scale=scale, softcap=s.softcap, mask=mask)
     else:
-        o, _ = _flash_fwd_impl(qh, k, v, positions, k_pos, scale=scale,
-                               softcap=s.softcap, causal=use_causal,
-                               window=window, kc=s.kc)
+        o = _sdpa_flash(qh, k, v, scale=scale, softcap=s.softcap,
+                        q_pos=positions, k_pos=k_pos, causal=use_causal,
+                        window=window, kc=s.kc)
     o = o.reshape(b, sq, s.n_heads * s.head_dim).to(x.dtype)
     y = linear_apply(p["wo"], o, abft)
     return y, new_cache

@@ -50,6 +50,8 @@ def _experts(gen: torch.Generator, e: int, d_in: int, d_out: int, scale,
     """[e, d_in, d_out] normal * scale, drawn one expert at a time so that
     a bf16 init holds at most one expert in fp32."""
     out = torch.empty((e, d_in, d_out), dtype=dtype, device=gen.device)
+    if out.device.type == "meta":
+        return out                  # shapes only: nothing to draw
     for i in range(e):
         out[i] = (torch.randn((d_in, d_out), generator=gen,
                               device=gen.device) * scale).to(dtype)

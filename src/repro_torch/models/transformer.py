@@ -484,3 +484,36 @@ def loss_fn(params, tokens, labels, cfg: ModelConfig, *, frames=None,
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     loss = torch.mean(nll) + aux_weight * aux
     return (loss, out[3]) if invariants else loss
+
+
+def param_count(params) -> int:
+    """Elements over every leaf of a param tree (tensors or meta
+    tensors)."""
+    from repro_torch.tree import tree_leaves
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def active_param_count(cfg: ModelConfig, params=None) -> int:
+    """N for MODEL_FLOPS: non-embedding params, experts scaled by k/E.
+
+    Counted over the reference's stacked leaves (`tree.stack_layers`), so
+    that the per-leaf rounding of the expert share is the reference's;
+    ``params`` None counts the config's shapes on the meta device."""
+    from repro_torch.dist.sharding import map_with_path, stacked_shapes
+    if params is None:
+        from repro_torch.train.step import state_shapes
+        params = state_shapes(cfg)["params"]
+    sizes = []
+
+    def visit(path, leaf):
+        keys = [k for k in path if isinstance(k, str)]
+        size = leaf.numel()
+        if "table" in keys:
+            size = 0
+        elif any(k in ("gate", "up", "down") for k in keys) and "moe" in keys:
+            size = int(size * cfg.top_k / max(cfg.n_experts, 1))
+        sizes.append(size)
+        return leaf
+
+    map_with_path(visit, stacked_shapes(params))
+    return sum(sizes)

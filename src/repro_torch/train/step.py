@@ -34,13 +34,28 @@ over the DP axes; on the logical mesh that is a layout the specs record
 selects what the block checkpoints recompute (``"nothing"`` saved, or the
 ``"dots"``), never the result.
 
-Counterpart of the reference package's ``repro/train/step.py``.  Gradient
-compression, ZeRO-2 and FSDP raise ``NotImplementedError`` naming port
-slice 14; its prefill and serve steps have no counterpart, since the
-serving engine calls the model directly.
+On the deferred path (``defer_grad_reduce``) two more reductions run, as
+in the reference: ``grad_compression="int8_ef"`` reduces the stacked
+gradients through `dist.collectives.ef_psum_tree` (its ``psum`` wire, as
+the reference's step) with the per-shard error-feedback residual carried
+in the state (``state["ef_residual"]``, ``[ndp, *leaf]`` fp32 in the
+reference's stacked leaf layout; `init_state` with ``opts`` and ``mesh``
+adds it); ``zero2`` reduce-scatters each leaf along its ZeRO dim (the
+same sum as the mean, a layout the step records in ``step_fn.grad_specs``).
+``fsdp`` shards the params over DP as well (`state_specs`): on the
+logical mesh a layout, so the step computes what it computes without it.
+
+`make_inputs`, `build_prefill_step` and `build_serve_step` are the
+reference's serving step builders (the dry run's and the only reference
+path that feeds ``frames`` or ``img_emb`` to a prefill or a decode step):
+each returns ``(fn, in_shardings, out_shardings)`` over the logical mesh,
+the shardings as `dist.sharding.NamedSharding` records.
+
+Counterpart of the reference package's ``repro/train/step.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -49,7 +64,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.abft_gemm import ABFTConfig
-from repro_torch.dist.collectives import abft_psum_tree
+from repro_torch.dist.collectives import (abft_psum_tree, ef_psum_tree,
+                                          note_collective)
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          adamw_update)
@@ -57,10 +73,9 @@ from repro_torch.tree import (stack_layers, stacked_leaves_with_path,
                               tree_get, tree_leaves, tree_leaves_with_path,
                               tree_map, tree_unflatten, unstack_layers)
 
-__all__ = ["StepOptions", "build_train_step", "init_state", "state_specs",
+__all__ = ["StepOptions", "build_train_step", "build_serve_step",
+           "build_prefill_step", "make_inputs", "init_state", "state_specs",
            "state_shapes"]
-
-_DIST = "port slice 14 (tuning and cost accounting) of ROADMAP.md"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +108,13 @@ class StepOptions:
     # remat policy for the block checkpoints: "nothing" saves nothing (min
     # memory, max recompute), "dots" saves the unbatched matmuls' outputs
     remat_policy: str = "nothing"
-    # not ported yet: each raises NotImplementedError in build_train_step
-    grad_compression: str = "none"
+    # int8 error-feedback compression of the deferred reduction
+    # (dist.collectives.ef_psum_tree; the residual rides in the state)
+    grad_compression: str = "none"  # none | int8_ef
+    # ZeRO-2: reduce-scatter the deferred gradients along each leaf's ZeRO
+    # dim (a layout on the logical mesh: the same sum as the mean)
     zero2: bool = False
+    # FSDP: the params sharded over DP too (a layout the specs record)
     fsdp: bool = False
     # the construction invariants inside the loss (metrics["inv_ok"])
     invariant_checks: bool = False
@@ -116,7 +135,7 @@ class StepOptions:
 
 
 def _check_options(opts: StepOptions) -> None:
-    """The reference's option checks, then the options not ported yet."""
+    """The reference's option checks, and the values it knows."""
     if opts.abft_reduce != "off" and (
             not opts.defer_grad_reduce or opts.zero2
             or opts.grad_compression != "none"):
@@ -135,33 +154,63 @@ def _check_options(opts: StepOptions) -> None:
         raise ValueError(f"unknown abft_reduce {opts.abft_reduce!r}")
     if opts.remat_policy not in ("nothing", "dots"):
         raise ValueError(f"unknown remat_policy {opts.remat_policy!r}")
-    later = {
-        "grad_compression": (opts.grad_compression != "none", _DIST),
-        "zero2": (opts.zero2, _DIST),
-        "fsdp": (opts.fsdp, _DIST),
-    }
-    for name, (on, where) in later.items():
-        if on:
-            raise NotImplementedError(f"StepOptions.{name} is not ported "
-                                      f"yet: it comes with {where}")
+    if opts.grad_compression not in ("none", "int8_ef"):
+        raise ValueError(f"unknown grad_compression "
+                         f"{opts.grad_compression!r}: none or int8_ef")
+    if opts.grad_compression != "none" and not opts.defer_grad_reduce:
+        # the reference's residual enters only its deferred region
+        raise ValueError("grad_compression compresses the deferred DP "
+                         "reduction: it requires defer_grad_reduce=True")
 
 
-def init_state(gen: torch.Generator, cfg: ModelConfig):
-    """The train state, params drawn from ``gen`` on ``gen.device``."""
+def _ndp(mesh) -> int:
+    from repro_torch.dist import sharding as shd
+    return 1 if mesh is None else shd.dp_extent(mesh)
+
+
+def init_state(gen: torch.Generator, cfg: ModelConfig,
+               opts: Optional[StepOptions] = None, mesh=None):
+    """The train state, params drawn from ``gen`` on ``gen.device``.  With
+    ``opts.grad_compression == "int8_ef"`` it carries the per-DP-shard
+    error-feedback residuals, ``ef_residual``: ``[ndp, *leaf]`` fp32 zeros
+    for each leaf of the reference's stacked layout (``ndp`` the DP extent
+    of ``mesh``, 1 without one)."""
     params = tf.init_params(gen, cfg)
-    return {"params": params, "opt": adamw_init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+    if opts is not None and opts.grad_compression == "int8_ef":
+        from repro_torch.dist.sharding import stacked_shapes
+        ndp = _ndp(mesh)
+        state["ef_residual"] = tree_map(
+            lambda p: torch.zeros((ndp,) + tuple(p.shape),
+                                  dtype=torch.float32, device=gen.device),
+            stacked_shapes(params))
+    return state
 
 
-def state_shapes(cfg: ModelConfig):
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device (shape and type, no
+    storage), so that `init_state` builds the state's shapes."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def state_shapes(cfg: ModelConfig, opts: Optional[StepOptions] = None,
+                 mesh=None):
     """The train state's tree with a meta tensor (shape and type, no
     storage) at every leaf: the port's counterpart of the reference's
     ``jax.eval_shape`` of `init_state`."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
-        fake = init_state(torch.Generator(), cfg)
-    return tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype,
-                                          device="meta"), fake)
+    return init_state(_MetaGenerator(), cfg, opts, mesh)
+
+
+def _zero_layout(pspecs, params, mesh):
+    """``pspecs`` with each leaf also sharded over DP along its ZeRO dim
+    (`dist.sharding.zero1_spec`): the FSDP params' layout."""
+    from repro_torch.dist import sharding as shd
+    return tree_map(lambda sp, sh: shd.zero1_spec(sp, tuple(sh.shape), mesh),
+                    pspecs, shd.stacked_shapes(params))
 
 
 def state_specs(state_shapes, mesh, opts: StepOptions, cfg=None):
@@ -170,7 +219,9 @@ def state_specs(state_shapes, mesh, opts: StepOptions, cfg=None):
 
     Param rules come from `dist.sharding`, optimizer-state rules from the
     optimizer itself (`adamw_opt_specs`), so `ckpt.elastic` re-places
-    params AND ZeRO-1 opt state onto a survivor mesh with one call."""
+    params AND ZeRO-1 opt state onto a survivor mesh with one call.  With
+    ``fsdp`` the params (and the moments) carry the DP sharding too; an
+    ``ef_residual`` leaf is its param's spec behind a leading DP entry."""
     from repro_torch.dist import sharding as shd
     from repro_torch.train.optimizer import adamw_opt_specs
 
@@ -178,12 +229,15 @@ def state_specs(state_shapes, mesh, opts: StepOptions, cfg=None):
     pspecs = shd.infer_param_specs(params, mesh, cfg)
     if opts.fsdp:
         # params carry the DP sharding; the opt state shares it
-        pspecs = tree_map(lambda sp, sh: shd.zero1_spec(
-            sp, tuple(sh.shape), mesh), pspecs, params)
+        pspecs = _zero_layout(pspecs, params, mesh)
         opt = adamw_opt_specs(pspecs)
     else:
         opt = adamw_opt_specs(pspecs, params, mesh, zero1=opts.zero1)
-    return {"params": pspecs, "opt": opt, "step": shd.P()}
+    out = {"params": pspecs, "opt": opt, "step": shd.P()}
+    if "ef_residual" in state_shapes:
+        dp_spec = shd._dp_entry(mesh)
+        out["ef_residual"] = tree_map(lambda sp: shd.P(dp_spec, *sp), pspecs)
+    return out
 
 
 def _as_tokens(x, device) -> torch.Tensor:
@@ -201,6 +255,35 @@ def _moe_cfg(cfg: ModelConfig, groups: int) -> ModelConfig:
     if not cfg.n_experts or cfg.moe_groups == groups:
         return cfg
     return cfg.scaled(moe_groups=groups)
+
+
+# fn(trips) on entering and fn(None) on leaving a loop trip that stands
+# for ``trips`` identical trips (`launch.hlo_accounting` counts it so)
+repeat_hooks: list = []
+
+
+def _trips(x: torch.Tensor, n: int) -> int:
+    """How many of ``n`` identical loop trips one run stands for: all of
+    them on the meta device (a dry run: the trips differ only in values,
+    which meta tensors do not have), one otherwise."""
+    return n if x.device.type == "meta" else 1
+
+
+@contextlib.contextmanager
+def _repeated(trips: int):
+    """One loop trip run for ``trips``: the hooks see its bounds, the
+    reference's trip-count rule (its accountant multiplies a loop body by
+    the loop's known trip count)."""
+    if trips == 1 or not repeat_hooks:
+        yield
+        return
+    for hook in repeat_hooks:
+        hook(trips)
+    try:
+        yield
+    finally:
+        for hook in repeat_hooks:
+            hook(None)
 
 
 class _StackedGrads:
@@ -229,15 +312,16 @@ class _StackedGrads:
             else:
                 buf[j].copy_(tree_get(grads, paths[0]))
 
-    def unstack(self, reduced, params):
+    def unstack(self, reduced, params, cast: bool = True):
         """The reduced stacked leaves (one per buffer) back in ``params``'
-        per-layer structure, as views."""
+        per-layer structure, as views (cast to the params' dtypes, or kept
+        in fp32 with ``cast=False``)."""
         by_path = {}
         for y, (stacked, paths) in zip(reduced, self.parts):
             for r, path in enumerate(paths):
                 by_path[path] = y[r] if stacked else y
         return tree_unflatten(params, [
-            by_path[path].to(p.dtype)
+            by_path[path].to(p.dtype) if cast else by_path[path]
             for path, p in tree_leaves_with_path(params)])
 
 
@@ -263,6 +347,23 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     cfg = _moe_cfg(cfg, 1 if opts.defer_grad_reduce
                    else max(ndp // split, 1))
     abft = opts.abft
+    compress = opts.defer_grad_reduce and opts.grad_compression == "int8_ef"
+    zero2 = opts.defer_grad_reduce and opts.zero2 and not compress
+    if compress and split != ndp:
+        raise ValueError(f"int8_ef keeps one residual per DP shard: the "
+                         f"global batch {shape.global_batch} must split "
+                         f"over all {ndp} of them (it splits {split} ways)")
+    zdims = grad_specs = None
+    if zero2 and mesh is not None:
+        # each leaf's ZeRO dim, as the reference's reduce-scatter takes it
+        pshapes = shd.stacked_shapes(state_shapes(cfg)["params"])
+        pspecs = shd.infer_param_specs(pshapes, mesh, cfg)
+        zdims = [shd.zero_dim(sp, tuple(sh.shape), mesh) for sp, sh in
+                 zip(tree_leaves(pspecs), tree_leaves(pshapes))]
+        dp_entry = shd._dp_entry(mesh)
+        grad_specs = tree_unflatten(pspecs, [
+            shd.P(*[dp_entry if i == d else None for i in range(sh.dim())])
+            for d, sh in zip(zdims, tree_leaves(pshapes))])
 
     inv_on = opts.invariant_checks
 
@@ -289,22 +390,30 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         parts = [x.chunk(m) for x in (tokens, labels, *extra.values())]
-        for i in range(m):
+        trips = _trips(tokens, m)
+        for i in range(0, m, trips):
             mb = {k: v[i] for k, v in zip(extra, parts[2:])}
-            loss, g, ok = value_and_grad(params, parts[0][i], parts[1][i], mb)
-            loss_acc = loss_acc + loss
-            if ok is not None:
-                ok_acc = ok_acc & ok
-            g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
+            with _repeated(trips):
+                loss, g, ok = value_and_grad(params, parts[0][i],
+                                             parts[1][i], mb)
+                loss_acc = loss_acc + loss
+                if ok is not None:
+                    ok_acc = ok_acc & ok
+                g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
         return (loss_acc / m, tree_map(lambda g: g / m, g_acc),
                 ok_acc if inv_on else None)
 
-    def one_shard(params, tokens, labels, extra):
+    def one_shard(params, tokens, labels, extra, residual):
         """The step's gradients at split 1: ``(loss, grads, inv_ok,
-        reduce_ok)``, the one-device step bit for bit."""
+        reduce_ok, new_residual)``, the one-device step bit for bit."""
         loss, grads, inv_ok = accumulate(params, tokens, labels, extra)
-        reduce_ok = None
-        if opts.abft_reduce != "off":
+        reduce_ok = new_res = None
+        if compress:
+            stacked = stack_layers(grads)
+            mean, new_res = ef_psum_tree(
+                tree_map(lambda g: g[None], stacked), residual, 0, 1)
+            grads = unstack_layers(mean, grads)
+        elif opts.abft_reduce != "off":
             # the reference's leaves: one stacked [R, ...] leaf per layout
             # group's param, so that event j of sdc_inject lands in the
             # same reduction, on a grid of the same size, as there
@@ -313,35 +422,53 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                 tree_map(lambda g: g[None], stacked), 0, 1,
                 mode=opts.abft_reduce, inject=opts.sdc_inject)
             grads = unstack_layers(reduced, grads)
-        return loss, grads, inv_ok, reduce_ok
+        return loss, grads, inv_ok, reduce_ok, new_res
 
-    def dp_shards(params, tokens, labels, extra):
+    def dp_shards(params, tokens, labels, extra, residual):
         """The step's gradients over ``split`` DP shards: each shard's
         microbatch loop on its local batch, its gradients into slice j of
-        the stacked buffer, then one reduction over the stacked axis."""
+        the stacked buffer, then one reduction over the stacked axis: the
+        int8-EF mean, the protected sum, or the mean (all-reduced, or
+        reduce-scattered along each leaf's ZeRO dim with ``zero2``)."""
         buf = _StackedGrads(params, split)
         losses, oks = [], []
         local = [x.chunk(split) for x in (tokens, labels, *extra.values())]
-        for j in range(split):
+        trips = _trips(tokens, split)
+        for j in range(0, split, trips):
             ex = {k: v[j] for k, v in zip(extra, local[2:])}
-            loss, grads, ok = accumulate(params, local[0][j], local[1][j],
-                                         ex)
-            buf.put(j, grads)
+            with _repeated(trips):
+                loss, grads, ok = accumulate(params, local[0][j],
+                                             local[1][j], ex)
+            for jj in range(j, j + trips):
+                buf.put(jj, grads)
             del grads
-            losses.append(loss.float())
+            losses += [loss.float()] * trips
             if ok is not None:
-                oks.append(ok)
+                oks += [ok] * trips
         loss = torch.stack(losses).sum() / split
         inv_ok = torch.stack(oks).all() if inv_on else None
-        reduce_ok = None
-        if opts.abft_reduce != "off":
+        reduce_ok = new_res = None
+        if compress:
+            reduced, new_res = ef_psum_tree(
+                buf.bufs, tree_leaves(residual), 0, split)
+            new_res = tree_unflatten(residual, new_res)
+        elif opts.abft_reduce != "off":
             reduced, reduce_ok = abft_psum_tree(
                 buf.bufs, 0, split, mode=opts.abft_reduce,
                 inject=opts.sdc_inject)
         else:
-            reduced = [b.sum(0) / split for b in buf.bufs]
+            reduced = []
+            for i, b in enumerate(buf.bufs):
+                y = b.sum(0) / split
+                d = zdims[i] if zdims is not None else None
+                if d is None:
+                    note_collective("all-reduce", y.numel() * 4)
+                else:
+                    note_collective("reduce-scatter", y.numel() * 4 // ndp)
+                reduced.append(y)
         del buf.bufs
-        return loss, buf.unstack(reduced, params), inv_ok, reduce_ok
+        return (loss, buf.unstack(reduced, params, cast=not compress),
+                inv_ok, reduce_ok, new_res)
 
     grads_of = one_shard if split == 1 else dp_shards
 
@@ -352,12 +479,21 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         labels = _as_tokens(batch["labels"], dev)
         extra = {k: torch.as_tensor(batch[k], device=dev)
                  for k in ("frames", "img_emb") if batch.get(k) is not None}
-        loss, grads, inv_ok, reduce_ok = grads_of(params, tokens, labels,
-                                                  extra)
+        residual = state.get("ef_residual")
+        if compress and residual is None:
+            raise ValueError("grad_compression='int8_ef' needs the state's "
+                             "ef_residual: build it with init_state(..., "
+                             "opts, mesh)")
+        loss, grads, inv_ok, reduce_ok, new_res = grads_of(
+            params, tokens, labels, extra, residual)
         new_params, new_opt, metrics = adamw_update(grads, state["opt"],
                                                     params, adamw)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
+        if new_res is not None:
+            new_state["ef_residual"] = new_res
+        elif residual is not None:
+            new_state["ef_residual"] = residual
         metrics = dict(metrics, loss=loss)
         if reduce_ok is not None:
             metrics["abft_ok"] = reduce_ok.float()
@@ -366,4 +502,117 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         return new_state, metrics
 
     step_fn.split = split
+    step_fn.grad_specs = grad_specs    # zero2's gradient layout, or None
     return step_fn
+
+
+# ---------------------------------------------------------------------------
+# inputs and the serving steps
+# ---------------------------------------------------------------------------
+
+
+def make_inputs(cfg: ModelConfig, shape: ShapeConfig, *, structs: bool = True,
+                device="cuda"):
+    """Stand-ins for every model input of a cell: meta tensors (shape and
+    type, no storage; the counterpart of ``jax.ShapeDtypeStruct``), or
+    zeros on ``device`` with ``structs=False``."""
+    b, s = shape.global_batch, shape.seq_len
+    dev = "meta" if structs else device
+
+    def mk(sh, dt):
+        return torch.zeros(sh, dtype=dt, device=dev)
+
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    out = {}
+    if shape.kind == "train":
+        out["tokens"] = mk((b, s), torch.int32)
+        out["labels"] = mk((b, s), torch.int32)
+    elif shape.kind == "prefill":
+        out["tokens"] = mk((b, s), torch.int32)
+    else:  # decode
+        out["tokens"] = mk((b, 1), torch.int32)
+        out["pos"] = mk((), torch.int32)
+    if cfg.n_enc_layers and shape.kind != "decode":
+        out["frames"] = mk((b, cfg.n_frames, cfg.d_model), dt)
+    if cfg.n_img_tokens:
+        out["img_emb"] = mk((b, cfg.n_img_tokens, cfg.d_model), dt)
+    return out
+
+
+def _input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """PartitionSpec per input of `make_inputs`: the batch dim over the
+    DP axes that divide it, ``pos`` replicated."""
+    from repro_torch.dist import sharding as shd
+    bspec = shd.batch_specs(mesh, shape.global_batch)
+    specs = {}
+    for k, v in make_inputs(cfg, shape).items():
+        specs[k] = shd.P() if k == "pos" else \
+            shd.P(*(list(bspec) + [None] * (v.dim() - 1)))
+    return specs
+
+
+def _serve_shardings(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                     opts: StepOptions):
+    """(in_shardings, out_shardings) of a prefill or serve step: params
+    (ZeRO-sharded too with ``fsdp``), inputs and the cache in, the last
+    position's logits and the cache out."""
+    from repro_torch.dist import sharding as shd
+    pshapes = shd.stacked_shapes(state_shapes(cfg)["params"])
+    cache_shapes = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device="meta")
+    pspecs = shd.infer_param_specs(pshapes, mesh, cfg)
+    if opts.fsdp:
+        pspecs = _zero_layout(pspecs, pshapes, mesh)
+    cspecs = shd.map_with_path(
+        shd.cache_specs(mesh, shape.global_batch, cfg), cache_shapes)
+    cache_sh = shd.to_shardings(cspecs, mesh)
+    in_sh = (shd.to_shardings(pspecs, mesh),
+             shd.to_shardings(_input_specs(cfg, shape, mesh), mesh), cache_sh)
+    out_sh = (shd.NamedSharding(mesh, shd.P(
+        *shd.batch_specs(mesh, shape.global_batch), None)), cache_sh)
+    return in_sh, out_sh
+
+
+def build_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                       opts: StepOptions = StepOptions()):
+    """``(prefill_fn, in_shardings, out_shardings)``: ``prefill_fn(params,
+    batch, cache) -> (logits [B, V] at the last position, cache)`` runs the
+    forward over ``batch["tokens"]`` (and ``frames`` / ``img_emb`` where
+    the config has them) and writes the prompt into ``cache``
+    (`models.transformer.init_cache` of the cell's batch and seq_len), the
+    protected projections as ``opts.abft`` asks.  ``mesh`` None is the
+    1 x 1 mesh on the CUDA device."""
+    from repro_torch.dist import sharding as shd
+    mesh = shd.as_mesh(mesh)
+    cfg = _moe_cfg(cfg, _ndp(mesh))    # device-local MoE sort, as the reference
+
+    def prefill_fn(params, batch, cache):
+        logits, new_cache, _ = tf.forward(
+            params, batch["tokens"].long(), cfg, cache=cache,
+            frames=batch.get("frames"), img_emb=batch.get("img_emb"),
+            abft=opts.abft)
+        # a copy of the last row, so that the [B, S, V] logits go with it
+        return logits[:, -1].contiguous(), new_cache
+
+    in_sh, out_sh = _serve_shardings(cfg, mesh, shape, opts)
+    return prefill_fn, in_sh, out_sh
+
+
+def build_serve_step(cfg: ModelConfig, mesh, shape: ShapeConfig,
+                     opts: StepOptions = StepOptions()):
+    """decode_* / long_* shapes: one new token against a seq_len cache.
+    ``(serve_fn, in_shardings, out_shardings)``: ``serve_fn(params, batch,
+    cache) -> (logits [B, V], cache)`` decodes ``batch["tokens"]`` [B, 1]
+    at position ``batch["pos"]`` (a scalar, the batch in lockstep), with
+    ``img_emb`` where the config has it."""
+    from repro_torch.dist import sharding as shd
+    mesh = shd.as_mesh(mesh)
+    cfg = _moe_cfg(cfg, _ndp(mesh))    # device-local MoE sort, as the reference
+
+    def serve_fn(params, batch, cache):
+        return tf.decode_step(
+            params, batch["tokens"].long(), batch["pos"].long(), cache, cfg,
+            img_emb=batch.get("img_emb"), abft=opts.abft)
+
+    in_sh, out_sh = _serve_shardings(cfg, mesh, shape, opts)
+    return serve_fn, in_sh, out_sh

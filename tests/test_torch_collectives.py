@@ -11,6 +11,8 @@ magnitudes; where a fault was repaired, the repaired element also carries
 the rounding of the residual it subtracts, a few ulps of ``|delta|``
 (measured 1.8e-7 |delta|), so it is held to 1e-6 |delta| on top.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -191,3 +193,139 @@ def test_sdc_injector_matches_reference(events):
                 break
     for s in range(7):
         assert tp.events_at(s) == jp.events_at(s)
+
+
+# ---------------------------------------------------------------------------
+# int8 error feedback (ef_psum_tree) and its wire accounting
+# ---------------------------------------------------------------------------
+
+EF_NDP = 4
+
+
+def _ef_tree(rs, ndp=EF_NDP):
+    return {"w": rs.standard_normal((ndp, 8, 16)).astype(np.float32),
+            "b": rs.standard_normal((ndp, 33)).astype(np.float32)}
+
+
+def _ref_ef(grads, res, wire, ndp=EF_NDP):
+    from repro.dist.collectives import ef_psum_tree as jef
+    out, new_res = jax.vmap(
+        lambda g, r: jef(g, r, ("dp",), ndp, wire=wire), axis_name="dp")(
+        {k: jnp.asarray(v) for k, v in grads.items()},
+        {k: jnp.asarray(v) for k, v in res.items()})
+    return ({k: np.asarray(v) for k, v in out.items()},
+            {k: np.asarray(v) for k, v in new_res.items()})
+
+
+@pytest.mark.parametrize("wire", ["psum", "int8"])
+def test_ef_psum_tree_matches_reference(rs, wire):
+    """The reference under ``jax.vmap(axis_name="dp")`` (every shard ends
+    with the same mean) against the port on the stacked shards, from a
+    nonzero residual: the int8 payloads are the reference's (its mean and
+    residual are rebuilt from them exactly), the means agree to 1e-6 of
+    their magnitude and the residuals to 1e-6 of the gradients'."""
+    from repro_torch.dist.collectives import ef_psum_tree
+    grads = _ef_tree(rs)
+    res = {k: (0.01 * rs.standard_normal(v.shape)).astype(np.float32)
+           for k, v in grads.items()}
+    want, want_res = _ref_ef(grads, res, wire)
+    got, got_res, info = ef_psum_tree(
+        {k: torch.from_numpy(v) for k, v in grads.items()},
+        {k: torch.from_numpy(v) for k, v in res.items()}, 0, EF_NDP,
+        wire=wire, with_info=True)
+    for i, k in enumerate(sorted(grads)):
+        mean = want[k][0]
+        np.testing.assert_array_equal(want[k], np.broadcast_to(
+            mean, want[k].shape))
+        np.testing.assert_allclose(got[k].numpy(), mean, rtol=1e-6,
+                                   atol=1e-6 * np.abs(mean).max())
+        np.testing.assert_allclose(got_res[k].numpy(), want_res[k], rtol=0,
+                                   atol=1e-6 * np.abs(grads[k]).max())
+        x = grads[k] + res[k]
+        q, scale = info[i]["q"].numpy(), info[i]["scale"].numpy()
+        assert q.dtype == np.int8 and np.abs(q).max() <= 127
+        n = x[0].size
+        if wire == "psum":
+            # the payloads the reference dequantized: its residual is
+            # x - q * scale, per shard
+            deq = q.reshape(EF_NDP, -1) * scale[:, None]
+            np.testing.assert_array_equal(
+                (x.reshape(EF_NDP, -1) - deq).reshape(x.shape),
+                want_res[k])
+        else:
+            # the requantized segments: the reference's mean IS q2 * s2
+            q2, s2 = info[i]["q2"].numpy(), info[i]["scale2"].numpy()
+            np.testing.assert_array_equal(
+                (q2.astype(np.float32) * s2[:, None]).reshape(-1)[:n],
+                mean.reshape(-1))
+            assert q.shape == (EF_NDP, -(-n // EF_NDP) * EF_NDP)
+
+
+@pytest.mark.parametrize("wire", ["psum", "int8"])
+def test_ef_residual_feedback_converges(rs, wire):
+    """The reference's convergence test on the port: reducing the same
+    gradients 20 times, the running mean of the outputs converges to the
+    exact mean (the residual re-injects what int8 dropped), and the
+    residuals stay bounded; both packages' running means agree."""
+    from repro_torch.dist.collectives import ef_psum_tree
+    grads = _ef_tree(rs)
+    ref = np.mean(grads["w"], axis=0)
+    tg = {k: torch.from_numpy(v) for k, v in grads.items()}
+    res = {k: torch.zeros_like(v) for k, v in tg.items()}
+    jres = {k: np.zeros_like(v) for k, v in grads.items()}
+    outs, jouts = [], []
+    for _ in range(20):
+        out, res = ef_psum_tree(tg, res, 0, EF_NDP, wire=wire)
+        jout, jres = _ref_ef(grads, jres, wire)
+        outs.append(out["w"].numpy())
+        jouts.append(jout["w"][0])
+    first_err = np.max(np.abs(outs[0] - ref))
+    running = np.mean(outs, axis=0)
+    assert np.max(np.abs(running - ref)) < 0.25 * first_err
+    assert float(res["w"].abs().max()) < 1.0
+    np.testing.assert_allclose(running, np.mean(jouts, axis=0), rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def test_ef_psum_tree_checks_its_arguments():
+    from repro_torch.dist.collectives import ef_psum_tree
+    g = {"w": torch.ones((2, 3))}
+    with pytest.raises(ValueError, match="wire"):
+        ef_psum_tree(g, g, 0, 2, wire="fp8")
+    with pytest.raises(ValueError, match="stacked"):
+        ef_psum_tree(g, g, 0, 4)
+    with pytest.raises(ValueError, match="stacked shard axis"):
+        ef_psum_tree(g, g, ("dp",), 2)
+    # at one shard the int8 wire is the psum wire, as in the reference
+    a, ra = ef_psum_tree({"w": torch.ones((1, 3))},
+                         {"w": torch.zeros((1, 3))}, 0, 1, wire="int8")
+    b, rb = ef_psum_tree({"w": torch.ones((1, 3))},
+                         {"w": torch.zeros((1, 3))}, 0, 1, wire="psum")
+    assert torch.equal(a["w"], b["w"]) and torch.equal(ra["w"], rb["w"])
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(arch):
+    """(the reference's eval_shape params, the port's meta params)."""
+    from repro.configs.base import get_config as jget
+    from repro.models import transformer as jtf
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.train.step import state_shapes
+    jp = jax.eval_shape(lambda k: jtf.init_params(k, jget(arch)),
+                        jax.random.PRNGKey(0))
+    return jp, state_shapes(tget(arch))["params"]
+
+
+@pytest.mark.parametrize("ndp", [1, 2, 16, 256])
+def test_ef_wire_bytes_equal_reference_for_every_config(ndp):
+    """`ef_wire_bytes` over the port's meta param shapes equals the
+    reference's over its ``eval_shape`` trees, for all ten configs."""
+    from repro.configs import list_configs
+    from repro.dist.collectives import ef_wire_bytes as jwire
+    from repro_torch.dist.collectives import ef_wire_bytes
+    for arch in list_configs():
+        jp, tp = _param_shapes(arch)
+        got = ef_wire_bytes(tp, ndp)
+        assert got == jwire(jp, ndp), arch
+        if ndp > 1:
+            assert 3.9 < got["saving"] <= 4.0

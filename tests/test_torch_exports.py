@@ -6,7 +6,8 @@ package exports it too; the names it lacks are exactly the ones
 ``ROADMAP.md`` lists as not ported.  A fresh process imports all of them
 without importing ``jax`` or ``repro``.  ``StepOptions()`` equals the
 reference's field by field, and its ``zero1`` and ``remat_policy`` run at
-DP extent 1 and above.
+DP extent 1 and above, as do ``grad_compression``, ``zero2`` and
+``fsdp``.
 """
 import ast
 import dataclasses
@@ -33,9 +34,8 @@ PACKAGES = ("core", "chaos", "ft", "train", "models", "kernels", "solvers",
 # slice that brings each
 NOT_PORTED = {
     "ft": set(),
-    "dist": {"ef_psum_tree"},                                    # slice 14
-    "train": {"build_prefill_step", "build_serve_step",
-              "make_inputs"},                                    # slice 14
+    "dist": set(),
+    "train": set(),
     "models": set(),
     # the Pallas entry points; the port's are the *_cuda names below
     "kernels": {"abft_matmul_pallas", "abft_matmul_acc_pallas",
@@ -104,6 +104,9 @@ def test_the_exports_import_without_jax():
          for pkg, ns in names.items()]
         # the pod paths' modules (dist, ckpt are in PACKAGES)
         + ["import repro_torch.launch.mesh, repro_torch.launch.train",
+           # the tuning and cost-accounting entry points
+           "import repro_torch.launch.autotune, repro_torch.launch.dryrun, "
+           "repro_torch.launch.hlo_accounting, repro_torch.kernels.autotune",
            "import sys",
            "bad = [m for m in sys.modules if m == 'jax' or "
            "m.startswith(('jax.', 'repro.')) or m == 'repro']",
@@ -204,8 +207,9 @@ def test_zero1_and_remat_policy_run_at_dp_extent_one(abft):
 def test_dp_extent_above_one_still_raises():
     """A DP extent above one runs (it raised before the pod paths were
     ported): ElasticRuntime on (2, 1) builds a step at DP 2 whose zero1
-    layout its specs record, while the options that come with slice 14
-    still raise, naming it."""
+    layout its specs record; and the options that raised until the tuning
+    slice (int8_ef, zero2, fsdp) now build and take a step there, each
+    with a finite loss, the compressed one carrying its residual."""
     from repro_torch.ft.runtime import ElasticRuntime
     rt = ElasticRuntime(smoke_config("qwen2-0.5b"), SHAPE, (2, 1),
                         opts=StepOptions(zero1=True, remat=False),
@@ -218,8 +222,21 @@ def test_dp_extent_above_one_still_raises():
         assert np.isfinite(float(m["loss"]))
     finally:
         rt.close()
-    for opts in (StepOptions(zero2=True, defer_grad_reduce=True),
-                 StepOptions(fsdp=True),
-                 StepOptions(grad_compression="int8_ef")):
-        with pytest.raises(NotImplementedError, match="slice 14"):
-            build_train_step(smoke_config("qwen2-0.5b"), SHAPE, opts=opts)
+    for opts in (StepOptions(zero2=True, defer_grad_reduce=True, remat=False),
+                 StepOptions(fsdp=True, remat=False),
+                 StepOptions(grad_compression="int8_ef",
+                             defer_grad_reduce=True, remat=False)):
+        rt = ElasticRuntime(smoke_config("qwen2-0.5b"), SHAPE, (2, 1),
+                            opts=opts, device="cpu")
+        try:
+            state = rt.init_state(0)
+            state, m = rt.train_step(0, state)
+            assert np.isfinite(float(m["loss"]))
+            assert ("ef_residual" in state) == (opts.grad_compression
+                                                != "none")
+        finally:
+            rt.close()
+    # the reference's residual rides its deferred region only
+    with pytest.raises(ValueError, match="defer_grad_reduce"):
+        build_train_step(smoke_config("qwen2-0.5b"), SHAPE,
+                         opts=StepOptions(grad_compression="int8_ef"))

@@ -512,15 +512,18 @@ def test_encode_runs_the_kernel_path_once_per_floating_leaf():
 
 
 def test_what_is_not_ported_raises():
-    # the deferred, protected reduction and its SDC drill are ported
-    # (tests/test_torch_elastic.py), ZeRO-1 is the identity at DP extent 1
-    # (tests/test_torch_exports.py) and the invariant checks run
-    # (test_invariant_checks_match_reference); the options below are not
-    for field, value in [("grad_compression", "int8_ef"),
-                         ("zero2", True), ("fsdp", True)]:
-        with pytest.raises(NotImplementedError, match="slice"):
-            build_train_step(tsmoke(ARCH), SHAPE,
-                             opts=StepOptions(**{field: value}))
+    # every StepOptions field is ported: int8_ef, zero2 and fsdp build
+    # (tests/test_torch_step_builders.py holds them to the reference), and
+    # what raises is what the reference rejects or cannot trace
+    for opts in (StepOptions(grad_compression="int8_ef",
+                             defer_grad_reduce=True),
+                 StepOptions(zero2=True, defer_grad_reduce=True),
+                 StepOptions(fsdp=True)):
+        assert callable(build_train_step(tsmoke(ARCH), SHAPE, opts=opts))
+    for bad in (StepOptions(grad_compression="int8_ef"),
+                StepOptions(grad_compression="int4", defer_grad_reduce=True)):
+        with pytest.raises(ValueError, match="grad_compression"):
+            build_train_step(tsmoke(ARCH), SHAPE, opts=bad)
     # the drill flags run the pod-loss drill (tests/test_torch_elastic_pods.py
     # holds it to the reference); on the default device it raises without
     # a card rather than falling back
@@ -595,3 +598,25 @@ def test_invariant_checks_reject_deferred_grad_reduce():
         build_train_step(tsmoke(ARCH), SHAPE,
                          opts=StepOptions(invariant_checks=True,
                                           defer_grad_reduce=True))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-2b", "gemma3-4b",
+                                  "granite-34b", "jamba-1.5-large-398b",
+                                  "kimi-k2-1t-a32b", "llama-3.2-vision-11b",
+                                  "qwen3-moe-30b-a3b", "whisper-large-v3",
+                                  "xlstm-350m"])
+def test_param_counts_equal_reference(arch):
+    """`param_count` and `active_param_count` (experts scaled by k/E per
+    stacked leaf, the embedding table left out) at full size, over the
+    port's meta shapes and the reference's eval_shape tree."""
+    from repro.configs.base import get_config as jget
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.train.step import state_shapes
+    jp = jax.eval_shape(lambda k: jtf.init_params(k, jget(arch)),
+                        jax.random.PRNGKey(0))
+    tp = state_shapes(tget(arch))["params"]
+    assert ttf.param_count(tp) == jtf.param_count(jp)
+    assert ttf.active_param_count(tget(arch)) == \
+        jtf.active_param_count(jget(arch))
+    assert ttf.active_param_count(tget(arch), tp) == \
+        jtf.active_param_count(jget(arch), jp)
