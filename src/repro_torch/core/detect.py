@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.encoding import EncodingSpec, block_views
 
 __all__ = ["VerifyResult", "verify", "locate_and_correct", "residuals"]
@@ -63,7 +64,14 @@ def locate_and_correct(c_f: torch.Tensor, spec: EncodingSpec,
     sum-checksum (j=0) residuals; the corruption delta is the row residual
     at the located position.  (Corruption inside a checksum block is
     detected too, but correction there is a recompute — see recovery.py.)
+    Recorded as the ``detect/locate_and_correct`` span, with the
+    ``host_reads`` of device values it makes.
     """
+    with obs.span("detect/locate_and_correct", host_reads=0):
+        return _locate_and_correct(c_f, spec, tol_factor)
+
+
+def _locate_and_correct(c_f, spec, tol_factor):
     res = verify(c_f, spec, tol_factor)
     row_res, col_res = res.row_residual, res.col_residual
     w = c_f.shape[-1]
@@ -71,6 +79,7 @@ def locate_and_correct(c_f: torch.Tensor, spec: EncodingSpec,
 
     # row relation residual: [mb, W] -> (r % mb, c); argmax takes the
     # first maximum, as jnp.argmax does
+    obs.tally("host_reads", 2)
     rr_flat = int(torch.argmax(row_res[0].abs()))
     rr, c = divmod(rr_flat, w)
     # col relation residual: [H, nb] -> (r, c % nb)

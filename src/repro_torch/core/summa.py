@@ -38,6 +38,18 @@ maps it to a device mesh, with the mesh replaced by a stacked grid:
 Failure coordinates are static, as in the reference (recovery follows
 failure detection, mirroring FT-MPI's out-of-band restart).  The
 ``torch.distributed`` grid comes with the distribution slice.
+
+Spans (``repro_torch.obs``; nothing is recorded while the bus is off):
+one ``summa/abft_summa`` root a product, with ``summa/plan``,
+``summa/layout`` (the block copies), a ``summa/step`` a SUMMA
+step holding ``summa/panel`` and ``summa/update`` (``launches`` of kernel
+#2, or of its plain version on a CPU tensor), a ``fault/inject`` instant
+where a process is erased or an element flipped, a
+``recovery/summa_rebuild`` holding ``summa/recover_line`` (one a lost
+line and operand) and ``summa/rederive_state``, and ``summa/scrub``
+(``host_reads``).  The root, the step, the update, the rebuild and its
+children and the scrub are timed on the device where a device clock is
+installed (``repro_torch.obs.cuda``).
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.encoding import (EncodingSpec, encode_block_cols,
                                        encode_block_rows)
 
@@ -101,7 +114,8 @@ def encode_operands(a: torch.Tensor, b: torch.Tensor, spec: EncodingSpec):
     Checksum granularity is the process grid (one block per process), so the
     encoded matrices gain f full block rows / cols.
     """
-    return encode_block_rows(a, spec.cc), encode_block_cols(b, spec.cr)
+    with obs.span("summa/encode_operands", host_reads=0):
+        return encode_block_rows(a, spec.cc), encode_block_cols(b, spec.cr)
 
 
 def _solve_static(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -131,13 +145,15 @@ def _solve_static(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _to_blocks(x: torch.Tensor, grid: int) -> torch.Tensor:
     """[grid*mb, grid*nb] -> a new contiguous [grid, grid, mb, nb]."""
     h, w = x.shape
-    return x.reshape(grid, h // grid, grid, w // grid).permute(
-        0, 2, 1, 3).contiguous()
+    with obs.span("summa/layout"):
+        return x.reshape(grid, h // grid, grid, w // grid).permute(
+            0, 2, 1, 3).contiguous()
 
 
 def _from_blocks(x: torch.Tensor) -> torch.Tensor:
     g0, g1, mb, nb = x.shape
-    return x.permute(0, 2, 1, 3).reshape(g0 * mb, g1 * nb)
+    with obs.span("summa/layout"):
+        return x.permute(0, 2, 1, 3).reshape(g0 * mb, g1 * nb)
 
 
 def _recover_line(x: torch.Tensor, weights: torch.Tensor, grid: int,
@@ -204,8 +220,9 @@ def _resolve_local_update(local_update: str, mb: int, kb: int, nb: int,
     # best_plan resolves a measured winner (env override or warmed cache)
     # where one exists and the time model otherwise; it never measures
     kw = dict(in_dtype=dtype, carry=True, device=device)
-    plan = (ktune.best_plan(mb, kb, nb, require_exact=True, **kw)
-            or ktune.best_plan(mb, kb, nb, **kw))
+    with obs.span("summa/plan"):
+        plan = (ktune.best_plan(mb, kb, nb, require_exact=True, **kw)
+                or ktune.best_plan(mb, kb, nb, **kw))
     if plan is None:
         raise ValueError(f"no tiling of the local blocks ({mb},{kb},{nb})")
     return plan
@@ -238,10 +255,21 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
         crow = torch.zeros((grid, grid) + tuple(crow0.shape),
                            dtype=torch.float32, device=dev)
 
+    def acc_calls():
+        return kops.kmm.acc_launches + kops.kmm.acc_plain_calls
+
     def step(k):
-        # the broadcasts: column k of A's blocks, row k of B's blocks
-        a_panel = a_blk[:, k].to(preferred_dtype).contiguous()  # [P, mb, kb]
-        b_panel = b_blk[k].to(preferred_dtype).contiguous()     # [P, kb, nb]
+        with obs.span("summa/step", device=True, k=k):
+            with obs.span("summa/panel"):
+                # the broadcasts: column k of A's blocks, row k of B's
+                a_panel = a_blk[:, k].to(preferred_dtype).contiguous()
+                b_panel = b_blk[k].to(preferred_dtype).contiguous()
+            with obs.span("summa/update", device=True) as sp:
+                n0 = acc_calls()
+                update(k, a_panel, b_panel)      # [P, mb, kb], [P, kb, nb]
+                sp.set(launches=acc_calls() - n0)
+
+    def update(k, a_panel, b_panel):
         if not fused:
             c_blk.add_(torch.matmul(a_panel.float().unsqueeze(1),
                                     b_panel.float().unsqueeze(0)))
@@ -281,6 +309,9 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
                 by_col.setdefault(c, []).append(r)
                 by_row.setdefault(r, []).append(c)
             # --- the failure: these processes' state is gone -------------
+            lost = _fault_kind(ev, None)
+            obs.event("fault/inject", surface="core.summa", kind=lost,
+                      processes=[list(d) for d in devices], summa_step=k0)
             for (r, c) in devices:
                 a_blk[r, c].zero_()
                 b_blk[r, c].zero_()
@@ -288,24 +319,35 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
             # --- T_checksum: rebuild from the weighted checksums ---------
             # A and the partial C recover along columns (cc checksums);
             # B recovers along rows (cr) — per line, a joint f-way solve.
-            for col, rows in by_col.items():
-                _recover_line(a_blk, spec.cc, grid, rows, col, axis=0,
-                              f=spec.f)
-                _recover_line(c_blk, spec.cc, grid, rows, col, axis=0,
-                              f=spec.f)
-            for row, cols in by_row.items():
-                _recover_line(b_blk, spec.cr, grid, cols, row, axis=1,
-                              f=spec.f)
-            if fused:
-                # the kernel-level checksum state predates the rebuild (the
-                # recovered blocks carry fresh rounding) — re-derive it from
-                # the recovered C so the next fused step doesn't misread the
-                # recovery noise as corruption
-                for r in range(grid):
-                    for c in range(grid):
-                        ccol[r, c], crow[r, c] = kops.tile_checksums(
-                            c_blk[r, c], wm, wn, plan.bm, plan.bn)
+            with obs.span("recovery/summa_rebuild", device=True, kind=lost,
+                          processes=[list(d) for d in devices],
+                          summa_step=k0):
+                for col, rows in by_col.items():
+                    for name, x in (("A", a_blk), ("C", c_blk)):
+                        with obs.span("summa/recover_line", device=True,
+                                      operand=name, col=col, lines=rows):
+                            _recover_line(x, spec.cc, grid, rows, col,
+                                          axis=0, f=spec.f)
+                for row, cols in by_row.items():
+                    with obs.span("summa/recover_line", device=True,
+                                  operand="B", row=row, lines=cols):
+                        _recover_line(b_blk, spec.cr, grid, cols, row,
+                                      axis=1, f=spec.f)
+                if fused:
+                    # the kernel-level checksum state predates the rebuild
+                    # (the recovered blocks carry fresh rounding) —
+                    # re-derive it from the recovered C so the next fused
+                    # step doesn't misread the recovery noise as corruption
+                    with obs.span("summa/rederive_state", device=True,
+                                  blocks=grid * grid):
+                        for r in range(grid):
+                            for c in range(grid):
+                                ccol[r, c], crow[r, c] = kops.tile_checksums(
+                                    c_blk[r, c], wm, wn, plan.bm, plan.bn)
         else:  # bit-flip: silent corruption of one partial-sum element
+            obs.event("fault/inject", surface="core.summa", kind="flip",
+                      processes=[[ev.row, ev.col]], summa_step=k0,
+                      delta=ev.delta)
             c_blk[ev.row, ev.col, 0, 0] += ev.delta
 
     for k in range(k0, grid):
@@ -313,12 +355,28 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
     if fused_verify:
         # post-loop scrub: a flip after the last accumulate has no next
         # kernel call to catch it; the state-vs-C residual repairs it here
-        for r in range(grid):
-            for c in range(grid):
-                c_blk[r, c] = kops.correct_from_state(
-                    c_blk[r, c], (ccol[r, c], crow[r, c]), wm, wn, plan.bm,
-                    plan.bn)[0]
+        with obs.span("summa/scrub", device=True, blocks=grid * grid,
+                      host_reads=0):
+            for r in range(grid):
+                for c in range(grid):
+                    c_blk[r, c] = kops.correct_from_state(
+                        c_blk[r, c], (ccol[r, c], crow[r, c]), wm, wn,
+                        plan.bm, plan.bn)[0]
     return c_blk, ((ccol, crow) if fused else None)
+
+
+def _fault_kind(failure, bitflip) -> str:
+    """The fault a product faces, as the spans name it: "none", "kill"
+    (one process lost), "kill<n>" (n lost at once), "flip", or both joined
+    by "+"."""
+    kinds = []
+    if isinstance(failure, MultiFailureEvent):
+        kinds.append(f"kill{len(failure.devices)}")
+    elif failure is not None:
+        kinds.append("kill")
+    if bitflip is not None:
+        kinds.append("flip")
+    return "+".join(kinds) or "none"
 
 
 def abft_summa(a_enc: torch.Tensor, b_enc: torch.Tensor, grid: int, *,
@@ -336,14 +394,19 @@ def abft_summa(a_enc: torch.Tensor, b_enc: torch.Tensor, grid: int, *,
     per-step rank-kb update (module docstring).  ``on_stats(step, row, col,
     stats)``, when given, sees the stats of every kernel launch.
     """
-    plan = _resolve_local_update(
-        local_update, a_enc.shape[0] // grid, a_enc.shape[1] // grid,
-        b_enc.shape[1] // grid, preferred_dtype, a_enc.device)
-    c_blk, _ = _local_summa(
-        _to_blocks(a_enc, grid), _to_blocks(b_enc, grid), grid=grid,
-        spec=spec, failure=failure, bitflip=bitflip,
-        preferred_dtype=preferred_dtype, plan=plan, on_stats=on_stats)
-    return _from_blocks(c_blk)
+    mb = a_enc.shape[0] // grid
+    with obs.span("summa/abft_summa", device=True, grid=grid, f=spec.f,
+                  block=mb, dtype=str(preferred_dtype).replace("torch.", ""),
+                  fault=_fault_kind(failure, bitflip)) as sp:
+        plan = _resolve_local_update(
+            local_update, mb, a_enc.shape[1] // grid,
+            b_enc.shape[1] // grid, preferred_dtype, a_enc.device)
+        sp.set(tile=None if plan is None else [plan.bm, plan.bn])
+        c_blk, _ = _local_summa(
+            _to_blocks(a_enc, grid), _to_blocks(b_enc, grid), grid=grid,
+            spec=spec, failure=failure, bitflip=bitflip,
+            preferred_dtype=preferred_dtype, plan=plan, on_stats=on_stats)
+        return _from_blocks(c_blk)
 
 
 def summa(a: torch.Tensor, b: torch.Tensor, grid: int, *,

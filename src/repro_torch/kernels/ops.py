@@ -636,6 +636,7 @@ def correct_from_state(c: torch.Tensor, state, wm: torch.Tensor,
             loc_c = torch.where(single, cidx, -1)
         # masked re-computation from the carried column checksum of the
         # tile-row holding (ridx, cidx)
+        obs.tally("host_reads", 2)
         r, cc = int(ridx), int(cidx)
         lo = (r // bm) * bm
         seg = c32[lo:lo + bm, cc].clone()
@@ -704,6 +705,7 @@ def _tile_verify_correct(c32, state, wm, wn, bm, bn, *, tol_factor,
                 torch.where(single, c_glob.float(), -1.0),
                 cmax, rmax, tol_c, scale,
             ], dim=-1)
+        obs.tally("host_reads")
         if not bool(single.any()):
             break       # nothing repaired: a further pass finds the same
         mask = ((row_i[:, None] == ridx[..., None, None])

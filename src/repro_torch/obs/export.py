@@ -203,7 +203,7 @@ def to_perfetto(evs: List[Event], process_name: str = "repro") -> Dict[str, Any]
     microseconds); instants to ``ph: "i"`` thread-scoped.  Raw thread
     ids remap to small integers in first-seen order so the document is
     deterministic across runs.  The logical step rides in ``args.step``
-    alongside the event attrs.
+    alongside the event attrs, as do ``span_id`` and ``parent_id``.
     """
     tids: Dict[int, int] = {}
     trace_events: List[Dict[str, Any]] = [{
@@ -213,6 +213,10 @@ def to_perfetto(evs: List[Event], process_name: str = "repro") -> Dict[str, Any]
     for e in evs:
         tid = tids.setdefault(e.tid, len(tids) + 1)
         args: Dict[str, Any] = {"seq": e.seq}
+        if e.span_id is not None:
+            args["span_id"] = e.span_id
+        if e.parent_id is not None:
+            args["parent_id"] = e.parent_id
         if e.step is not None:
             args["step"] = e.step
         if e.first:

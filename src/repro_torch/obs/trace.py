@@ -8,28 +8,44 @@ collector, the straggler detector, the exporters in
 :mod:`repro_torch.obs.export`) attaches through ``obs.subscribe(on_event)``.
 The private stats structs that predate the bus (``EngineStats``,
 ``ElasticReport``, ``SchedStats``, campaign rows) keep their public APIs
-but are views over the same happenings.  This module is a copy of the
-reference package's ``repro/obs/trace.py``.
+but are views over the same happenings.  This module began as a copy of
+the reference package's ``repro/obs/trace.py``; the port's bus adds the
+no-op span, the shared epoch, span identity and the device clock.
 
 Design constraints, in order:
 
-  * **zero dependencies** — stdlib only; in particular no torch import,
-    so :func:`stamp` is safe to call from host callback threads and from
-    module import time.
-  * **cheap when idle** — with recording disabled and no subscribers, a
-    span costs two ``perf_counter`` calls and one branch.
-  * **two clocks** — every event carries a wall timestamp (monotonic
-    ``perf_counter`` seconds since tracer start) *and* an optional
-    logical ``step`` (train step or decode step).  Producers either pass
-    ``step=`` explicitly or let the event inherit the tracer's current
-    logical clock (:func:`set_step`).
-  * **first-trace separation** — the first occurrence of each span name
-    in the process is flagged ``first=True``.  Compile or kernel-build time
-    rides the first occurrence (that is what "first-trace pollution" means), so
-    :func:`rung_timeline` splits compile-inclusive from warm samples by
-    this flag unless the producer measured the split itself and attached
-    explicit ``compile_s`` / ``warm_s`` attrs (as ``ElasticReport`` and
-    the campaign's warm re-measures do).
+  * **zero dependencies** — stdlib only; in particular no torch import.
+    A device clock is a hook (:func:`set_device_clock`) that another
+    module provides (``repro_torch.obs.cuda`` on a CUDA card).
+  * **off means off** — with recording disabled and no subscribers,
+    :func:`span` returns one shared no-op context manager (no stack, no
+    lock, no clock read) and :func:`event`, :func:`recovery` and
+    :func:`tally` return at their first branch.
+  * **clocks** — every event carries a wall timestamp (``ts_s``, seconds
+    of ``time.perf_counter`` since :func:`epoch`, so ``ts_s + epoch()``
+    lies on the host's ``perf_counter`` clock, the clock a device trace
+    is put on through a marker) *and* an optional logical ``step`` (train
+    step or decode step).  Producers either pass ``step=`` explicitly or
+    let the event inherit the tracer's current logical clock
+    (:func:`set_step`).  A span opened with ``device=True`` is timed on
+    the device as well, where a device clock is installed and recording
+    is on: a marker on the device's stream at entry and at exit, read by
+    :func:`resolve_device` into ``attrs["device_s"]`` once the device
+    has passed both.
+  * **identity** — each span gets a ``span_id`` on entry and records its
+    parent's (``parent_id``) beside the parent's name, so the spans of
+    one call group under its root.  Counts of the work a span does go
+    into its attrs where the work happens (:meth:`_Span.set` on the span,
+    :func:`tally` from code below a span that was opened with the count's
+    key).
+  * **first-trace separation** — the first recorded occurrence of each
+    span name in the process is flagged ``first=True``.  Compile or
+    kernel-build time rides the first occurrence (that is what
+    "first-trace pollution" means), so :func:`rung_timeline` splits
+    compile-inclusive from warm samples by this flag unless the producer
+    measured the split itself and attached explicit ``compile_s`` /
+    ``warm_s`` attrs (as ``ElasticReport`` and the campaign's warm
+    re-measures do).
 
 Event taxonomy:
 
@@ -42,7 +58,10 @@ Event taxonomy:
       the rung wall, attrs may carry ``compile_s``/``warm_s``;
   ``fault/verdict``   — end-state comparison against the clean run
       (``bit_identical=True/False``);
-  ``straggler/trip``, ``scrub/sweep``, ``kernel/trace``.
+  ``straggler/trip``, ``scrub/sweep``, ``kernel/trace``;
+  ``summa/*``, ``detect/locate_and_correct`` — the fault-tolerant SUMMA
+      product's parts (``core/summa.py``, ``core/detect.py``), under one
+      ``summa/abft_summa`` root a product.
 
 :func:`lifecycles` folds a recorded event stream back into complete
 inject -> detect -> rung -> repair -> verdict timelines.
@@ -50,15 +69,17 @@ inject -> detect -> rung -> repair -> verdict timelines.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "Event", "Tracer", "TRACER",
-    "span", "event", "stamp", "recovery",
+    "span", "event", "recovery", "tally", "NO_SPAN",
     "subscribe", "unsubscribe", "enable", "enabled",
     "set_step", "current_step", "reset", "events", "dropped",
+    "epoch", "set_device_clock", "resolve_device",
     "rung_timeline", "lifecycles", "percentile",
 ]
 
@@ -68,9 +89,12 @@ class Event:
     """One happening on the bus.
 
     ``ts_s`` is seconds since the tracer epoch (``perf_counter`` based,
-    monotonic); ``dur_s`` is zero for instant events.  ``first`` marks
-    the first occurrence of this name in the process — the
-    compile-inclusive sample for jit-backed spans.
+    monotonic; ``ts_s + epoch()`` is the ``perf_counter`` reading);
+    ``dur_s`` is zero for instant events.  ``first`` marks the first
+    occurrence of this name in the process — the compile-inclusive
+    sample for jit-backed spans.  ``span_id`` names a span (None for an
+    instant); ``parent`` and ``parent_id`` name the span open around the
+    event on its thread.
     """
     name: str
     kind: str                       # "span" | "instant"
@@ -83,36 +107,74 @@ class Event:
     seq: int = 0
     parent: Optional[str] = None
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    span_id: Optional[int] = None
+    parent_id: Optional[int] = None
+
+
+class _NoSpan:
+    """The span of a bus that records nothing: one shared instance, which
+    does nothing on entry, exit or :meth:`set`."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+#: What :func:`span` returns while the bus records nothing.
+NO_SPAN = _NoSpan()
 
 
 class _Span:
     """Context manager recording a span event on exit (even on raise)."""
 
-    __slots__ = ("_tracer", "name", "step", "attrs", "_t0", "_first", "_parent")
+    __slots__ = ("_tracer", "name", "step", "attrs", "span_id", "_device",
+                 "_t0", "_first", "_parent", "_parent_id", "_mark0")
 
     def __init__(self, tracer: "Tracer", name: str, step: Optional[int],
-                 attrs: Dict[str, Any]):
+                 device: bool, attrs: Dict[str, Any]):
         self._tracer = tracer
         self.name = name
         self.step = step
+        self._device = device
         self.attrs = attrs
+
+    def set(self, **attrs) -> None:
+        """Add counts or facts found inside the span to its attrs."""
+        self.attrs.update(attrs)
 
     def __enter__(self) -> "_Span":
         tr = self._tracer
         stack = tr._stack()
-        self._parent = stack[-1] if stack else None
-        stack.append(self.name)
+        up = stack[-1] if stack else None
+        self._parent = up.name if up is not None else None
+        self._parent_id = up.span_id if up is not None else None
+        self.span_id = next(tr._ids)
+        stack.append(self)
         self._first = tr._mark_first(self.name)
+        clock = tr._clock
+        self._mark0 = ((clock, clock.mark()) if self._device
+                       and clock is not None and tr._enabled else None)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = time.perf_counter()
         tr = self._tracer
+        marks = None
+        if self._mark0 is not None:
+            clock, mark0 = self._mark0
+            marks = (clock, mark0, clock.mark())
         stack = tr._stack()
         # Pop back to (and including) our own frame even if an inner span
         # leaked — ordering under exceptions stays consistent.
-        while stack and stack.pop() != self.name:
+        while stack and stack.pop() is not self:
             pass
         tr._record(Event(
             name=self.name, kind="span",
@@ -120,7 +182,8 @@ class _Span:
             step=self.step if self.step is not None else tr._step,
             first=self._first, ok=exc_type is None,
             parent=self._parent, attrs=self.attrs,
-        ))
+            span_id=self.span_id, parent_id=self._parent_id,
+        ), marks)
         return False  # never swallow
 
 
@@ -146,9 +209,12 @@ class Tracer:
         self._seq = 0
         self._epoch = time.perf_counter()
         self._tls = threading.local()
+        self._ids = itertools.count(1)
+        self._clock = None
+        self._pending: List[tuple] = []   # (event, clock, mark, mark)
 
     # -- span stack (per thread) -------------------------------------
-    def _stack(self) -> List[str]:
+    def _stack(self) -> List[_Span]:
         st = getattr(self._tls, "stack", None)
         if st is None:
             st = []
@@ -163,7 +229,7 @@ class Tracer:
             return True
 
     # -- recording ----------------------------------------------------
-    def _record(self, ev: Event) -> None:
+    def _record(self, ev: Event, marks: Optional[tuple] = None) -> None:
         with self._lock:
             if not self._enabled and not self._subs:
                 return
@@ -173,6 +239,8 @@ class Tracer:
             if self._enabled:
                 if len(self._events) < self.max_events:
                     self._events.append(ev)
+                    if marks is not None:
+                        self._pending.append((ev,) + marks)
                 else:
                     self._dropped += 1
             subs = tuple(self._subs)
@@ -180,20 +248,43 @@ class Tracer:
             fn(ev)
 
     # -- public API ---------------------------------------------------
-    def span(self, name: str, step: Optional[int] = None, **attrs) -> _Span:
-        return _Span(self, name, step, attrs)
+    def span(self, name: str, step: Optional[int] = None,
+             device: bool = False, **attrs):
+        """A span: ``with tracer.span(name, **attrs) as sp: ...``.
+        ``device=True`` times it on the device too (module docstring).
+        With recording off and no subscriber: :data:`NO_SPAN`."""
+        if not self._enabled and not self._subs:
+            return NO_SPAN
+        return _Span(self, name, step, device, attrs)
 
     def event(self, name: str, step: Optional[int] = None,
               dur_s: float = 0.0, **attrs) -> None:
         if not self._enabled and not self._subs:
             return
         first = self._mark_first(name)
+        stack = self._stack()
+        up = stack[-1] if stack else None
         self._record(Event(
             name=name, kind="instant",
             ts_s=time.perf_counter() - self._epoch, dur_s=dur_s,
             step=step if step is not None else self._step,
             first=first, attrs=attrs,
+            parent=up.name if up is not None else None,
+            parent_id=up.span_id if up is not None else None,
         ))
+
+    def tally(self, key: str, n: int = 1) -> None:
+        """Add ``n`` to ``attrs[key]`` of the innermost span open on this
+        thread that was opened with ``key`` (``obs.span(name, key=0)``): a
+        count made where the work happens, below the code that asked for
+        it.  Outside such a span, and while the bus records nothing, the
+        count goes nowhere."""
+        if not self._enabled and not self._subs:
+            return
+        for sp in reversed(getattr(self._tls, "stack", None) or ()):
+            if key in sp.attrs:
+                sp.attrs[key] += n
+                return
 
     def recovery(self, rung: str, wall_s: float, step: Optional[int] = None,
                  compile_s: Optional[float] = None,
@@ -240,6 +331,29 @@ class Tracer:
     def enabled(self) -> bool:
         return self._enabled
 
+    def epoch(self) -> float:
+        """The ``time.perf_counter`` reading that ``ts_s = 0`` stands for."""
+        return self._epoch
+
+    def set_device_clock(self, clock) -> None:
+        """Install (or, with None, remove) the device clock of
+        ``device=True`` spans: an object with ``mark()``, which places a
+        marker on the device's stream and returns it, and ``elapsed_s(a,
+        b)``, the device seconds from marker ``a`` to marker ``b`` (it may
+        wait for the device to pass ``b``)."""
+        with self._lock:
+            self._clock = clock
+
+    def resolve_device(self) -> int:
+        """Write the device seconds of every recorded ``device=True`` span
+        not yet resolved into its ``attrs["device_s"]``; call after the
+        device has passed them (a synchronize).  Returns how many."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for ev, clock, a, b in pending:
+            ev.attrs["device_s"] = clock.elapsed_s(a, b)
+        return len(pending)
+
     def set_step(self, step: Optional[int]) -> None:
         self._step = step
 
@@ -254,9 +368,10 @@ class Tracer:
         return self._dropped
 
     def reset(self) -> None:
-        """Clear the buffer, the drop count, the logical clock and the
-        first-occurrence set (so a fresh run re-measures first-trace).
-        Subscribers and the enabled flag survive a reset."""
+        """Clear the buffer, the drop count, the logical clock, the
+        first-occurrence set (so a fresh run re-measures first-trace) and
+        the unresolved device spans, and restart the epoch.  Subscribers,
+        the enabled flag and the device clock survive a reset."""
         with self._lock:
             self._events.clear()
             self._dropped = 0
@@ -264,6 +379,7 @@ class Tracer:
             self._step = None
             self._seq = 0
             self._epoch = time.perf_counter()
+            self._pending.clear()
 
 
 #: The process-global tracer every module-level helper delegates to.
@@ -272,6 +388,7 @@ TRACER = Tracer()
 span = TRACER.span
 event = TRACER.event
 recovery = TRACER.recovery
+tally = TRACER.tally
 subscribe = TRACER.subscribe
 unsubscribe = TRACER.unsubscribe
 enable = TRACER.enable
@@ -281,19 +398,9 @@ current_step = TRACER.current_step
 reset = TRACER.reset
 events = TRACER.events
 dropped = TRACER.dropped
-
-
-def stamp(name: str, **attrs) -> None:
-    """Host-callback-safe instant event.
-
-    Identical to :func:`event` but documented (and tested) as safe to
-    invoke from a host callback thread: stdlib only, reentrant
-    lock, no allocation of device values, never raises.
-    """
-    try:
-        TRACER.event(name, **attrs)
-    except Exception:
-        pass
+epoch = TRACER.epoch
+set_device_clock = TRACER.set_device_clock
+resolve_device = TRACER.resolve_device
 
 
 # ---------------------------------------------------------------------

@@ -31,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -38,21 +39,31 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-GROUPS = (                       # (group, substrings of a kernel's name)
-    ("kernel1_abft_matmul", ("mma_kernel", "splitk_partial",
-                             "splitk_epilogue")),
-    ("kernel2_abft_matmul_acc", ("abft_matmul_acc_kernel",)),
-    ("kernel3_checksum_encode", ("checksum_encode_kernel",)),
-    ("kernel4_flash", ("flash_kernel",)),
-    ("library_gemm", ("gemm", "cutlass", "xmma", "cublas")),
-    ("copies", ("memcpy", "memset")),
+
+def _whole(*names):
+    """A kernel's name, matched whole as ``portbench/harness/trace.py``'s
+    readers match it: ``mma_kernel`` (kernel #1) is not the tail of
+    ``acc_mma_kernel`` (kernel #2)."""
+    return re.compile(r"(?<![A-Za-z0-9_])(%s)(?![A-Za-z0-9_])"
+                      % "|".join(names))
+
+
+GROUPS = (                       # (group, pattern searched in a kernel's name)
+    ("kernel1_abft_matmul", _whole("mma_kernel", "splitk_partial",
+                                   "splitk_epilogue")),
+    ("kernel2_abft_matmul_acc", _whole("abft_matmul_acc_kernel",
+                                       "acc_mma_kernel")),
+    ("kernel3_checksum_encode", _whole("checksum_encode_kernel")),
+    ("kernel4_flash", _whole("flash_kernel")),
+    # library kernels and copies by parts of their names
+    ("library_gemm", re.compile("gemm|cutlass|xmma|cublas", re.I)),
+    ("copies", re.compile("memcpy|memset", re.I)),
 )
 
 
 def group_of(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(key in low for key in keys):
+    for group, rx in GROUPS:
+        if rx.search(name):
             return group
     return "other"
 
