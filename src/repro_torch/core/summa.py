@@ -354,14 +354,12 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
         step(k)
     if fused_verify:
         # post-loop scrub: a flip after the last accumulate has no next
-        # kernel call to catch it; the state-vs-C residual repairs it here
+        # kernel call to catch it; the state-vs-C residual repairs it here,
+        # every block in one call that reads nothing back to the host
         with obs.span("summa/scrub", device=True, blocks=grid * grid,
                       host_reads=0):
-            for r in range(grid):
-                for c in range(grid):
-                    c_blk[r, c] = kops.correct_from_state(
-                        c_blk[r, c], (ccol[r, c], crow[r, c]), wm, wn,
-                        plan.bm, plan.bn)[0]
+            c_blk = kops.correct_from_state(c_blk, (ccol, crow), wm, wn,
+                                            plan.bm, plan.bn)[0]
     return c_blk, ((ccol, crow) if fused else None)
 
 

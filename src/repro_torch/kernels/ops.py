@@ -508,7 +508,8 @@ def abft_matmul(a: torch.Tensor, b: torch.Tensor, *, f: int = KERNEL_F,
 
 
 def _pad2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    r, c = x.shape
+    """Zero-pad the last two dims of ``x`` to [rows, cols]."""
+    r, c = x.shape[-2:]
     if (r, c) == (rows, cols):
         return x
     return F.pad(x, (0, cols - c, 0, rows - r))
@@ -516,25 +517,26 @@ def _pad2(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 def _pad_state(state, pm: int, pn: int):
     """The port's state layout -> the reference's zero-padded one:
-    ccol [mt, f, n] -> [mt, f, pn], crow [nt, m, f] -> [nt, pm, f]."""
+    ccol [..., mt, f, n] -> [..., mt, f, pn], crow [..., nt, m, f] ->
+    [..., nt, pm, f]."""
     ccol, crow = state
-    return (F.pad(ccol, (0, pn - ccol.shape[2])),
-            F.pad(crow, (0, 0, 0, pm - crow.shape[1])))
+    return (F.pad(ccol, (0, pn - ccol.shape[-1])),
+            F.pad(crow, (0, 0, 0, pm - crow.shape[-2])))
 
 
 def _tiles(c32: torch.Tensor, bm: int, bn: int) -> torch.Tensor:
-    """[pm, pn] -> [mt, nt, bm, bn]."""
-    pm, pn = c32.shape
-    return c32.reshape(pm // bm, bm, pn // bn, bn).permute(0, 2, 1, 3)
+    """[..., pm, pn] -> [..., mt, nt, bm, bn]."""
+    *lead, pm, pn = c32.shape
+    return c32.reshape(*lead, pm // bm, bm, pn // bn, bn).transpose(-3, -2)
 
 
 def _tile_sums(t, wmt, wnt):
-    """Dual checksums of every tile: t [mt, nt, bm, bn], wmt [mt, f, bm],
-    wnt [nt, bn, f] -> (W_m @ tile [mt, nt, f, bn], tile @ W_n
-    [mt, nt, bm, f]).  The one routine for states and residuals, so a
-    clean state re-verifies with residual exactly 0."""
-    return (torch.einsum("xfb,xybn->xyfn", wmt, t),
-            torch.einsum("xybn,ynf->xybf", t, wnt))
+    """Dual checksums of every tile: t [..., mt, nt, bm, bn], wmt
+    [mt, f, bm], wnt [nt, bn, f] -> (W_m @ tile [..., mt, nt, f, bn],
+    tile @ W_n [..., mt, nt, bm, f]).  The one routine for states and
+    residuals, so a clean state re-verifies with residual exactly 0."""
+    return (torch.einsum("xfb,...xybn->...xyfn", wmt, t),
+            torch.einsum("...xybn,ynf->...xybf", t, wnt))
 
 
 def _tile_weights(wm, wn, bm: int, bn: int):
@@ -555,22 +557,23 @@ def acc_state_zeros(plan: BlockPlan, f: int = KERNEL_F, device=None):
 
 def tile_checksums(c: torch.Tensor, wm: torch.Tensor, wn: torch.Tensor,
                    bm: int, bn: int):
-    """Per-tile dual checksums of an [m, n] array, ragged edges zero-padded.
+    """Per-tile dual checksums of an [..., m, n] array, ragged edges
+    zero-padded.
 
-    wm: [f, m], wn: [n, f].  Returns (ccol [ceil(m/bm), f, n], crow
-    [ceil(n/bn), m, f]) — the carried-state layout of the accumulate kernel;
-    used to (re)derive a consistent state from data, e.g. after a SUMMA
-    failure recovery rebuilt C blocks.
+    wm: [f, m], wn: [n, f].  Returns (ccol [..., ceil(m/bm), f, n], crow
+    [..., ceil(n/bn), m, f]) — the carried-state layout of the accumulate
+    kernel; used to (re)derive a consistent state from data, e.g. after a
+    SUMMA failure recovery rebuilt C blocks.
     """
-    m, n = c.shape
+    *lead, m, n = c.shape
     f = wm.shape[0]
     pm, pn = _round_up(m, bm), _round_up(n, bn)
     mt, nt = pm // bm, pn // bn
     wmt, wnt = _tile_weights(_pad2(wm.float(), f, pm), _pad2(wn.float(), pn, f),
                              bm, bn)
     cc, cr = _tile_sums(_tiles(_pad2(c.float(), pm, pn), bm, bn), wmt, wnt)
-    ccol = cc.permute(0, 2, 1, 3).reshape(mt, f, pn)[:, :, :n]
-    crow = cr.permute(1, 0, 2, 3).reshape(nt, pm, f)[:, :m]
+    ccol = cc.transpose(-3, -2).reshape(*lead, mt, f, pn)[..., :n]
+    crow = cr.transpose(-4, -3).reshape(*lead, nt, pm, f)[..., :m, :]
     return ccol.contiguous(), crow.contiguous()
 
 
@@ -598,34 +601,47 @@ def correct_from_state(c: torch.Tensor, state, wm: torch.Tensor,
     SUMMA path (a flip after the last accumulate has no next kernel call to
     catch it) and as the semantic oracle in tests.  A ragged C is zero-padded
     to the tiling, as the reference holds it.
-    Returns (fixed, detected: bool scalar, corrected: bool scalar,
-    row: int64 scalar, col: int64 scalar) — row/col are the located element
-    (-1 when nothing was corrected).
+
+    ``c`` may carry leading batch dims, [..., m, n] with a state of the same
+    leading dims (ccol [..., mt, f, n], crow [..., nt, m, f]; wm and wn
+    shared): every block is scaled, located and repaired on its own, as a
+    call on that block alone would.  Nothing is read back to the host.
+    Returns (fixed, detected: bool, corrected: bool, row: int64, col:
+    int64), the last four of the batch shape (scalars for a 2-D C) — row/col
+    are the located element (-1 when nothing was corrected).
     """
-    m, n = c.shape
+    *lead, m, n = c.shape
     f = wm.shape[0]
     pm, pn = _round_up(m, bm), _round_up(n, bn)
+    mt = pm // bm
     ccol_c, crow_c = _pad_state(state, pm, pn)
     wm_p, wn_p = _pad2(wm.float(), f, pm), _pad2(wn.float(), pn, f)
+    w0 = wm_p[0]
+    # the carried plain-sum column checksums, one row of mt * pn a block
+    carried_all = ccol_c[..., 0, :].reshape(*lead, mt * pn)
     # dtype-aware eps: fp32 floor (carried checksums are fp32 functions of
     # the rounded stored values), widened to the storage grid for bf16
     eps_c = detection_eps(c.dtype)
-    c32 = _pad2(c.float(), pm, pn).clone()
-    scale = c32.abs().mean() + 1e-30
+    c32 = _pad2(c.float(), pm, pn)
+    c32 = c32.clone(memory_format=torch.contiguous_format) if c32 is c \
+        else c32.contiguous()       # repaired in place below
+    flat = c32.view(*lead, pm * pn)
+    scale = c32.abs().mean(dim=(-2, -1)) + 1e-30
     tol_c = tol_factor * bm * eps_c * scale
     tol_r = tol_factor * bn * eps_c * scale
     cols, rows = torch.arange(pn, device=c.device), torch.arange(pm,
                                                                  device=c.device)
+    seg_i = torch.arange(bm, device=c.device)
     detected = corrected = None
     loc_r = loc_c = None
     for it in range(2):
         ccol_now, crow_now = tile_checksums(c32, wm_p, wn_p, bm, bn)
-        acol = (ccol_now - ccol_c)[:, 0, :].abs().sum(dim=0)       # [pn]
-        arow = (crow_now - crow_c)[:, :, 0].abs().sum(dim=0)       # [pm]
-        cmax, cidx = acol.max(), acol.argmax()
-        rmax, ridx = arow.max(), arow.argmax()
-        c2nd = torch.where(cols == cidx, 0.0, acol).max()
-        r2nd = torch.where(rows == ridx, 0.0, arow).max()
+        acol = (ccol_now - ccol_c)[..., 0, :].abs().sum(dim=-2)    # [..., pn]
+        arow = (crow_now - crow_c)[..., 0].abs().sum(dim=-2)       # [..., pm]
+        cmax, cidx = acol.amax(dim=-1), acol.argmax(dim=-1)
+        rmax, ridx = arow.amax(dim=-1), arow.argmax(dim=-1)
+        c2nd = torch.where(cols == cidx[..., None], 0.0, acol).amax(dim=-1)
+        r2nd = torch.where(rows == ridx[..., None], 0.0, arow).amax(dim=-1)
         single = ((cmax > tol_c) & (rmax > tol_r)
                   & (c2nd <= torch.maximum(0.25 * cmax, tol_c))
                   & (r2nd <= torch.maximum(0.25 * rmax, tol_r)))
@@ -635,19 +651,23 @@ def correct_from_state(c: torch.Tensor, state, wm: torch.Tensor,
             loc_r = torch.where(single, ridx, -1)
             loc_c = torch.where(single, cidx, -1)
         # masked re-computation from the carried column checksum of the
-        # tile-row holding (ridx, cidx)
-        obs.tally("host_reads", 2)
-        r, cc = int(ridx), int(cidx)
-        lo = (r // bm) * bm
-        seg = c32[lo:lo + bm, cc].clone()
-        seg[r - lo] = 0.0
-        carried = ccol_c[r // bm, 0, cc]
-        x_new = (carried - torch.dot(wm_p[0, lo:lo + bm], seg)) \
-            / (wm_p[0, r] + 1e-30)
-        c32[r, cc] = torch.where(single, x_new, c32[r, cc])
+        # tile-row holding (ridx, cidx), gathered by index tensors
+        tile_i = ridx // bm
+        col = torch.gather(c32, -1, cidx[..., None, None].expand(
+            *lead, pm, 1))[..., 0]                                 # [..., pm]
+        at = (tile_i * bm)[..., None] + seg_i                      # [..., bm]
+        seg = torch.where(at == ridx[..., None], 0.0,
+                          torch.gather(col, -1, at))
+        carried = torch.gather(carried_all, -1,
+                               (tile_i * pn + cidx)[..., None])[..., 0]
+        x_new = ((carried - (torch.take(w0, at) * seg).sum(dim=-1))
+                 / (torch.take(w0, ridx) + 1e-30))
+        old = torch.gather(col, -1, ridx[..., None])[..., 0]
+        flat.scatter_(-1, (ridx * pn + cidx)[..., None],
+                      torch.where(single, x_new, old)[..., None])
     if not c.dtype.is_floating_point:
         c32 = torch.round(c32)   # integer storage: snap the repair to grid
-    return (c32[:m, :n].to(c.dtype), detected, corrected, loc_r, loc_c)
+    return (c32[..., :m, :n].to(c.dtype), detected, corrected, loc_r, loc_c)
 
 
 def _tile_verify_correct(c32, state, wm, wn, bm, bn, *, tol_factor,

@@ -394,6 +394,112 @@ def test_correct_from_state_matches_reference(rs, flip):
     np.testing.assert_allclose(got[0].numpy(), c, rtol=1e-5, atol=1e-3)
 
 
+def _stack(rs, lead, m, n, flips):
+    """A [*lead, m, n] stack of random blocks, each block's clean state
+    from the port's ``tile_checksums``, and a copy with ``flips`` ({block
+    index: [(row, col, delta), ...]}) added."""
+    c = rs.standard_normal(tuple(lead) + (m, n)).astype(np.float32)
+    wm = np.array(jops.kernel_weights(m))
+    wn = np.array(jops.kernel_weights(n)).T
+    bad = c.copy()
+    for blk, hits in flips.items():
+        for r, col, delta in hits:
+            bad[blk + (r, col)] += np.float32(delta)
+    return c, bad, torch.from_numpy(wm), torch.from_numpy(wn)
+
+
+def _per_block(bad, state, wm, wn, bm, bn):
+    """The 2-D call on every block of the stack, in row-major order."""
+    lead = bad.shape[:-2]
+    return [ops.correct_from_state(
+        torch.from_numpy(bad[idx]), (state[0][idx], state[1][idx]), wm, wn,
+        bm, bn) for idx in np.ndindex(*lead)]
+
+
+# (grid row, grid col) of a [3, 3] stack -> flips; the rest stay clean
+STACK_FLIPS = [
+    {(0, 1): [(171, 333, -8e3)], (1, 0): [(5, 2, 1e30)],
+     (1, 2): [(255, 383, 1e4)],
+     (2, 2): [(40, 100, 3e3), (200, 100, -2e3)]},     # two in one column
+    {(0, 0): [(0, 0, 1e4)], (2, 1): [(130, 40, 2.5e3)],
+     (0, 2): [(64, 250, 7e2)], (2, 0): [(77, 129, 5e5)],
+     (1, 1): [(10, 7, 5e2), (129, 7, 7e2)],            # two in one column
+     (0, 1): [(100, 20, 4e3), (100, 300, -3e3)]},      # two in one row
+]
+
+
+@pytest.mark.parametrize("flips", STACK_FLIPS, ids=["set0", "set1"])
+def test_correct_from_state_batched_matches_2d_and_reference(rs, flips):
+    """One call over a [3, 3] stack of blocks gives, block by block, what
+    the 2-D call and the reference under ``jax.vmap`` give: the same
+    detection, repair and location, and values within the parity
+    tolerance; a clean block comes back bit for bit."""
+    import jax
+
+    m, n, bm, bn = 256, 384, 128, 128
+    c, bad, wm, wn = _stack(rs, (3, 3), m, n, flips)
+    state = ops.tile_checksums(torch.from_numpy(c), wm, wn, bm, bn)
+    f = wm.shape[0]
+    assert state[0].shape == (3, 3, 2, f, n)
+    assert state[1].shape == (3, 3, 3, m, f)
+    got = ops.correct_from_state(torch.from_numpy(bad), state, wm, wn, bm, bn)
+    for x in got[1:]:
+        assert x.shape == (3, 3)
+    one = _per_block(bad, state, wm, wn, bm, bn)
+    flat = lambda x: x.reshape((9,) + tuple(x.shape[2:]))
+    want = jax.vmap(lambda cc, s0, s1: jops.correct_from_state(
+        cc, (s0, s1), jnp.asarray(wm.numpy()), jnp.asarray(wn.numpy()),
+        bm, bn))(jnp.asarray(flat(bad)),
+                 *(jnp.asarray(flat(x).numpy()) for x in state))
+    for i, idx in enumerate(np.ndindex(3, 3)):
+        outcome = [int(x[idx]) for x in got[1:]]
+        assert outcome == [int(x) for x in one[i][1:]]
+        assert outcome == [int(np.asarray(x)[i]) for x in want[1:]]
+        hits = flips.get(idx, [])
+        assert bool(outcome[0]) == bool(hits)
+        assert bool(outcome[1]) == (len(hits) == 1)
+        fixed = got[0][idx].numpy()
+        if len(hits) == 1:
+            assert tuple(outcome[2:]) == hits[0][:2]
+            np.testing.assert_allclose(fixed, c[idx], rtol=1e-5, atol=1e-3)
+            np.testing.assert_allclose(fixed, one[i][0].numpy(), rtol=1e-5,
+                                       atol=1e-3)
+            np.testing.assert_allclose(fixed, np.asarray(want[0][i]),
+                                       rtol=1e-5, atol=1e-3)
+        else:       # clean, or refused by the gate: left as it came
+            assert outcome[2:] == [-1, -1]
+            np.testing.assert_array_equal(fixed, bad[idx])
+
+
+def test_correct_from_state_batched_ragged_matches_2d(rs):
+    """A ragged [2, 2, 200, 300] stack (zero-padded to 256 x 384 inside)
+    with flips near the edges: the batched call and the batched
+    ``tile_checksums`` agree with the 2-D calls block by block."""
+    m, n, bm, bn = 200, 300, 128, 128
+    flips = {(0, 1): [(199, 299, 4e3)], (1, 0): [(3, 298, -1e3)],
+             (1, 1): [(130, 0, 2e4)]}
+    c, bad, wm, wn = _stack(rs, (2, 2), m, n, flips)
+    state = ops.tile_checksums(torch.from_numpy(c), wm, wn, bm, bn)
+    got = ops.correct_from_state(torch.from_numpy(bad), state, wm, wn, bm, bn)
+    assert got[0].shape == (2, 2, m, n)
+    one = _per_block(bad, state, wm, wn, bm, bn)
+    for i, idx in enumerate(np.ndindex(2, 2)):
+        blk = ops.tile_checksums(torch.from_numpy(c[idx]), wm, wn, bm, bn)
+        for x, y in zip(blk, state):
+            assert_close(y[idx], x, scale=_state_scale(c[idx]))
+        assert [int(x[idx]) for x in got[1:]] == [int(x) for x in one[i][1:]]
+        hits = flips.get(idx, [])
+        assert int(got[2][idx]) == len(hits)
+        if hits:
+            assert (int(got[3][idx]), int(got[4][idx])) == hits[0][:2]
+            np.testing.assert_allclose(got[0][idx].numpy(), c[idx],
+                                       rtol=1e-5, atol=1e-3)
+        else:
+            np.testing.assert_array_equal(got[0][idx].numpy(), bad[idx])
+        np.testing.assert_allclose(got[0][idx].numpy(), one[i][0].numpy(),
+                                   rtol=1e-5, atol=1e-3)
+
+
 def test_tile_verify_correct_matches_reference(rs):
     """The batched prologue twin on a padded tile grid with a flip in one
     tile and a state flip in another: same fixed tile and stats."""

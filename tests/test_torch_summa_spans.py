@@ -9,6 +9,7 @@ import torch
 import repro_torch.core as core
 from repro_torch import obs
 from repro_torch.kernels import abft_matmul as kmm
+from repro_torch.kernels import ops as kops
 
 G, F, NB = 4, 1, 16
 
@@ -81,7 +82,7 @@ def test_a_product_records_its_parts_under_one_root(bus):
     assert sorted(by_id[e.parent_id].attrs["k"] for e in ups) == \
         list(range(G))
     scrub, = [e for e in under if e.name == "summa/scrub"]
-    assert scrub.attrs == dict(blocks=G * G, host_reads=4 * G * G)
+    assert scrub.attrs == dict(blocks=G * G, host_reads=0)
     for e in under:
         if e.name in ("summa/plan", "summa/layout"):
             assert e.attrs == {} and e.parent_id == root.span_id
@@ -153,4 +154,84 @@ def test_counts_stay_in_the_spans_that_ask_for_them(bus):
         _product(spec, a, b)
     assert outer.attrs == {}
     scrub = next(e for e in obs.events() if e.name == "summa/scrub")
-    assert scrub.attrs["host_reads"] == 4 * G * G
+    assert scrub.attrs["host_reads"] == 0
+    check = next(e for e in obs.events()
+                 if e.name == "detect/locate_and_correct")
+    assert check.attrs["host_reads"] == 2
+
+
+# what reads a device value back to the host from Python
+_HOST_READS = ("item", "tolist", "__bool__", "__int__", "__float__",
+               "__index__")
+
+
+def _scrub_reading_nothing(monkeypatch, calls, guard):
+    """Wrap the scrub's ``correct_from_state`` so that ``guard`` holds only
+    while the scrub runs, and count its calls."""
+    inner = kops.correct_from_state
+
+    def scrub(*args, **kw):
+        calls.append(args[0].shape)
+        with guard():
+            return inner(*args, **kw)
+    monkeypatch.setattr(kops, "correct_from_state", scrub)
+
+
+def test_a_last_step_flip_is_repaired_by_one_scrub_call_reading_nothing(
+        bus, monkeypatch):
+    """A flip after the last SUMMA step has no next launch to catch it:
+    one scrub call over all G^2 blocks repairs it, and no host read runs
+    inside it (each of them raises there)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def no_host_reads():
+        def refuse(self, *a, **kw):
+            raise AssertionError("a host read inside the scrub")
+        with monkeypatch.context() as mp:
+            for name in _HOST_READS:
+                mp.setattr(torch.Tensor, name, refuse)
+            yield
+
+    spec, a, b = _operands()
+    want = _product(spec, a, b)
+    calls = []
+    _scrub_reading_nothing(monkeypatch, calls, no_host_reads)
+    got = _product(spec, a, b, bitflip=core.BitflipEvent(
+        step=G, row=2, col=1, delta=-3e3))
+    assert calls == [torch.Size([G, G, NB, NB])]
+    assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+    scrub = next(e for e in bus.events() if e.name == "summa/scrub")
+    assert scrub.attrs == dict(blocks=G * G, host_reads=0)
+
+
+@pytest.mark.gpu
+def test_the_scrub_does_not_synchronize_on_card(monkeypatch):
+    """On the card, a fused product with a last-step flip: the scrub runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, which raises at any
+    synchronizing call, and the product comes back repaired."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the CUDA kernel has no CPU "
+                    "mode")
+    import contextlib
+
+    @contextlib.contextmanager
+    def no_sync():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, a, b = _operands()
+    spec = core.make_spec(F, G - F, G - F, device="cuda")
+    a, b = a.cuda(), b.cuda()
+    want = _product(spec, a, b)
+    calls = []
+    _scrub_reading_nothing(monkeypatch, calls, no_sync)
+    got = _product(spec, a, b, bitflip=core.BitflipEvent(
+        step=G, row=1, col=2, delta=5e3))
+    torch.cuda.synchronize()
+    assert calls == [torch.Size([G, G, NB, NB])]
+    assert torch.allclose(got, want, rtol=1e-4, atol=1e-3)
