@@ -477,6 +477,146 @@ def phase_kernel(torch, record):
     return rows
 
 
+def grouped_cases():
+    """(rows a expert, k, n, set) of kernel #1g's phase: Moonlight-16B-A3B's
+    gate/up and down products at their published widths over 64 experts
+    holding 8192 x 6 rows unevenly (a draw near the benchmark's Zipf
+    traffic, the most loaded expert about twice the mean), and a ragged
+    case with empty experts on the 128 x 64 tile."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    w = rng.zipf(1.3, 64).astype(float)
+    w = 0.5 * w / w.sum() + 0.5 / 64
+    rows = rng.multinomial(8192 * 6, w).tolist()
+    return [(rows, 2048, 1408, "moonlight"), (rows, 1408, 2048, "moonlight"),
+            ([130, 0, 1, 257, 0], 200, 192, "ragged")]
+
+
+def phase_grouped(torch, record):
+    """Kernel #1g against its plain version at every case of
+    ``grouped_cases``: outputs and each row's residual, two calls
+    bit-identical, timed against the plain version and a loop of
+    torch.matmul over the experts; the residual of a clean product within
+    the check's tolerance."""
+    from repro_torch.core import abft_gemm as ag
+    from repro_torch.kernels import abft_matmul as kmm
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    cfg = ag.ABFTConfig(mode="correct")
+    rows_out = []
+    for rows, k, n, what in grouped_cases():
+        e, r = len(rows), sum(rows)
+        x = torch.randn((r, k), generator=g, device="cuda")
+        w = torch.randn((e, k, n), generator=g, device="cuda") * k ** -0.5
+        wcs = ag.encode_weight_grouped(w, cfg)
+        off = torch.tensor([sum(rows[:i]) for i in range(e + 1)],
+                           dtype=torch.int64, device="cuda")
+        wn = ag._residual_weights(n, 2, 17, "cuda:0")
+        bm, bn = kmm.grouped_tile(n)
+        args = (x, w, wcs, off, wn)
+        got = kmm.abft_matmul_grouped_cuda(*args, bm=bm, bn=bn)
+        again = kmm.abft_matmul_grouped_cuda(*args, bm=bm, bn=bn)
+        want = kmm.abft_matmul_grouped_plain(*args, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"two calls differ at {(e, r, k, n)}")
+        y, ycs = got[0], got[1]
+        if not (within(y, want[0], float(want[0].abs().max()))
+                and within(ycs, want[1], float(want[1].abs().max()))):
+            raise AssertionError(f"kernel #1g differs at {(e, r, k, n)}")
+        res = got[2].sum(0)
+        tol = cfg.tol_factor * n * float(torch.finfo(torch.float32).eps) \
+            * float(y.abs().mean())
+        if float(res.abs().max()) > tol:
+            raise AssertionError(f"clean residual {float(res.abs().max())} "
+                                 f"over {tol} at {(e, r, k, n)}")
+        bounds = off.tolist()
+        row = dict(experts=e, rows=r, rows_max=max(rows), k=k, n=n, set=what,
+                   tile=[bm, bn], max_abs_err=float((y - want[0]).abs().max()),
+                   residual_max=float(res.abs().max()), residual_tol=tol,
+                   repeat_bit_identical=True)
+        row["ms"] = time_ms(
+            torch, lambda: kmm.abft_matmul_grouped_cuda(*args, bm=bm, bn=bn),
+            10, flush)
+        row["plain_ms"] = time_ms(
+            torch, lambda: kmm.abft_matmul_grouped_plain(*args, bm=bm, bn=bn),
+            3, flush)
+        row["library_ms"] = time_ms(torch, lambda: [
+            torch.matmul(x[bounds[i]:bounds[i + 1]], w[i])
+            for i in range(e)], 3, flush)
+        fl = 2 * r * k * n
+        nbytes = 4 * (r * k + e * k * n + r * n)
+        t_ops, t_bytes = fl / PEAK_OPS["float32"], nbytes / H100_HBM_BPS
+        row["bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        rows_out.append(row)
+        log("grouped", json.dumps(row))
+        del x, w, wcs, got, again, want
+    record["grouped_cases"] = rows_out
+    return rows_out
+
+
+def phase_moonlight_step(torch, record):
+    """Moonlight-16B-A3B's train step through the main path
+    (``build_train_step`` and ``init_state``, ABFT correct) at its published
+    widths, cut as the benchmark's cell cuts it (the first 5 of 27 layers,
+    32768 of 163840 ids, remat off), on one sequence of 8192 tokens: a warm
+    step, then one step with the kernels' counts set to 0 just before it.
+    Kernel #1g launches 3 times a MoE layer (gate, up, down), neither kernel
+    falls back to its plain version, and no routed row is dropped."""
+    from repro_torch import obs
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels import abft_matmul as kmm
+    from repro_torch.launch.serve import cut_layers
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (StepOptions, build_train_step,
+                                        init_state)
+
+    cfg = cut_layers(get_config("moonlight-16b-a3b").scaled(
+        vocab_size=32768), 5)
+    n_moe = sum(r * len(p) for p, r in cfg.layout if p[0][1] == "moe")
+    step = build_train_step(cfg, ShapeConfig("cell", 8192, 1, "train"),
+                            AdamWConfig(), StepOptions(
+                                abft_mode="correct", remat=False,
+                                aux_weight=1e-4))
+    state = init_state(torch.Generator(device="cuda").manual_seed(5), cfg)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randint(0, cfg.vocab_size, (1, 8193), generator=g,
+                      device="cuda")
+    batch = {"tokens": x[:, :-1], "labels": x[:, 1:]}
+    state, _ = step(state, batch)
+    _free(torch, "cuda")
+    routed = obs.counter("repro_moe_routed_rows_total").total()
+    dropped = obs.counter("repro_moe_dropped_rows_total").total()
+    kmm.reset_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    row = dict(
+        layers=cfg.n_layers, moe_layers=n_moe, tokens=8192,
+        grouped_launches=kmm.grouped_launches,
+        grouped_plain_calls=kmm.grouped_plain_calls,
+        kernel1_launches=kmm.launches, kernel1_plain_calls=kmm.plain_calls,
+        routed_rows=obs.counter("repro_moe_routed_rows_total").total()
+        - routed,
+        dropped_rows=obs.counter("repro_moe_dropped_rows_total").total()
+        - dropped,
+        loss=float(metrics["loss"]),
+        step_ms=1e3 * (time.perf_counter() - t0),
+        peak_gb=_gb(torch, "cuda"))
+    log("moonlight-step", json.dumps(row))
+    if (row["grouped_launches"] != 3 * n_moe or row["grouped_plain_calls"]
+            or row["kernel1_plain_calls"] or row["dropped_rows"]
+            or row["routed_rows"] != 8192 * cfg.top_k * n_moe
+            or not math.isfinite(row["loss"])):
+        raise AssertionError(f"Moonlight's train step: {row}")
+    record["moonlight_step"] = row
+    del state, step, metrics
+    _free(torch, "cuda")
+    return row
+
+
 def phase_drill(torch, record):
     from repro_torch.core import abft_gemm as ag
     from repro_torch.kernels import abft_matmul as kmm
@@ -4390,6 +4530,8 @@ def main():
 
     phase_build(torch, record)
     rows = phase_kernel(torch, record)
+    grouped_rows = phase_grouped(torch, record)
+    moonlight = phase_moonlight_step(torch, record)
     phase_drill(torch, record)
     launches = phase_serve(torch, record, f"{name} ({smi})")
     acc_rows = phase_acc(torch, record)
@@ -4429,6 +4571,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/abft_matmul.cu",
         "replaces": "src/repro/kernels/abft_matmul.py:285",
         "launches": launches,
+        # a Moonlight training step's, counted from 0 before it
+        "moonlight_step_launches": moonlight["kernel1_launches"],
         # phase 3's cases and the operands phase 14's and phase 16's
         # engines gave it
         "max_abs_err": max([r["max_abs_err"] for r in rows]
@@ -4447,6 +4591,22 @@ def main():
         # Whisper served through the step builders
         "autotune_launches": tune1,
         "builders_launches": tune_whisper,
+    }, {
+        # the Moonlight-16B-A3B gate product at its published widths (fp32,
+        # 3xTF32); the library yardstick is a loop of torch.matmul over
+        # the experts
+        "name": "abft_matmul_grouped",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/abft_matmul_grouped.cu",
+        "replaces": None,
+        # a Moonlight training step's, counted from 0 before it
+        "launches": moonlight["grouped_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in grouped_rows),
+        "ms": grouped_rows[0]["ms"],
+        "plain_ms": grouped_rows[0]["plain_ms"],
+        "bound_ms": grouped_rows[0]["bound_ms"],
+        "bound_by": grouped_rows[0]["bound_by"],
+        "library_ms": grouped_rows[0]["library_ms"],
     }, {
         "name": "abft_matmul_acc",
         "route": "cuda",

@@ -6,13 +6,16 @@ _MODULES = [
     "gemma2_2b", "granite_34b", "gemma3_4b", "jamba_1_5_large_398b",
     "xlstm_350m", "llama_3_2_vision_11b",
 ]
+# architectures the port adds (`base.register_port`)
+_PORT_MODULES = ["moonlight_16b_a3b"]
 
 
 def load_all():
-    for m in _MODULES:
+    for m in _MODULES + _PORT_MODULES:
         importlib.import_module(f"repro_torch.configs.{m}")
 
 
 from repro_torch.configs.base import (  # noqa: E402
-    ModelConfig, ShapeConfig, SHAPES, get_config, list_configs, valid_cells,
+    DeepSeekV3Config, ModelConfig, ShapeConfig, SHAPES, get_config,
+    list_configs, list_port_configs, valid_cells,
 )

@@ -7,8 +7,14 @@ local:global, jamba's 1:7 attn:mamba, xlstm's mlstm/slstm alternation,
 llama-vision's every-5th cross-attn) become repeating *period* patterns that
 the model loops over layer by layer.
 
-Mixer kinds: attn | attn_local | attn_bidir | cross | dec | mamba | mlstm | slstm
+Mixer kinds: attn | attn_local | attn_bidir | cross | dec | mla | mamba |
+             mlstm | slstm
 FFN kinds:   dense | moe | none
+
+The reference's ten architectures register with `register` and are what
+`list_configs` returns; an architecture the port adds beyond them
+registers with `register_port` and is listed by `list_port_configs`.
+`get_config` and `smoke_config` take both.
 """
 from __future__ import annotations
 
@@ -72,6 +78,28 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeepSeekV3Config(ModelConfig):
+    """A `ModelConfig` with DeepSeek-V3's block (model_type deepseek_v3),
+    which the port adds to the reference's schema: its fields exist only
+    here, so the reference's ten configs keep the reference's dataclass
+    field for field."""
+    # latent attention (mixer "mla", DeepSeek-V2 §2.1): the K/V latent's
+    # width, each head's no-RoPE and RoPE query/key dims and its value dim
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # the MoE layers route as DeepSeek-V3 (§2.1.2) and send every
+    # assignment to its expert (no capacity): sigmoid scores with a
+    # selection bias moved by ``bias_update_rate`` after each step, the
+    # chosen weights normalised and scaled by ``routed_scale``, and
+    # ``n_shared_experts`` experts of width ``moe_dff`` every token takes
+    routed_scale: float = 1.0
+    n_shared_experts: int = 0
+    bias_update_rate: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -88,6 +116,7 @@ SHAPES = {
 
 
 _REGISTRY = {}
+_PORT_REGISTRY = {}
 
 
 def register(fn):
@@ -97,18 +126,33 @@ def register(fn):
     return fn
 
 
+def register_port(fn):
+    """`register` for an architecture the port adds to the reference's."""
+    cfg = fn()
+    _PORT_REGISTRY[cfg.name] = fn
+    return fn
+
+
 def get_config(name: str) -> ModelConfig:
-    if name not in _REGISTRY:
+    if name not in _REGISTRY and name not in _PORT_REGISTRY:
         # late import of all config modules
         from repro_torch import configs as _c  # noqa
         _c.load_all()
-    return _REGISTRY[name]()
+    return (_REGISTRY.get(name) or _PORT_REGISTRY[name])()
 
 
 def list_configs():
+    """The reference's architectures."""
     from repro_torch import configs as _c
     _c.load_all()
     return sorted(_REGISTRY)
+
+
+def list_port_configs():
+    """The architectures the port adds to the reference's."""
+    from repro_torch import configs as _c
+    _c.load_all()
+    return sorted(_PORT_REGISTRY)
 
 
 def smoke_config(name: str) -> ModelConfig:
@@ -120,7 +164,13 @@ def smoke_config(name: str) -> ModelConfig:
     n_kv = max(1, min(cfg.n_kv_heads, n_heads, 2))
     if n_heads % n_kv:
         n_kv = 1
+    mla = {}
+    if getattr(cfg, "kv_lora_rank", 0):
+        # a small latent, the value dim kept apart from the query/key dim
+        mla = dict(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                   v_head_dim=16)
     return cfg.scaled(
+        **mla,
         d_model=64,
         n_heads=n_heads,
         n_kv_heads=n_kv,

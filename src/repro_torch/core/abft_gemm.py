@@ -24,7 +24,14 @@ of Y.  ``backend="ref"`` (and "auto" on CPU) keeps the plain PyTorch path.
 With ``backend="cuda"`` on a CPU tensor the kernel's plain version runs,
 which is how the CPU tests drive this dispatch.
 
-Counterpart of the reference package's ``repro/core/abft_gemm.py``.
+The grouped products of a mixture-of-experts layer (`abft_matmul_grouped`:
+each expert's rows times its weights, kernel #1g on a CUDA tensor) are
+checked row by row: every row carries its own residual, so `correct_rows`
+locates and repairs one corrupted element in each row, on the device,
+with no host read.
+
+Counterpart of the reference package's ``repro/core/abft_gemm.py`` (the
+grouped products are the port's own).
 """
 from __future__ import annotations
 
@@ -37,7 +44,8 @@ import torch
 from repro_torch.core.checksum import checkpoint_matrix
 
 __all__ = ["ABFTConfig", "encode_weight", "abft_matmul", "verify_output",
-           "correct_output"]
+           "correct_output", "encode_weight_grouped", "abft_matmul_grouped",
+           "correct_rows"]
 
 
 # Kernel compute dtypes the layer path accepts.  Checksum ACCUMULATION is
@@ -241,7 +249,9 @@ def correct_output(y, y_cs, residual, cfg: ABFTConfig):
     Row: argmax over the leading (flattened) axes of |residual[..., 0]|.
     Column: the ratio residual[r,1]/residual[r,0] equals w_r[col,1]/w_r[col,0]
     for the corrupted column (needs f >= 2); we pick the column whose weight
-    ratio matches, then subtract residual[r,0] / w_r[col,0].
+    ratio matches, then subtract residual[r,0] / w_r[col,0].  The located
+    row and column stay on the device (gathers and a one-element
+    ``scatter_add_``), so the correction reads nothing back to the host.
     """
     if cfg.f < 2:
         raise ValueError("correct mode needs f >= 2 checksum columns")
@@ -250,19 +260,23 @@ def correct_output(y, y_cs, residual, cfg: ABFTConfig):
     y32 = y.float()
     flat_y = y32.reshape(-1, n)
     flat_res = residual.reshape(-1, cfg.f)
-    r = torch.argmax(torch.abs(flat_res[:, 0]))
-    ratio = flat_res[r, 1] / (flat_res[r, 0] + 1e-30)
-    col = torch.argmin(torch.abs(wr[:, 1] / wr[:, 0] - ratio))
-    delta = flat_res[r, 0] / wr[col, 0]
+    r = torch.argmax(torch.abs(flat_res[:, 0])).reshape(1)
+    res_r = flat_res.index_select(0, r)[0]
+    ratio = res_r[1] / (res_r[0] + 1e-30)
+    col = torch.argmin(torch.abs(wr[:, 1] / wr[:, 0] - ratio)).reshape(1)
+    w_col = wr.index_select(0, col)[0]
+    delta = res_r[0] / w_col[0]
+    at = r * n + col                                  # flat index of (r, col)
     fixed = flat_y.clone()
-    fixed[r, col] -= delta
+    fixed.view(-1).scatter_add_(0, at, -delta.reshape(1))
     # one iterative-refinement pass: the first residual was computed with
     # the (huge) corrupted value in the sum, so it carries |delta|*eps of
     # cancellation error; re-deriving it from the repaired row leaves only
     # O(n eps |y|) error on the corrected element
     flat_cs = y_cs.reshape(-1, cfg.f).float()
-    res_r = torch.matmul(fixed[r], wr) - flat_cs[r]
-    fixed[r, col] -= res_r[0] / wr[col, 0]
+    res_r = torch.matmul(fixed.index_select(0, r)[0], wr) \
+        - flat_cs.index_select(0, r)[0]
+    fixed.view(-1).scatter_add_(0, at, -(res_r[0] / w_col[0]).reshape(1))
     eps = _detection_eps(cfg)
     # mean-|.| scale (as in _residual_ok): bf16 checksum-quantization noise
     # must not trip a phantom "repair" of a healthy element
@@ -271,3 +285,92 @@ def correct_output(y, y_cs, residual, cfg: ABFTConfig):
     use_fixed = torch.max(torch.abs(flat_res)) > tol
     out = torch.where(use_fixed, fixed, flat_y)
     return out.reshape(y.shape)
+
+
+# ---------------------------------------------------------------------------
+# Grouped products (the experts of a mixture-of-experts layer)
+# ---------------------------------------------------------------------------
+
+
+def encode_weight_grouped(w: torch.Tensor, cfg: ABFTConfig) -> torch.Tensor:
+    """The f checksum columns of stacked [E, k, n] weights, as a tensor of
+    their own: [E, k, f] = W @ w_r (no [E, k, n + f] copy of W)."""
+    wr = _weights(w.shape[-1], cfg.f, cfg.seed, w.device)
+    return torch.matmul(w.float(), wr).to(w.dtype)
+
+
+def abft_matmul_grouped(x: torch.Tensor, w: torch.Tensor, groups,
+                        cfg: ABFTConfig):
+    """Each expert's rows times its weights, protected per ``cfg.mode``.
+
+    x: [rows, k] sorted by expert (``groups``, a `kernels.ops.ExpertGroups`);
+    w: [E, k, n], encoded here (`encode_weight_grouped`: its checksum
+    columns as a tensor of their own).  Returns (y [rows, n], ok) with ok None
+    unless mode is verify or correct; correct repairs one corrupted element
+    in every row whose residual trips (`correct_rows`).  The product is
+    kernel #1g on a CUDA tensor, its plain version on a CPU tensor; the
+    operands are fp32.  ``groups`` queues the count of tripped rows to be
+    read with its offsets (``groups.trips``, summed over its products)."""
+    from repro_torch.kernels import ops as kops  # lazy, as _fused_forward
+
+    if not cfg.active:
+        raise ValueError("abft_matmul_grouped checks its products: mode "
+                         "off has no grouped path")
+    if cfg.in_dtype not in ("fp32", "float32"):
+        raise ValueError(f"grouped products take fp32 operands, not "
+                         f"{cfg.in_dtype}")
+    wn = _residual_weights(w.shape[-1], cfg.f, cfg.seed, str(x.device))
+    y, y_cs, residual = kops.abft_matmul_grouped(
+        x.float(), w.float(), encode_weight_grouped(w.float(), cfg), groups,
+        wn)
+    if cfg.mode == "checksum":
+        return y.to(x.dtype), None
+    bad = _rows_tripped(y, residual, cfg)
+    ok = ~torch.any(bad)
+    trips = torch.sum(bad)
+    groups.trips = trips if groups.trips is None else groups.trips + trips
+    if cfg.mode == "verify":
+        return y.to(x.dtype), ok
+    return correct_rows(y, y_cs, residual, cfg, bad=bad).to(x.dtype), ok
+
+
+def _rows_tripped(y, residual, cfg: ABFTConfig):
+    """[rows] bool: the row's residual exceeds the §4.3 tolerance (the
+    mean-|.| scale of `_residual_ok`, over the whole output)."""
+    n = y.shape[-1]
+    scale = torch.mean(torch.abs(y.float())) + 1e-30
+    tol = cfg.tol_factor * n * _detection_eps(cfg) * scale
+    return torch.amax(torch.abs(residual), dim=-1) > tol
+
+
+def correct_rows(y, y_cs, residual, cfg: ABFTConfig, bad=None):
+    """Repair one corrupted element in each row of ``y`` [rows, n] whose
+    residual trips (``bad``, [rows] bool; `_rows_tripped` by default).
+
+    As `correct_output`, row by row: the column is the one whose weight
+    ratio ``w_r[c, 1] / w_r[c, 0]`` lies nearest the row's residual ratio
+    (found by a binary search over the sorted ratios), the element loses
+    ``residual[0] / w_r[c, 0]``, and one refinement pass re-derives the
+    residual from the repaired row.  Rows that do not trip are left as
+    they are, bit for bit; nothing is read back to the host."""
+    if cfg.f < 2:
+        raise ValueError("correct mode needs f >= 2 checksum columns")
+    n = y.shape[-1]
+    if bad is None:
+        bad = _rows_tripped(y, residual, cfg)
+    wr = _weights(n, cfg.f, cfg.seed, y.device)                 # [n, f]
+    ratios, order = torch.sort(wr[:, 1] / wr[:, 0])
+    res = residual.float()
+    want = res[:, 1] / (res[:, 0] + 1e-30)
+    hi = torch.searchsorted(ratios, want).clamp(1, n - 1)
+    lo = hi - 1
+    nearer_lo = (want - ratios[lo]).abs() <= (ratios[hi] - want).abs()
+    col = order[torch.where(nearer_lo, lo, hi)]                 # [rows]
+    w0 = wr[:, 0][col]
+    y32 = y.float()
+    delta = torch.where(bad, -res[:, 0] / w0, -0.0)   # x + -0.0 is x
+    fixed = y32.scatter_add(1, col[:, None], delta[:, None])
+    # the refinement pass, as in correct_output
+    res2 = torch.matmul(fixed, wr) - y_cs.float()
+    step = torch.where(bad, -res2[:, 0] / w0, -0.0)
+    return fixed.scatter_add(1, col[:, None], step[:, None])

@@ -14,6 +14,12 @@ shapes that divide the tile this is the layout of the reference kernel
 masked in the kernel rather than zero-padded in memory, which gives the
 same numbers (zero rows and columns checksum to zero).
 
+``abft_matmul_grouped_cuda`` (kernel #1g, ``csrc/abft_matmul_grouped.cu``)
+runs kernel #1's tensor-core tiles over a ragged batch of products, one a
+mixture-of-experts layer's expert: rows sorted by expert, the expert
+offsets on the device, the stacked weights and their checksum columns as
+two tensors, and each row's residual partials reduced in the epilogue.
+
 ``abft_matmul_acc_cuda`` is the accumulate step ``C_out = C_in + A @ B``
 with the carried per-tile state ``(ccol, crow)`` in the same layout, a fused
 verify/correct prologue that repairs a single corrupted element of each C_in
@@ -36,7 +42,7 @@ there, it runs its plain version (``abft_matmul_plain``,
 calls that launched a kernel (a split-k call is two kernels and counts
 once), ``plain_calls`` / ``acc_plain_calls`` plain-version calls;
 ``last_route`` / ``last_acc_route`` say how the last call of each kernel
-ran.
+ran.  ``grouped_launches`` / ``grouped_plain_calls`` count kernel #1g's.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["abft_matmul_cuda", "abft_matmul_plain", "abft_matmul_acc_cuda",
-           "abft_matmul_acc_plain", "reset_counts", "route_of", "split_count",
+           "abft_matmul_acc_plain", "abft_matmul_grouped_cuda",
+           "abft_matmul_grouped_plain", "reset_counts", "route_of", "split_count",
            "split_rows", "sm_count",
            "TILES_M", "TILES_N", "MMA_TILES", "MMA_SLAB", "SPLITK_TILES_M",
            "KT", "F_MAX",
@@ -84,6 +91,8 @@ launches = 0                     # kernel launches by abft_matmul_cuda
 plain_calls = 0                  # calls of abft_matmul_plain
 acc_launches = 0                 # kernel launches by abft_matmul_acc_cuda
 acc_plain_calls = 0              # calls of abft_matmul_acc_plain
+grouped_launches = 0             # kernel launches by abft_matmul_grouped_cuda
+grouped_plain_calls = 0          # calls of abft_matmul_grouped_plain
 last_route: dict = {}            # route, copy widths and splits of the last
                                  # kernel #1 launch
 last_acc_route: dict = {}        # route, tile and copy widths of the last
@@ -95,7 +104,9 @@ launch_hooks: list = []          # fn(op, tensors read, tensors written)
 
 def reset_counts() -> None:
     global launches, plain_calls, acc_launches, acc_plain_calls
+    global grouped_launches, grouped_plain_calls
     launches = plain_calls = acc_launches = acc_plain_calls = 0
+    grouped_launches = grouped_plain_calls = 0
 
 
 def _cdiv(x: int, y: int) -> int:
@@ -433,3 +444,138 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
     last_acc_route = dict(route=route, tile=(bm, bn), copy_a=info[1],
                           copy_b=info[2])
     return (*out, stats)
+
+
+# ---------------------------------------------------------------------------
+# Grouped one-shot products (kernel #1g)
+# ---------------------------------------------------------------------------
+
+GROUPED_TILES = ((128, 128), (128, 64))   # kernel #1g's tiles (bm, bn)
+
+
+def grouped_tile(n: int):
+    """Kernel #1g's tile for n output columns: 128 x 128, or 128 x 64
+    where 64 divides n and 128 does not (fewer masked columns)."""
+    return (128, 64) if n % 128 and n % 64 == 0 else (128, 128)
+
+
+def _check_grouped(x, w, w_cs, offsets, wn, bm, bn):
+    if x.dim() != 2 or w.dim() != 3 or w_cs.dim() != 3:
+        raise ValueError(f"x [rows, k], w [E, k, n], w_cs [E, k, f]: got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(w_cs.shape)}")
+    rows, k = x.shape
+    e, k2, n = w.shape
+    f = w_cs.shape[-1]
+    if k2 != k or tuple(w_cs.shape[:2]) != (e, k):
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)} and w_cs "
+                         f"{tuple(w_cs.shape)} do not agree")
+    if tuple(offsets.shape) != (e + 1,) or offsets.dtype != torch.int64:
+        raise ValueError(f"offsets must be int64 [{e + 1}], got "
+                         f"{offsets.dtype} {tuple(offsets.shape)}")
+    if tuple(wn.shape) != (n + f, f) or wn.dtype != torch.float32:
+        raise ValueError(f"wn must be float32 ({n + f}, {f}), got "
+                         f"{wn.dtype} {tuple(wn.shape)}")
+    if not 1 <= f <= F_MAX:
+        raise ValueError(f"f={f} checksum columns: the kernel takes "
+                         f"1..{F_MAX}")
+    if (bm, bn) not in GROUPED_TILES:
+        raise ValueError(f"tile ({bm}, {bn}) not built for kernel #1g: "
+                         f"{GROUPED_TILES}")
+    return rows, k, n, e, f
+
+
+def abft_matmul_grouped_plain(x, w, w_cs, offsets, wn, *, bm: int = 128,
+                              bn: int = 128):
+    """Plain PyTorch version of kernel #1g: same arguments, same outputs.
+    Expert by expert over the host's copy of ``offsets``; the row partials
+    of each tile column are reduced from the rounded outputs."""
+    global grouped_plain_calls
+    rows, k, n, e, f = _check_grouped(x, w, w_cs, offsets, wn, bm, bn)
+    grouped_plain_calls += 1
+    y = torch.zeros((rows, n), dtype=torch.float32, device=x.device)
+    ycs = torch.zeros((rows, f), dtype=torch.float32, device=x.device)
+    bounds = offsets.tolist()
+    for i in range(e):
+        a, b = bounds[i], bounds[i + 1]
+        if b > a:
+            y[a:b] = torch.matmul(x[a:b].float(), w[i].float())
+            ycs[a:b] = torch.matmul(x[a:b].float(), w_cs[i].float())
+    nt = _cdiv(n, bn)
+    crow = torch.empty((nt + 1, rows, f), dtype=torch.float32,
+                       device=x.device)
+    for j in range(nt):
+        crow[j] = torch.matmul(y[:, j * bn:(j + 1) * bn],
+                               wn[j * bn:min((j + 1) * bn, n)])
+    crow[nt] = torch.matmul(ycs, wn[n:])
+    return y, ycs, crow
+
+
+_GROUPED_FN = None
+
+
+def _grouped_launcher():
+    global _GROUPED_FN
+    if _GROUPED_FN is None:
+        from repro_torch.kernels import build
+        fn = build.load("abft_matmul_grouped").abft_matmul_grouped_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        _GROUPED_FN = fn
+    return _GROUPED_FN
+
+
+def abft_matmul_grouped_cuda(x, w, w_cs, offsets, wn, *, bm: int = 128,
+                             bn: int = 128):
+    """Kernel #1g: for each expert e, ``Y[o_e:o_e+1] = X[o_e:o_e+1] @
+    W[e]`` and ``Ycs[...] = X[...] @ W_cs[e]``, with the row partials of
+    ``[Y, Ycs] @ wn``.
+
+    x: [rows, k], rows sorted by expert; w: [E, k, n]; w_cs: [E, k, f];
+    offsets: [E + 1] int64 on x's device, expert e owning rows
+    ``offsets[e]`` to ``offsets[e + 1]``; wn: [n + f, f] fp32.  Returns
+    (y [rows, n], ycs [rows, f], crow [ceil(n / bn) + 1, rows, f]), fp32;
+    crow summed over axis 0 is ``[Y, Ycs] @ wn``.  A CUDA tensor launches
+    the kernel (fp32 operands, 3xTF32) without reading the offsets on the
+    host: the grid is sized by the bound ``ceil(rows / bm) + E`` on the
+    (expert, m-tile) slots.  A CPU tensor runs
+    ``abft_matmul_grouped_plain``."""
+    global grouped_launches
+    if x.device.type == "cpu":
+        return abft_matmul_grouped_plain(x, w, w_cs, offsets, wn, bm=bm,
+                                         bn=bn)
+    rows, k, n, e, f = _check_grouped(x, w, w_cs, offsets, wn, bm, bn)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"abft_matmul_grouped_cuda runs on CUDA (or the "
+                           f"plain version on CPU), got {x.device}")
+    for name, t in (("x", x), ("w", w), ("w_cs", w_cs), ("offsets", offsets),
+                    ("wn", wn)):
+        if t.device != x.device:
+            raise RuntimeError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("x", x), ("w", w), ("w_cs", w_cs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel #1g takes float32 operands; {name} is "
+                            f"{t.dtype}")
+    dev = x.device
+    nt = _cdiv(n, bn)
+    y = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    ycs = torch.empty((rows, f), dtype=torch.float32, device=dev)
+    crow = torch.empty((nt + 1, rows, f), dtype=torch.float32, device=dev)
+    info = (ctypes.c_int * 3)()
+    rc = _grouped_launcher()(
+        x.data_ptr(), w.data_ptr(), w_cs.data_ptr(), offsets.data_ptr(),
+        wn.data_ptr(), y.data_ptr(), ycs.data_ptr(), crow.data_ptr(), rows,
+        k, n, f, e, _cdiv(rows, bm) + e, bm, bn, info,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"abft_matmul_grouped kernel launch failed: code "
+                           f"{rc} (rows={rows}, k={k}, n={n}, f={f}, E={e}, "
+                           f"tile=({bm}, {bn}))")
+    grouped_launches += 1
+    for hook in launch_hooks:
+        hook("abft_matmul_grouped", (x, w, w_cs, offsets, wn),
+             (y, ycs, crow))
+    return y, ycs, crow

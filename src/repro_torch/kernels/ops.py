@@ -20,9 +20,11 @@ sliced off, so the two agree wherever the tiling divides the shape.
 
 ``abft_matmul`` is differentiable: ``_FusedMM`` is the reference's custom
 VJP as a ``torch.autograd.Function`` (the kernel forward, the checksum
-cotangents folded into dC in the backward).  ``checksum_encode`` is the
-diskless-checkpoint encode: kernel #3 on a CUDA tensor, its plain version
-on a CPU one, at any [p, m, n].
+cotangents folded into dC in the backward).  ``abft_matmul_grouped`` runs
+kernel #1g, the experts' products of a mixture-of-experts layer over rows
+sorted by expert (`ExpertGroups`), differentiable through ``_GroupedMM``.
+``checksum_encode`` is the diskless-checkpoint encode: kernel #3 on a CUDA
+tensor, its plain version on a CPU one, at any [p, m, n].
 
 ``plan_accounting`` is a plan's structural byte and FLOP terms (the
 reference's formulas, integer for integer) beside this time model's
@@ -47,7 +49,8 @@ from repro_torch.kernels import checksum_encode as kenc
 from repro_torch.kernels import ref
 
 __all__ = [
-    "BlockPlan", "abft_matmul", "abft_matmul_acc", "acc_state_zeros",
+    "BlockPlan", "ExpertGroups", "abft_matmul", "abft_matmul_acc",
+    "abft_matmul_grouped", "acc_state_zeros",
     "checksum_encode", "correct_from_state", "detection_eps",
     "kernel_weights", "oneshot_smem_bytes", "pick_blocks",
     "plan_accounting", "rank_blocks", "reduce_state", "smem_bytes",
@@ -71,6 +74,23 @@ register_surface(
          "one residual family, so it is detected but deliberately NOT "
          "repaired (repairing would corrupt healthy data) — refresh via "
          "tile_checksums instead")
+
+
+# the grouped products of a mixture-of-experts layer (kernel #1g): each
+# row's residual reduced in the epilogue, checked row by row
+register_surface(
+    "kernels.ops/abft_matmul_grouped", owner=__name__, protected=True,
+    promise="tolerance",
+    detector="kernel #1g's epilogue reduces each row's §4.3 residual "
+             "[Y, Ycs] @ [w_r; -I] from the stored tile; "
+             "core.abft_gemm.correct_rows trips a row over tol * n * eps * "
+             "mean|Y| and repairs its one corrupted element (column by the "
+             "weighted residual's ratio, one refinement pass)",
+    note="one corrupted element a row is located and repaired, so a flip "
+         "in every row of the experts' output is; drilled by "
+         "tests/test_torch_moonlight.py (no campaign fault kind targets "
+         "the experts yet); trips are counted in repro_detections_total "
+         "at the layer's one host read, in the backward")
 
 
 def kernel_weights(m: int, f: int = KERNEL_F, dtype=torch.float32,
@@ -500,6 +520,109 @@ def abft_matmul(a: torch.Tensor, b: torch.Tensor, *, f: int = KERNEL_F,
                       str(a.dtype).replace("torch.", ""),
                       "cuda" if a.is_cuda else "plain")
     return _FusedMM.apply(plan, out_dtype, a, b, wm, wn)
+
+
+# ---------------------------------------------------------------------------
+# Grouped one-shot products (the experts of a mixture-of-experts layer)
+# ---------------------------------------------------------------------------
+
+
+class ExpertGroups:
+    """Rows sorted by expert: ``offsets`` [E + 1] int64 on the rows'
+    device, expert e owning rows ``offsets[e]`` to ``offsets[e + 1]``.
+
+    The forward of a grouped product never reads the offsets on the host;
+    the backward's per-expert products need them there, and `host` reads
+    them once for every product sharing this object (a layer's gate, up
+    and down), together with any device counts `read_with` queued, whose
+    callbacks then get their host values.  ``trips`` is the device count
+    of rows whose residual tripped in the checks of these products
+    (`core.abft_gemm.abft_matmul_grouped` adds to it), or None."""
+
+    def __init__(self, offsets: torch.Tensor):
+        self.offsets = offsets
+        self.trips = None
+        self._host = None
+        self._extra = []          # [(0-d device tensor, fn(value))]
+
+    def read_with(self, value: torch.Tensor, fn) -> None:
+        """Read ``value`` (a 0-d count on the device) with the offsets, and
+        call ``fn`` with it then."""
+        self._extra.append((value, fn))
+
+    def host(self) -> list:
+        """The offsets as Python ints: one host read, on first call."""
+        if self._host is None:
+            vals = torch.cat([self.offsets] + [
+                v.reshape(1).to(self.offsets.dtype) for v, _ in self._extra])
+            vals = vals.tolist()
+            e1 = self.offsets.shape[0]
+            self._host = vals[:e1]
+            for (_, fn), v in zip(self._extra, vals[e1:]):
+                fn(v)
+            self._extra = []
+        return self._host
+
+
+class _GroupedMM(torch.autograd.Function):
+    """Kernel #1g with its VJP.  The forward returns ``(Y, Ycs, res)``,
+    ``res = Y @ w_r - Ycs`` each row's residual; ``w_cs`` is taken as the
+    function ``W @ w_r`` it encodes, so the cotangents of Ycs and res fold
+    into Y's: ``res`` is identically zero as a function of X and W, and
+    ``Ycs = (X W) w_r``, so ``dY_total = dY + dYcs w_r^T``.  The operand
+    gradients are then plain fp32 products expert by expert, as
+    ``_FusedMM`` takes them, over the offsets read once on the host
+    (`ExpertGroups.host`)."""
+
+    @staticmethod
+    def forward(ctx, groups, bm, bn, x, w, w_cs, wn):
+        y, ycs, crow = kmm.abft_matmul_grouped_cuda(
+            x, w, w_cs, groups.offsets, wn, bm=bm, bn=bn)
+        ctx.groups = groups
+        ctx.save_for_backward(x, w, wn)
+        return y, ycs, crow.sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, gy, gcs, _gres):
+        x, w, wn = ctx.saved_tensors
+        n = w.shape[-1]
+        g = gy.float() + torch.matmul(gcs.float(), wn[:n].T)
+        bounds = ctx.groups.host()
+        need = ctx.needs_input_grad
+        gx = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
+            if need[3] else None
+        gw = torch.zeros(w.shape, dtype=torch.float32, device=w.device) \
+            if need[4] else None
+        for e in range(w.shape[0]):
+            a, b = bounds[e], bounds[e + 1]
+            if b == a:
+                continue
+            if gx is not None:
+                torch.matmul(g[a:b], w[e].float().T, out=gx[a:b])
+            if gw is not None:
+                torch.matmul(x[a:b].float().T, g[a:b], out=gw[e])
+        return (None, None, None,
+                None if gx is None else gx.to(x.dtype),
+                None if gw is None else gw.to(w.dtype), None, None)
+
+
+def abft_matmul_grouped(x: torch.Tensor, w: torch.Tensor,
+                        w_cs: torch.Tensor, groups: ExpertGroups,
+                        wn: torch.Tensor):
+    """Each expert's rows times its weights, with the checksum columns and
+    each row's §4.3 residual: -> (y [rows, n], ycs [rows, f], res [rows,
+    f]), fp32.
+
+    x: [rows, k] sorted by expert (``groups``); w: [E, k, n]; w_cs [E, k,
+    f] = ``W @ w_r`` (its gradient is folded into w's); wn: [n + f, f] =
+    ``[w_r; -I]``.  Kernel #1g on a CUDA tensor (no host read), its plain
+    version on a CPU tensor; differentiable in x and w."""
+    n = w.shape[-1]
+    bm, bn = kmm.grouped_tile(n)
+    _publish_dispatch("abft_matmul_grouped", x.shape[0], x.shape[1], n,
+                      str(x.dtype).replace("torch.", ""),
+                      "cuda" if x.is_cuda else "plain")
+    return _GroupedMM.apply(groups, bm, bn, x, w, w_cs.detach(), wn)
 
 
 # ---------------------------------------------------------------------------

@@ -152,7 +152,7 @@ class Accountant(TorchDispatchMode):
 
     def _on_launch(self, op, read, written) -> None:
         a, b = read[0], read[1]
-        self.flops += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+        self.flops += 2 * a.shape[0] * a.shape[1] * b.shape[-1]
         self.bytes += sum(_nbytes(t) for t in (*read, *written))
 
     def _on_repeat(self, trips) -> None:

@@ -9,8 +9,10 @@ checkpoints with resume, and failure injection with diskless recovery (the
 paper's stress test as a flag).  It runs on the GPU unless ``--device cpu``
 is given; with no GPU it raises rather than falling back.  ``--smoke`` (the
 default) trains the reduced config; ``--full`` trains the model at its
-published width.  ``--arch`` takes every config of the registry: the MoE
-configs add their load-balance loss, and Whisper and the vision config
+published width.  ``--arch`` takes every config of the registry, the
+port's own (``moonlight-16b-a3b``) included: the MoE configs add their
+load-balance loss, weighed by ``--aux-weight`` (Moonlight's sequence-wise
+balance loss takes an assumed 1e-4), and Whisper and the vision config
 get seeded frame or image embeddings with every batch (their stubbed
 front ends' output, drawn from ``--seed`` and the step, so a replay after a
 recovery sees the same inputs).
@@ -51,7 +53,8 @@ import torch
 
 from repro_torch.ckpt.disk import CheckpointManager
 from repro_torch.configs.base import (ModelConfig, ShapeConfig, get_config,
-                                      list_configs, smoke_config)
+                                      list_configs, list_port_configs,
+                                      smoke_config)
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.ft.failures import FailureInjector, FailurePlan
 from repro_torch.ft.runtime import (ElasticRuntime, FTPolicy, FTRuntime,
@@ -107,12 +110,13 @@ def run(arch: str, *, smoke: bool = True, steps: int = 100, batch: int = 16,
         resume: bool = False, log_every: int = 10, lr: float = 3e-4,
         seed: int = 0, diskless_every: int = 10,
         total_steps: Optional[int] = None,
+        aux_weight: float = StepOptions.aux_weight,
         device: str = "cuda") -> TrainResult:
     dev = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     shape = ShapeConfig("cli", seq, batch, "train")
     opts = StepOptions(microbatches=microbatches, abft_mode=abft_mode,
-                       remat=not smoke)
+                       remat=not smoke, aux_weight=aux_weight)
     total = total_steps or steps   # schedule horizon (resume consistency)
     adamw = AdamWConfig(lr=lr, total_steps=total,
                         warmup_steps=max(total // 20, 1))
@@ -408,7 +412,8 @@ def run_elastic_drill(arch: str = "qwen2-0.5b", *, steps: int = 10,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b", choices=list_configs())
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    choices=list_configs() + list_port_configs())
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="train the model at its published width")
@@ -422,6 +427,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--aux-weight", type=float,
+                    default=StepOptions.aux_weight,
+                    help="the MoE load-balance loss's weight")
     ap.add_argument("--device", default="cuda")
     # the pod-loss drill (ElasticRuntime end to end)
     ap.add_argument("--kill-pod-at-step", type=int, default=None,
@@ -448,7 +456,8 @@ def main(argv=None):
     run(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
         seq=args.seq, microbatches=args.microbatches, abft_mode=args.abft,
         inject_failures=args.inject_failures, ckpt_dir=args.ckpt_dir,
-        resume=args.resume, lr=args.lr, device=args.device)
+        resume=args.resume, lr=args.lr, aux_weight=args.aux_weight,
+        device=args.device)
 
 
 if __name__ == "__main__":

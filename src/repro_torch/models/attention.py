@@ -8,11 +8,22 @@ package's ``repro/models/attention.py`` math, which is jnp there as well):
              (`_Flash`): the scores are recomputed one KV chunk at a time
              from the saved log-sum-exp, so no S x S array is stored
 
-Both support GQA (n_kv <= n_heads), causal + window masks and logit
-softcapping.  Cross attention (``cross_kv``: keys and values projected from
-encoder states or image embeddings) takes the dense path, unmasked.  Cache writes go IN PLACE into the cache tensors the caller
+Both support GQA (n_kv <= n_heads), causal + window masks, logit
+softcapping, and a value head dim other than the query/key one (latent
+attention's 128 against 192).  Cross attention (``cross_kv``: keys and
+values projected from encoder states or image embeddings) takes the dense
+path, unmasked.  Cache writes go IN PLACE into the cache tensors the caller
 passes (the engine owns its cache, so this saves a copy of it per layer and
 step); the returned cache holds the same tensors and a new index.
+
+`mla_apply` is DeepSeek-V2's multi-head latent attention without a query
+LoRA (arXiv:2405.04434 §2.1), for training and prefill without a cache:
+queries from ``wq``; keys and values from a shared latent (``wkv_a`` to
+``kv_lora_rank`` + the RoPE key dims, the latent RMS-normed, ``wkv_b`` up
+to each head's no-RoPE key and value); RoPE on the query's and the one
+shared key's RoPE dims; softmax scale ``(d_nope + d_rope)^-0.5``.  Every
+projection goes through `linear_apply`, so each is a checked product
+under ABFT.
 """
 from __future__ import annotations
 
@@ -20,7 +31,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import (linear_apply, linear_init, rope,
+from repro_torch import obs
+from repro_torch.models.layers import (linear_apply, linear_init,
+                                       rmsnorm_apply, rmsnorm_init, rope,
                                        softcap_fn)
 
 NEG_INF = -1e30
@@ -88,10 +101,11 @@ def _flash_fwd_impl(q, k, v, q_pos, k_pos, *, scale, softcap, causal,
                     window, kc):
     """FlashAttention-2 forward: chunked online softmax over K/V.
 
-    q: [B,Sq,KV,g,D]; k,v: [B,Sk,KV,D].  Returns o: [B,Sq,KV,g,D] in
-    q.dtype and the per-row log-sum-exp [B,KV,g,Sq].
+    q: [B,Sq,KV,g,D]; k: [B,Sk,KV,D]; v: [B,Sk,KV,Dv].  Returns o:
+    [B,Sq,KV,g,Dv] in q.dtype and the per-row log-sum-exp [B,KV,g,Sq].
     """
-    b, sq, g_kv, g, d = q.shape
+    b, sq, g_kv, g, _ = q.shape
+    d = v.shape[-1]
     sk = k.shape[1]
     kc = min(kc, sk)
     q32 = q.float()
@@ -181,8 +195,8 @@ class _Flash(torch.autograd.Function):
 def _sdpa_flash(q, k, v, *, scale, softcap, q_pos, k_pos, causal, window,
                 kc: int = 512):
     """Chunked online-softmax attention with the FA-2 backward (`_Flash`).
-    q: [B,Sq,KV,g,D]; k,v: [B,Sk,KV,D]; q_pos [Sq]; returns o
-    [B,Sq,KV,g,D] in q.dtype."""
+    q: [B,Sq,KV,g,D]; k: [B,Sk,KV,D]; v: [B,Sk,KV,Dv]; q_pos [Sq]; returns
+    o [B,Sq,KV,g,Dv] in q.dtype."""
     return _Flash.apply(q, k, v, q_pos, k_pos, scale, softcap, causal,
                         window, kc)
 
@@ -271,3 +285,67 @@ def make_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
                          device=device),
         "index": torch.zeros((), dtype=torch.int64, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2 §2.1, no query LoRA)
+# ---------------------------------------------------------------------------
+
+
+class MLASpec(NamedTuple):
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int
+    qk_nope: int                     # each head's key/query dims without RoPE
+    qk_rope: int                     # ... with RoPE (one key shared by heads)
+    v_dim: int
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    kc: int = 512                    # flash KV chunk length
+
+
+def mla_init(gen: torch.Generator, s: MLASpec, dtype=torch.float32):
+    h, dqk = s.n_heads, s.qk_nope + s.qk_rope
+    return {
+        "wq": linear_init(gen, s.d_model, h * dqk, dtype=dtype),
+        "wkv_a": linear_init(gen, s.d_model, s.kv_lora_rank + s.qk_rope,
+                             dtype=dtype),
+        "kv_norm": rmsnorm_init(s.kv_lora_rank, dtype, gen.device),
+        "wkv_b": linear_init(gen, s.kv_lora_rank,
+                             h * (s.qk_nope + s.v_dim), dtype=dtype),
+        "wo": linear_init(gen, h * s.v_dim, s.d_model, dtype=dtype),
+    }
+
+
+def mla_apply(p, x, s: MLASpec, *, positions: torch.Tensor, abft=None,
+              layer: Optional[int] = None, flash_threshold: int = 1024):
+    """Causal latent attention over x [B, S, D] (train and prefill, no
+    cache) -> y [B, S, D].  Dense attention up to ``flash_threshold``
+    keys, the chunked FA-2 path (value dim ``v_dim``) beyond."""
+    b, sq, _ = x.shape
+    h, dqk = s.n_heads, s.qk_nope + s.qk_rope
+    with obs.span("attn/mla", device=True, layer=layer, tokens=b * sq):
+        q = linear_apply(p["wq"], x, abft).reshape(b, sq, h, dqk)
+        kv_a = linear_apply(p["wkv_a"], x, abft)
+        c_kv = rmsnorm_apply(p["kv_norm"], kv_a[..., :s.kv_lora_rank],
+                             s.norm_eps)
+        k_pe = kv_a[..., s.kv_lora_rank:].reshape(b, sq, 1, s.qk_rope)
+        kv = linear_apply(p["wkv_b"], c_kv, abft).reshape(
+            b, sq, h, s.qk_nope + s.v_dim)
+        pos_b = positions[None] if positions.dim() == 1 else positions
+        q_pe = rope(q[..., s.qk_nope:], pos_b, s.rope_theta)
+        k_pe = rope(k_pe, pos_b, s.rope_theta).expand(b, sq, h, s.qk_rope)
+        q = torch.cat([q[..., :s.qk_nope], q_pe], dim=-1)
+        k = torch.cat([kv[..., :s.qk_nope], k_pe], dim=-1)
+        v = kv[..., s.qk_nope:]
+        qh = q.reshape(b, sq, h, 1, dqk)
+        scale = dqk ** -0.5
+        if sq <= flash_threshold:
+            mask = _mask(positions, positions, causal=True, window=None)
+            o = _sdpa_dense(qh, k, v, scale=scale, softcap=None, mask=mask)
+        else:
+            o = _sdpa_flash(qh, k, v.contiguous(), scale=scale,
+                            softcap=None, q_pos=positions, k_pos=positions,
+                            causal=True, window=None, kc=s.kc)
+        o = o.reshape(b, sq, h * s.v_dim).to(x.dtype)
+        return linear_apply(p["wo"], o, abft)

@@ -1,8 +1,10 @@
 """Layered LM over period-group layouts (see configs.base.ModelConfig).
 
 Counterpart of the reference package's ``repro/models/transformer.py``: one
-implementation serves all ten configs —
-  * mixers: GQA attention (global/local/bidir/cross/dec), mamba, m/sLSTM;
+implementation serves all ten configs, and the port's own (Moonlight's
+latent attention and DeepSeek-V3 MoE) —
+  * mixers: GQA attention (global/local/bidir/cross/dec), latent attention
+    (``mla``: training and prefill, no cache), mamba, m/sLSTM;
   * FFN: dense SwiGLU/GeGLU or sort-dispatch MoE (its aux loss summed over
     the layers);
   * the Whisper encoder over precomputed frame embeddings and the vision
@@ -41,7 +43,7 @@ from typing import Any, Dict
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import DeepSeekV3Config, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
@@ -52,6 +54,9 @@ from repro_torch.models.layers import (
 )
 
 _ATTN = ("attn", "attn_local", "attn_bidir")
+_NO_LATENT_CACHE = ("latent attention has no cache in the port (a latent "
+                    "paged cache would serve it): it runs in training and "
+                    "in a prefill without a cache only")
 RECURRENT = ("mamba", "mlstm", "slstm")
 
 
@@ -78,10 +83,21 @@ def _xlstm_spec(cfg: ModelConfig) -> xl.XLSTMSpec:
     return xl.XLSTMSpec(cfg.d_model, cfg.n_heads)
 
 
-def _moe_spec(cfg: ModelConfig) -> moe_mod.MoESpec:
+def _moe_spec(cfg: ModelConfig):
+    if isinstance(cfg, DeepSeekV3Config):
+        return moe_mod.DroplessMoESpec(
+            cfg.d_model, cfg.moe_dff or cfg.d_ff, cfg.n_experts, cfg.top_k,
+            routed_scale=cfg.routed_scale, n_shared=cfg.n_shared_experts)
     return moe_mod.MoESpec(cfg.d_model, cfg.moe_dff or cfg.d_ff,
                            cfg.n_experts, cfg.top_k, cfg.capacity_factor,
                            cfg.moe_groups)
+
+
+def _mla_spec(cfg: ModelConfig) -> attn.MLASpec:
+    return attn.MLASpec(cfg.d_model, cfg.n_heads, cfg.kv_lora_rank,
+                        cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim, cfg.rope_theta, cfg.norm_eps,
+                        cfg.flash_kc)
 
 
 def _dtype(cfg: ModelConfig):
@@ -107,6 +123,8 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, mixer: str,
     p: Dict[str, Any] = {"norm1": rmsnorm_init(cfg.d_model, dt, dev)}
     if mixer in _ATTN or mixer == "cross":
         p["attn"] = attn.attn_init(gen, _attn_spec(cfg, mixer), dt)
+    elif mixer == "mla":
+        p["attn"] = attn.mla_init(gen, _mla_spec(cfg), dt)
     elif mixer == "dec":
         p["attn"] = attn.attn_init(gen, _attn_spec(cfg, "attn"), dt)
         p["cross"] = attn.attn_init(gen, _attn_spec(cfg, "cross"), dt)
@@ -142,6 +160,8 @@ def _block_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
             c["ck"] = torch.zeros(shape, dtype=dt, device=device)
             c["cv"] = torch.zeros(shape, dtype=dt, device=device)
         return c
+    if mixer == "mla":
+        raise NotImplementedError(_NO_LATENT_CACHE)
     if mixer == "mamba":
         return mb.mamba_init_state(_mamba_spec(cfg), batch, dt, device)
     if mixer == "mlstm":
@@ -154,11 +174,14 @@ def _block_cache(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
 
 def _block_apply(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
                  positions, cache=None, cross_src=None, abft=None,
-                 invariants: bool = False):
+                 invariants: bool = False, layer=None, moe_load=None):
     """Returns (x, new_cache, aux_loss, inv_ok).
 
     ``invariants=True`` runs each rmsnorm through its second-moment
-    construction check; ``inv_ok`` is the AND of every check.
+    construction check; ``inv_ok`` is the AND of every check.  ``layer``
+    (the block's index) names the latent attention's and the dropless
+    MoE's spans; ``moe_load`` collects the experts the dropless MoE's
+    tokens chose.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ok = torch.ones((), dtype=torch.bool, device=x.device)
@@ -175,6 +198,11 @@ def _block_apply(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
         y, new_cache = attn.attn_apply(
             p["attn"], h, _attn_spec(cfg, mixer), positions=positions,
             causal=(mixer != "attn_bidir"), cache=cache, abft=abft)
+    elif mixer == "mla":
+        if cache is not None:
+            raise NotImplementedError(_NO_LATENT_CACHE)
+        y = attn.mla_apply(p["attn"], h, _mla_spec(cfg), positions=positions,
+                           abft=abft, layer=layer)
     elif mixer == "cross":
         y, _ = attn.attn_apply(p["attn"], h, _attn_spec(cfg, mixer),
                                positions=positions, causal=False,
@@ -243,7 +271,8 @@ def _block_apply(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
         if ffn == "dense":
             y2 = mlp_apply(p["mlp"], h2, activation=cfg.activation, abft=abft)
         else:
-            y2, aux = moe_mod.moe_apply(p["moe"], h2, _moe_spec(cfg), abft)
+            y2, aux = moe_mod.moe_apply(p["moe"], h2, _moe_spec(cfg), abft,
+                                        layer=layer, load=moe_load)
         x = x + y2
     return x, new_cache, aux, ok
 
@@ -330,7 +359,8 @@ def _checkpoint_kw(remat) -> dict:
 
 
 def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
-                cross_src=None, invariants: bool = False, remat=False):
+                cross_src=None, invariants: bool = False, remat=False,
+                moe_load=None):
     """Loop over every layout group; returns (x, new_cache, aux, inv_ok).
 
     Attention K/V (and a ``dec`` block's cross K/V) are written in place
@@ -343,21 +373,24 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
     new_groups = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ok_total = torch.ones((), dtype=torch.bool, device=x.device)
+    li = -1                              # the block's index in the stack
     for gi, (pattern, _repeats) in enumerate(cfg.layout):
         gcache = cache["groups"][gi] if cache is not None else None
         new_index = {f"b{bi}": [] for bi in range(len(pattern))}
         for r, layer in enumerate(params["groups"][gi]):
             for bi, (mixer, ffn) in enumerate(pattern):
                 key = f"b{bi}"
+                li += 1
                 c_in = None
                 if gcache is not None:
                     c_in = {name: leaf[r] for name, leaf in gcache[key].items()}
                 if remat and c_in is None:
-                    def body(h, lp, src, mixer=mixer, ffn=ffn):
+                    def body(h, lp, src, mixer=mixer, ffn=ffn, li=li):
                         out = _block_apply(lp, h, cfg, mixer, ffn,
                                            positions=positions,
                                            cross_src=src, abft=abft,
-                                           invariants=invariants)
+                                           invariants=invariants,
+                                           layer=li, moe_load=moe_load)
                         return out[0], out[2], out[3]
                     # the blocks draw no random numbers: no RNG state to keep
                     x, aux, ok_b = torch.utils.checkpoint.checkpoint(
@@ -368,7 +401,7 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, cache, abft,
                     x, c_out, aux, ok_b = _block_apply(
                         layer[key], x, cfg, mixer, ffn, positions=positions,
                         cache=c_in, cross_src=cross_src, abft=abft,
-                        invariants=invariants)
+                        invariants=invariants, layer=li, moe_load=moe_load)
                 aux_total = aux_total + aux
                 ok_total = ok_total & ok_b
                 if c_out is None:
@@ -400,7 +433,7 @@ def _encode_frames(params, frames, cfg: ModelConfig):
 
 def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
             frames=None, img_emb=None, abft=None, return_hidden: bool = False,
-            invariants: bool = False, remat=False):
+            invariants: bool = False, remat=False, moe_load=None):
     """Train/prefill forward. tokens: [B,S] -> logits [B,S,V] fp32.
 
     frames: [B, n_frames, d_model] (whisper stub input);
@@ -411,6 +444,8 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
     and return a 4-tuple (..., inv_ok).
     remat: checkpoint each block (training without a cache); True saves
     nothing, "dots" the unbatched matmuls' outputs.
+    moe_load: a dict that gets, for each dropless MoE block's index, the
+    experts each token chose ([B*S, k] on the device).
     The tied unembedding reads ``params["embed"]["table_f32"]`` when
     present (an fp32 copy the serving engine caches once) instead of
     casting the table on every call; the numbers are the same.
@@ -433,7 +468,7 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
                                             positions=positions, cache=cache,
                                             cross_src=cross_src, abft=abft,
                                             invariants=invariants,
-                                            remat=remat)
+                                            remat=remat, moe_load=moe_load)
     if invariants:
         x, ok_fn = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps,
                                  check=True)
@@ -473,12 +508,13 @@ def decode_step(params, token, pos, cache, cfg: ModelConfig, *,
 
 def loss_fn(params, tokens, labels, cfg: ModelConfig, *, frames=None,
             img_emb=None, abft=None, remat=False, aux_weight: float = 0.01,
-            invariants: bool = False):
+            invariants: bool = False, moe_load=None):
     """Scalar LM loss (mean next-token NLL + ``aux_weight`` x aux, the MoE
     load-balance loss summed over the layers); with ``invariants=True``
-    returns ``(loss, inv_ok)``."""
+    returns ``(loss, inv_ok)``.  ``moe_load`` as in `forward`."""
     out = forward(params, tokens, cfg, frames=frames, img_emb=img_emb,
-                  abft=abft, remat=remat, invariants=invariants)
+                  abft=abft, remat=remat, invariants=invariants,
+                  moe_load=moe_load)
     logits, aux = out[0], out[2]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
@@ -493,8 +529,17 @@ def param_count(params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
 
 
+def is_buffer(path) -> bool:
+    """Is the param at ``path`` a buffer the train step sets itself rather
+    than a weight it trains: the dropless MoE's selection bias
+    (``[..., "moe", "bias"]``)."""
+    keys = [k for k in path if isinstance(k, str)]
+    return keys[-2:] == ["moe", "bias"]
+
+
 def active_param_count(cfg: ModelConfig, params=None) -> int:
-    """N for MODEL_FLOPS: non-embedding params, experts scaled by k/E.
+    """N for MODEL_FLOPS: non-embedding params, routed experts scaled by
+    k/E (shared experts count whole), buffers (`is_buffer`) not at all.
 
     Counted over the reference's stacked leaves (`tree.stack_layers`), so
     that the per-leaf rounding of the expert share is the reference's;
@@ -508,9 +553,10 @@ def active_param_count(cfg: ModelConfig, params=None) -> int:
     def visit(path, leaf):
         keys = [k for k in path if isinstance(k, str)]
         size = leaf.numel()
-        if "table" in keys:
+        if "table" in keys or is_buffer(path):
             size = 0
-        elif any(k in ("gate", "up", "down") for k in keys) and "moe" in keys:
+        elif keys[-1:] in (["gate"], ["up"], ["down"]) \
+                and keys[-2:-1] == ["moe"]:
             size = int(size * cfg.top_k / max(cfg.n_experts, 1))
         sizes.append(size)
         return leaf

@@ -10,8 +10,16 @@ state ``{"params", "opt": {"m", "v", "count"}, "step"}`` and metrics
 ``{"grad_norm", "lr", "loss"}``.  A batch may carry ``frames`` (Whisper's
 encoder input) and ``img_emb`` (the vision stub's) beside ``tokens`` and
 ``labels``; the MoE load-balance loss enters the loss with weight
-``aux_weight``.  ``invariant_checks`` runs the embedding-gather and rmsnorm
-construction checks inside the loss and reports their AND as
+``aux_weight`` (a `DeepSeekV3Config`'s sequence-wise balance loss: its
+alpha).  A dropless MoE's selection bias (`models.transformer.is_buffer`)
+is no trained weight: it gets no gradient and AdamW leaves it; after the
+update it moves by ``cfg.bias_update_rate`` against each expert's load over
+the step's whole batch, up where the expert took fewer rows than the mean,
+down where more (DeepSeek-V3 §2.1.2).  ``step_fn.moe_chosen`` holds, for
+each dropless MoE block's index, the experts its tokens chose in the last
+step (the microbatches in order).  ``invariant_checks`` runs the
+embedding-gather and rmsnorm construction checks inside the loss and
+reports their AND as
 ``metrics["inv_ok"]`` (1.0 when every check held, over every microbatch).
 
 With a logical mesh (``mesh=``, `dist.sharding.Mesh`) the step runs at
@@ -68,7 +76,7 @@ from repro_torch.dist.collectives import (abft_psum_tree, ef_psum_tree,
                                           note_collective)
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
-                                         adamw_update)
+                                         adamw_update_leaves)
 from repro_torch.tree import (stack_layers, stacked_leaves_with_path,
                               tree_get, tree_leaves, tree_leaves_with_path,
                               tree_map, tree_unflatten, unstack_layers)
@@ -366,19 +374,33 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
             for d, sh in zip(zdims, tree_leaves(pshapes))])
 
     inv_on = opts.invariant_checks
+    loads: dict = {}    # MoE block -> rows each expert took, this step
+    chosen: dict = {}   # MoE block -> the experts its tokens chose
 
     def value_and_grad(params, tokens, labels, extra):
         """``(loss, grads, inv_ok)``; ``inv_ok`` is None with the checks
-        off."""
-        leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
+        off.  A buffer's gradient is zero."""
+        paths = tree_leaves_with_path(params)
+        train = [not tf.is_buffer(path) for path, _ in paths]
+        live = [p.detach().requires_grad_(t)
+                for (_, p), t in zip(paths, train)]
+        load: dict = {}
         out = tf.loss_fn(tree_unflatten(params, live), tokens, labels, cfg,
                          abft=abft, remat=opts.remat_arg,
                          aux_weight=opts.aux_weight, invariants=inv_on,
-                         **extra)
+                         moe_load=load, **extra)
         loss, ok = out if inv_on else (out, None)
-        grads = torch.autograd.grad(loss, live)
-        return loss.detach(), tree_unflatten(params, list(grads)), ok
+        got = iter(torch.autograd.grad(
+            loss, [p for p, t in zip(live, train) if t]))
+        grads = [next(got) if t else torch.zeros_like(p)
+                 for p, t in zip(live, train)]
+        for li, c in load.items():
+            n = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                            device=c.device).scatter_add_(
+                0, c.reshape(-1), torch.ones_like(c.reshape(-1)))
+            loads[li] = loads[li] + n if li in loads else n
+            chosen[li] = torch.cat((chosen[li], c)) if li in chosen else c
+        return loss.detach(), tree_unflatten(params, grads), ok
 
     def accumulate(params, tokens, labels, extra):
         """Microbatch loop with fp32 gradient accumulators (one microbatch:
@@ -474,6 +496,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
 
     def step_fn(state, batch):
         params = state["params"]
+        loads.clear()
+        chosen.clear()
         dev = tree_leaves(params)[0].device
         tokens = _as_tokens(batch["tokens"], dev)
         labels = _as_tokens(batch["labels"], dev)
@@ -486,8 +510,13 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                              "opts, mesh)")
         loss, grads, inv_ok, reduce_ok, new_res = grads_of(
             params, tokens, labels, extra, residual)
-        new_params, new_opt, metrics = adamw_update(grads, state["opt"],
-                                                    params, adamw)
+        # the gradients held by one list only, which the update empties as
+        # it goes: each is freed once its leaf is updated
+        grads = tree_leaves(grads)
+        new_params, new_opt, metrics = adamw_update_leaves(
+            grads, state["opt"], params, adamw)
+        if loads:
+            new_params = _move_router_bias(new_params, params, loads, cfg)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         if new_res is not None:
@@ -502,8 +531,31 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         return new_state, metrics
 
     step_fn.split = split
+    step_fn.moe_chosen = chosen
     step_fn.grad_specs = grad_specs    # zero2's gradient layout, or None
     return step_fn
+
+
+def _move_router_bias(new_params, params, loads: dict, cfg: ModelConfig):
+    """``new_params`` with each dropless MoE block's selection bias moved
+    from its value in ``params`` by ``cfg.bias_update_rate`` times the sign
+    of (mean load - the expert's load), ``loads`` holding each block's rows
+    an expert over the step (DeepSeek-V3 §2.1.2); AdamW's value for the
+    buffer is dropped."""
+    li = -1
+    for gi, (pattern, _repeats) in enumerate(cfg.layout):
+        for r in range(len(params["groups"][gi])):
+            for bi in range(len(pattern)):
+                li += 1
+                if li not in loads:
+                    continue
+                key = f"b{bi}"
+                old = params["groups"][gi][r][key]["moe"]["bias"]
+                load = loads[li].float()
+                new_params["groups"][gi][r][key]["moe"]["bias"] = (
+                    old + cfg.bias_update_rate
+                    * torch.sign(load.mean() - load)).to(old.dtype)
+    return new_params
 
 
 # ---------------------------------------------------------------------------
