@@ -33,9 +33,8 @@ through the step builders.
 Phases (one line or more each; any failed check raises, and the script
 exits non-zero without printing a result):
   1. device   — a CUDA card, and its name and power limit from nvidia-smi;
-  2. build    — nvcc builds kernels/csrc/abft_matmul.cu,
-                abft_matmul_acc.cu, checksum_encode.cu and
-                flash_attention.cu (sm_90a), one process each, at once;
+  2. build    — nvcc builds every source of kernels/build.py::SOURCES
+                under kernels/csrc (sm_90a), one process each, at once;
   3. kernel   — the kernel against its plain version at the serving shapes
                 (m = 4 decode on the split-k route, m = 1024 prefill bucket
                 on tensor-core tiles; fp32 and bf16, one int8 shape), the
@@ -57,11 +56,13 @@ exits non-zero without printing a result):
   6. acc      — the accumulate kernel against its plain version on both
                 routes: tensor-core tiles at the SUMMA step shape (3072^3:
                 fp32, bf16 and int8 operands; fp32 also in place, as the
-                SUMMA calls it) and a ragged, misaligned 1000 x 900 x 898
+                SUMMA calls it, and at the benchmark's 3000^3; fp32 on the
+                wgmma mainloop over its 3xTF32 planes, the split timed
+                beside it) and a ragged, misaligned 1000 x 900 x 898
                 (every operand type), CUDA cores at a ragged shape and the
                 chaos campaign's 256^3 drills on the 32 x 32 tiles its
                 runner plans (fp32, bf16, int8); each row with its route,
-                tile and copy widths, two calls bit-identical, kernel,
+                mainloop, tile and copy widths, two calls bit-identical, kernel,
                 plain, torch.addmm and bound times; a clean two-call chain
                 re-verifies with residual exactly 0; flip drills on the
                 tensor-core tile: five single flips located and
@@ -71,9 +72,15 @@ exits non-zero without printing a result):
                 (the paper's p = 64, f = 1): clean, a failure, a double
                 failure, a mid-loop flip and a last-step flip, each passing
                 the paper's residual check and verify() with 512 kernel
-                launches and no plain call; the plain-SUMMA walls (kernel
-                with verify off, and torch.matmul) on 24576^2 operands; the
-                stress CLI for 8 iterations;
+                launches, all on the wgmma mainloop, 16 of the split (A's
+                and B's panel a step) and no plain call; the plain-SUMMA
+                walls (kernel with verify off, and torch.matmul) on 24576^2
+                operands; the stress CLI for 8 iterations; the split kernel
+                against its plain version bit for bit on an 8 x 8 stack of
+                the benchmark's 3000^2 blocks (a column of blocks, a row,
+                each as it lies and transposed; ties, zeros and subnormals
+                among them) and on a ragged, misaligned batch, with its
+                kernel, plain and bound times for a step's two panels;
   8. encode   — the diskless encode kernel against its plain version at the
                 full-width train state's own views (the embedding in bf16
                 and fp32, a 4-D layer-group view, a [4, 224] norm view), a
@@ -804,6 +811,8 @@ ACC_CASES = [       # (m, k, n, operand dtype, pinned tile, in place)
     (3072, 3072, 3072, "bfloat16", None, False),
     (3072, 3072, 3072, "int8", None, False),
     (3072, 3072, 3072, "float32", None, True),     # as the SUMMA calls it
+    # the benchmark's SUMMA blocks (3000 = 23 x 128 + 56): ragged tiles
+    (3000, 3000, 3000, "float32", (128, 128), True),
     # ragged and misaligned on the tensor-core route: 898 fp32 columns are
     # 8 mod 16 bytes a row
     (1000, 900, 898, "float32", (128, 64), False),
@@ -880,6 +889,12 @@ def phase_acc(torch, record):
         st0 = acc_zero_state(torch, m, n, bm, bn)
         kw = dict(bm=bm, bn=bn, verify=True,
                   eps_c=ops.detection_eps(out))
+        want_route = kmm.route_of(bm, bn, carry=True)
+        # fp32 on the tensor-core tiles reads 3xTF32 planes: the checks let
+        # the wrapper split A and B, the timings take them split once, as
+        # the SUMMA does, and time the split beside the kernel
+        planes = kmm.tf32_planes(a, b) \
+            if dt == torch.float32 and want_route == "mma" else None
         # a clean two-call chain on the kernel: the second call verifies the
         # state the first one wrote
         c1, ccol1, crow1, _ = kmm.abft_matmul_acc_cuda(a0, b0, c0, *st0, wm,
@@ -894,8 +909,8 @@ def phase_acc(torch, record):
             ins = (c1.clone(), ccol1.clone(), crow1.clone())
             got = kmm.abft_matmul_acc_cuda(a, b, *ins, wm, wn, **kw, out=ins)
         torch.cuda.synchronize()
-        want_route = kmm.route_of(bm, bn, carry=True)
-        if route["route"] != want_route or tuple(route["tile"]) != (bm, bn):
+        if route["route"] != want_route or tuple(route["tile"]) != (bm, bn) \
+                or (route["mainloop"] == "wgmma") != (planes is not None):
             raise AssertionError(f"{(m, k, n, name)} ran {route}, planned "
                                  f"{want_route} on {(bm, bn)}")
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -933,19 +948,30 @@ def phase_acc(torch, record):
         reps = 5 if m * n * k > 1e9 else 20
         if in_place:
             ms = time_ms(torch, lambda: kmm.abft_matmul_acc_cuda(
-                a, b, *ins, wm, wn, **kw, out=ins), reps, flush)
+                a, b, *ins, wm, wn, **kw, out=ins, planes=planes), reps,
+                flush)
         else:
             ms = time_ms(torch, lambda: kmm.abft_matmul_acc_cuda(
-                a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
+                a, b, c1, ccol1, crow1, wm, wn, **kw, planes=planes), reps,
+                flush)
+        split_ms = None
+        if planes is not None:
+            s0 = kmm.acc_split_launches
+            split_ms = time_ms(torch, lambda: kmm.tf32_planes(a, b), reps,
+                               flush)
+            if kmm.acc_split_launches - s0 != 2 * (reps + 2):
+                raise AssertionError("the split is not two launches a pair")
         plain_ms = time_ms(torch, lambda: kmm.abft_matmul_acc_plain(
             a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
         lib_ms = time_ms(torch, lib, reps, flush) if lib else None
         b_ms, b_by, b_cuda = acc_bound(m, k, n, 2, name, 4, bm, bn)
         row = dict(m=m, k=k, n=n, dtype=name, tile=[bm, bn],
-                   route=route["route"], in_place=in_place,
+                   route=route["route"], mainloop=route["mainloop"],
+                   in_place=in_place,
                    copy_bytes=[route["copy_a"], route["copy_b"]],
                    repeat_bit_identical=True,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   max_abs_err=err, ms=ms, split_ms=split_ms,
+                   plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                    bound_cuda_core_ms=b_cuda, clean_residual=0.0)
         rows.append(row)
@@ -1101,6 +1127,7 @@ def phase_summa(torch, record, card):
     kmm.reset_counts()                      # the main path starts here
     for name, kw in runs:
         l0, p0 = kmm.acc_launches, kmm.acc_plain_calls
+        w0, s0 = kmm.acc_wgmma_launches, kmm.acc_split_launches
         seen = []
         t0 = time.perf_counter()
         c_enc = core.abft_summa(
@@ -1109,10 +1136,13 @@ def phase_summa(torch, record, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, plain = kmm.acc_launches - l0, kmm.acc_plain_calls - p0
+        wgmma = kmm.acc_wgmma_launches - w0
+        splits = kmm.acc_split_launches - s0
         resid = stress.residual_check(core.strip(c_enc, nb, nb), a, b, x)
         consistent = bool(core.verify(c_enc, spec).consistent)
         hits = {key: s for key, s in seen if bool(s[..., 0].any())}
         row = dict(run=name, wall_s=wall, launches=launches,
+                   wgmma_launches=wgmma, split_launches=splits,
                    plain_calls=plain, residual=resid, consistent=consistent,
                    detected_launches=sorted(hits))
         log("summa", json.dumps(row))
@@ -1120,6 +1150,10 @@ def phase_summa(torch, record, card):
         if launches != per_run or plain != 0:
             raise AssertionError(f"{name}: {launches} kernel launches, {plain}"
                                  f" plain calls (want {per_run}, 0)")
+        if wgmma != launches or splits != 2 * G:
+            raise AssertionError(f"{name}: {wgmma} launches on the wgmma "
+                                 f"mainloop, {splits} of the split (want "
+                                 f"{launches}, {2 * G}: a pair a step)")
         if not resid < stress.THRESHOLD or not consistent:
             raise AssertionError(f"{name}: residual {resid}, consistent "
                                  f"{consistent}")
@@ -1137,6 +1171,7 @@ def phase_summa(torch, record, card):
                                  "a fault that was not there")
         del c_enc, seen, hits
     main_launches = kmm.acc_launches          # the main path ends here
+    main_splits = kmm.acc_split_launches
     del a_enc, b_enc, a, b
     torch.cuda.empty_cache()
 
@@ -1174,8 +1209,78 @@ def phase_summa(torch, record, card):
     if launches != 8 * 4 ** 3 or kmm.acc_plain_calls != p0:
         raise AssertionError(f"stress: {launches} kernel launches")
     record["summa"] = dict(runs=out, grid=G, nb=nb, card=card,
-                           stress=res, main_path_launches=main_launches)
+                           stress=res, main_path_launches=main_launches,
+                           main_path_split_launches=main_splits)
     return main_launches
+
+
+SPLIT_NB = 3000      # the benchmark's SUMMA blocks (n_loc = 3000)
+# fp32 bit patterns the split rounds at its edges: ties at half a TF32 ulp
+# (up, down, odd, subnormal), both zeros, a subnormal (inf and NaN excepted:
+# the card's NaN bits are not the host's)
+SPLIT_SPECIALS = (0x3f801000, 0xbf801000, 0x3f803000, 0x00001000, 0,
+                  0x80000000, 0x000116c2)
+
+
+def phase_split(torch, record):
+    """The split kernel (#2s) against its plain version, bit for bit, on
+    what the SUMMA hands it: an 8 x 8 stack of 3000^2 blocks sliced as
+    A's panel (a column of blocks, its batch strided) and B's (a row), each
+    as it lies and transposed, and a ragged batch of 1001-column rows off
+    a 16-byte boundary (the kernel's scalar path), zero padding up to the
+    row stride included; then the kernel, plain and bound times of a
+    step's two panels.  Returns its row."""
+    from repro_torch.kernels import abft_matmul as kmm
+
+    G, nb = SUMMA_G, SPLIT_NB
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = 1e3 * torch.randn((G, G, nb, nb), generator=g, device="cuda")
+    # in block (5, 2), which A's panel x[:, 2] and B's x[5] both hold
+    bits = torch.tensor([b - (1 << 32) if b >> 31 else b
+                         for b in SPLIT_SPECIALS], dtype=torch.int32)
+    x.view(torch.int32)[5, 2, 7, :len(bits)] = bits.cuda()
+    x.view(torch.int32)[5, 2, :len(bits), 11] = bits.cuda()
+    ragged = 1e3 * torch.randn((3, 517, 1003), generator=g, device="cuda")
+    cases = [(f"A's panel x[:, {k}]", x[:, k]) for k in (2, G - 1)] \
+        + [(f"B's panel x[{k}]", x[k]) for k in (0, 5)] \
+        + [("ragged [3, 517, 1001] off 16 bytes", ragged[..., 1:1002])]
+    checked = []
+    for what, blk in cases:
+        for transpose in (False, True):
+            n0 = kmm.acc_split_launches
+            got = kmm.tf32_split_cuda(blk, transpose=transpose)
+            want = kmm.tf32_split_plain(blk, transpose=transpose)
+            torch.cuda.synchronize()
+            if kmm.acc_split_launches - n0 != 1:
+                raise AssertionError(f"split {what}: not one launch")
+            for name, u, v in zip(("hi", "lo"), got, want):
+                if u.shape != v.shape or not torch.equal(
+                        u.view(torch.int32), v.view(torch.int32)):
+                    raise AssertionError(
+                        f"split {what} (transpose={transpose}): {name} "
+                        f"{tuple(u.shape)} is not the plain version's "
+                        f"{tuple(v.shape)} bit for bit")
+            checked.append(f"{what}{' transposed' if transpose else ''}")
+            del got, want
+    # a step's two panels, as _local_summa splits them
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    a_panel, b_panel = x[:, 3], x[3]
+    ms = time_ms(torch, lambda: kmm.tf32_planes(a_panel, b_panel), 10, flush)
+    plain_ms = time_ms(torch, lambda: (
+        kmm.tf32_split_plain(a_panel),
+        kmm.tf32_split_plain(b_panel, transpose=True)), 5, flush)
+    nbytes = 2 * G * nb * nb * 4 * 3        # read 4 bytes, write 8, each
+    row = dict(cases=checked, bit_identical=True, panels=[G, nb, nb], ms=ms,
+               plain_ms=plain_ms, bound_ms=1e3 * nbytes / H100_HBM_BPS,
+               bound_by="bytes", library_ms=None)
+    log("split", f"tf32_split bit for bit its plain version on "
+                 f"{len(checked)} cases; a step's two panels of {G} x "
+                 f"{nb}^2: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                 f"bound {row['bound_ms']:.3f} ms")
+    record["split"] = row
+    del x, ragged
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4536,6 +4641,7 @@ def main():
     launches = phase_serve(torch, record, f"{name} ({smi})")
     acc_rows = phase_acc(torch, record)
     acc_launches = phase_summa(torch, record, f"{name} ({smi})")
+    split_row = phase_split(torch, record)
     enc_rows = phase_encode(torch, record)
     enc_launches, enc_tot = phase_train(torch, record, f"{name} ({smi})")
     flash_rows = phase_flash(torch, record)
@@ -4621,6 +4727,22 @@ def main():
         "library_ms": step["library_ms"],
         # phase 18: the autotuner's accumulate-family measurements
         "autotune_launches": tune2,
+    }, {
+        # kernel #2's fp32 operand planes: a SUMMA step's two panels of
+        # 8 blocks of 3000^2, A as it lies and B transposed; no library
+        # call splits fp32 into TF32 planes
+        "name": "tf32_split",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tf32_split.cu",
+        "replaces": None,
+        # phase 7's five ABFT products, counted from 0 before them
+        "launches": record["summa"]["main_path_split_launches"],
+        "max_abs_err": 0.0,
+        "ms": split_row["ms"],
+        "plain_ms": split_row["plain_ms"],
+        "bound_ms": split_row["bound_ms"],
+        "bound_by": split_row["bound_by"],
+        "library_ms": split_row["library_ms"],
     }, {
         # one diskless encode of the full-width train state: 42 launches,
         # one per floating leaf, their times summed

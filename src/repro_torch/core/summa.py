@@ -42,10 +42,11 @@ failure detection, mirroring FT-MPI's out-of-band restart).  The
 Spans (``repro_torch.obs``; nothing is recorded while the bus is off):
 one ``summa/abft_summa`` root a product, with ``summa/plan``,
 ``summa/layout`` (the block copies), a ``summa/step`` a SUMMA
-step holding ``summa/panel`` and ``summa/update`` (``launches`` of kernel
-#2, or of its plain version on a CPU tensor), a ``fault/inject`` instant
-where a process is erased or an element flipped, a
-``recovery/summa_rebuild`` holding ``summa/recover_line`` (one a lost
+step holding ``summa/panel`` (the panels, or on kernel #2's fp32
+tensor-core route their 3xTF32 planes) and ``summa/update``
+(``launches`` of kernel #2, or of its plain version on a CPU tensor), a
+``fault/inject`` instant where a process is erased or an element flipped,
+a ``recovery/summa_rebuild`` holding ``summa/recover_line`` (one a lost
 line and operand) and ``summa/rederive_state``, and ``summa/scrub``
 (``host_reads``).  The root, the step, the update, the rebuild and its
 children and the scrub are timed on the device where a device clock is
@@ -245,6 +246,11 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
     # be able to rewrite its own accumulator — verify only under an ABFT
     # encoding (spec), where the scrub is the point.
     fused_verify = fused and spec is not None
+    # kernel #2's fp32 tensor-core route reads 3xTF32 planes of its
+    # operands: each panel is split once, at its step, for its P^2 launches
+    split = (fused
+             and kops.kmm.reads_planes(plan.bm, plan.bn, preferred_dtype)
+             and a_blk.dtype == b_blk.dtype == preferred_dtype)
     c_blk = torch.zeros((grid, grid, mb, nb), dtype=torch.float32, device=dev)
     if fused:
         wm = kops.kernel_weights(mb, device=dev)
@@ -261,15 +267,22 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
     def step(k):
         with obs.span("summa/step", device=True, k=k):
             with obs.span("summa/panel"):
-                # the broadcasts: column k of A's blocks, row k of B's
-                a_panel = a_blk[:, k].to(preferred_dtype).contiguous()
-                b_panel = b_blk[k].to(preferred_dtype).contiguous()
+                # the broadcasts: column k of A's blocks, row k of B's; the
+                # planes are split from them as they stand at this step,
+                # after any loss and rebuild before it
+                if split:
+                    a_panel, b_panel = a_blk[:, k], b_blk[k]
+                    planes = kops.kmm.tf32_planes(a_panel, b_panel)
+                else:
+                    a_panel = a_blk[:, k].to(preferred_dtype).contiguous()
+                    b_panel = b_blk[k].to(preferred_dtype).contiguous()
+                    planes = None
             with obs.span("summa/update", device=True) as sp:
                 n0 = acc_calls()
-                update(k, a_panel, b_panel)      # [P, mb, kb], [P, kb, nb]
+                update(k, a_panel, b_panel, planes)  # [P, mb, kb], [P, kb, nb]
                 sp.set(launches=acc_calls() - n0)
 
-    def update(k, a_panel, b_panel):
+    def update(k, a_panel, b_panel, planes):
         if not fused:
             c_blk.add_(torch.matmul(a_panel.float().unsqueeze(1),
                                     b_panel.float().unsqueeze(0)))
@@ -283,7 +296,8 @@ def _local_summa(a_blk, b_blk, *, grid: int, spec: Optional[EncodingSpec],
                     (ccol[r, c], crow[r, c]), plan=plan, wm=wm, wn=wn,
                     verify=fused_verify, out_dtype=torch.float32,
                     backend="cuda",
-                    out=(c_blk[r, c], ccol[r, c], crow[r, c]))
+                    out=(c_blk[r, c], ccol[r, c], crow[r, c]),
+                    planes=None if planes is None else planes.at(r, c))
                 if on_stats is not None:
                     on_stats(k, r, c, stats)
 

@@ -27,12 +27,15 @@ tile before accumulating, and per-tile ``stats [ceil(m/bm), ceil(n/bn),
 STATS_WIDTH]``; the counterpart of ``abft_matmul_acc_pallas``.
 
 The kernels live in ``csrc/abft_matmul.cu`` and ``csrc/abft_matmul_acc.cu``;
-both run ``abft_mma.cuh``'s ring mainloop on their tensor-core tiles and
-end in ``abft_tile.cuh``'s epilogue (see their headers for what bounds
+both end in ``abft_tile.cuh``'s epilogue (see their headers for what bounds
 them).  The tile picks the route, and ``route_of`` is the one place that
-says which: ``MMA_TILES`` run tensor-core tiles (3xTF32 for fp32 operands)
-behind a cp.async ring in both kernels, for prefill, training and the
-SUMMA step; kernel #1's tiles of ``SPLITK_TILES_M`` rows stream B in
+says which: ``MMA_TILES`` run tensor-core tiles (3xTF32 for fp32 operands),
+for prefill, training and the SUMMA step.  Kernel #1's, and kernel #2's
+for bf16 and int8 operands, run ``abft_mma.cuh``'s cp.async ring; kernel
+#2's for fp32 operands run ``abft_wgmma.cuh``'s TMA ring and wgmma over
+the operands' 3xTF32 planes (``tf32_planes``: ``csrc/tf32_split.cu``, made
+once per SUMMA panel by the caller, or by the wrapper when none are
+given).  Kernel #1's tiles of ``SPLITK_TILES_M`` rows stream B in
 ``split_count`` k slices into an fp32 workspace and sum them in split
 order, for decode (the split policy, ``split_rows`` and ``split_count``,
 lives here alone); kernel #2's other tiles run on CUDA cores.  On a CUDA
@@ -42,7 +45,9 @@ there, it runs its plain version (``abft_matmul_plain``,
 calls that launched a kernel (a split-k call is two kernels and counts
 once), ``plain_calls`` / ``acc_plain_calls`` plain-version calls;
 ``last_route`` / ``last_acc_route`` say how the last call of each kernel
-ran.  ``grouped_launches`` / ``grouped_plain_calls`` count kernel #1g's.
+ran.  ``grouped_launches`` / ``grouped_plain_calls`` count kernel #1g's,
+``acc_wgmma_launches`` the kernel #2 launches that ran the wgmma mainloop,
+``acc_split_launches`` / ``acc_split_plain_calls`` the split's.
 """
 from __future__ import annotations
 
@@ -55,6 +60,8 @@ import torch.nn.functional as F
 
 __all__ = ["abft_matmul_cuda", "abft_matmul_plain", "abft_matmul_acc_cuda",
            "abft_matmul_acc_plain", "abft_matmul_grouped_cuda",
+           "TF32Planes", "tf32_planes", "tf32_split_cuda",
+           "tf32_split_plain", "reads_planes",
            "abft_matmul_grouped_plain", "reset_counts", "route_of", "split_count",
            "split_rows", "sm_count",
            "TILES_M", "TILES_N", "MMA_TILES", "MMA_SLAB", "SPLITK_TILES_M",
@@ -93,10 +100,13 @@ acc_launches = 0                 # kernel launches by abft_matmul_acc_cuda
 acc_plain_calls = 0              # calls of abft_matmul_acc_plain
 grouped_launches = 0             # kernel launches by abft_matmul_grouped_cuda
 grouped_plain_calls = 0          # calls of abft_matmul_grouped_plain
+acc_wgmma_launches = 0           # of acc_launches, those on the wgmma mainloop
+acc_split_launches = 0           # kernel launches by tf32_split_cuda
+acc_split_plain_calls = 0        # calls of tf32_split_plain
 last_route: dict = {}            # route, copy widths and splits of the last
                                  # kernel #1 launch
-last_acc_route: dict = {}        # route, tile and copy widths of the last
-                                 # kernel #2 launch
+last_acc_route: dict = {}        # route, tile, copy widths and mainloop of
+                                 # the last kernel #2 launch
 launch_hooks: list = []          # fn(op, tensors read, tensors written)
                                  # after each launch of either kernel
                                  # (launch.hlo_accounting counts them)
@@ -104,9 +114,11 @@ launch_hooks: list = []          # fn(op, tensors read, tensors written)
 
 def reset_counts() -> None:
     global launches, plain_calls, acc_launches, acc_plain_calls
-    global grouped_launches, grouped_plain_calls
+    global grouped_launches, grouped_plain_calls, acc_wgmma_launches
+    global acc_split_launches, acc_split_plain_calls
     launches = plain_calls = acc_launches = acc_plain_calls = 0
-    grouped_launches = grouped_plain_calls = 0
+    grouped_launches = grouped_plain_calls = acc_wgmma_launches = 0
+    acc_split_launches = acc_split_plain_calls = 0
 
 
 def _cdiv(x: int, y: int) -> int:
@@ -126,6 +138,13 @@ def route_of(bm: int, bn: int, *, carry: bool = False) -> Optional[str]:
     if bm in SPLITK_TILES_M and bn in TILES_N:
         return "splitk"
     return None
+
+
+def reads_planes(bm: int, bn: int, dtype) -> bool:
+    """Whether kernel #2 on tile (bm, bn) with ``dtype`` operands reads
+    their 3xTF32 planes (``tf32_planes``) instead of A and B: fp32 on its
+    tensor-core tiles, the wgmma mainloop."""
+    return dtype == torch.float32 and route_of(bm, bn, carry=True) == "mma"
 
 
 def split_rows(m: int) -> int:
@@ -303,6 +322,187 @@ def abft_matmul_cuda(a, b, wm, wn, *, bm: int = 128, bn: int = 128,
 
 
 # ---------------------------------------------------------------------------
+# 3xTF32 operand planes of kernel #2's fp32 tensor-core route
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32, nearest with ties away from zero, on the bits:
+    ``abft_mma.cuh::tf32_rna``."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _check_split(x: torch.Tensor) -> None:
+    if x.dim() not in (2, 3) or x.dtype != torch.float32:
+        raise ValueError(f"the split takes fp32 [rows, cols] or [batch, rows, "
+                         f"cols], got {x.dtype} {tuple(x.shape)}")
+    if x.stride(-1) != 1:
+        raise ValueError("the split reads rows of contiguous elements")
+
+
+def tf32_split_plain(x: torch.Tensor, *, transpose: bool = False):
+    """Plain PyTorch version of ``csrc/tf32_split.cu``: x [..., r, c] fp32
+    -> (hi, lo), hi = x rounded to TF32 and lo = (x - hi) rounded the same
+    way, bit for bit ``abft_mma.cuh::split_tf32`` for finite x (an inf or
+    NaN x makes lo a NaN here and -0.0 or a NaN on the card, whose NaN
+    differs from the host's; hi is the same); [..., r, ld] as x lies, or
+    [..., c, ld] transposed, ld the inner extent rounded up to 4, the
+    padding 0.  New contiguous tensors."""
+    global acc_split_plain_calls
+    _check_split(x)
+    acc_split_plain_calls += 1
+    if transpose:
+        x = x.transpose(-1, -2)
+    x = x.contiguous()
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    pad = -x.shape[-1] % 4
+    return F.pad(hi, (0, pad)), F.pad(lo, (0, pad))
+
+
+_SPLIT_FN = None
+
+
+def _split_launcher():
+    global _SPLIT_FN
+    if _SPLIT_FN is None:
+        from repro_torch.kernels import build
+        fn = build.load("tf32_split").tf32_split_launch
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SPLIT_FN = fn
+    return _SPLIT_FN
+
+
+def tf32_split_cuda(x: torch.Tensor, *, transpose: bool = False):
+    """``tf32_split_plain``'s planes by the split kernel on a CUDA tensor
+    (one launch, on the current stream; each block of a [batch, r, c] x
+    contiguous in its rows, the batch at any stride); the plain version on
+    a CPU tensor."""
+    global acc_split_launches
+    if x.device.type == "cpu":
+        return tf32_split_plain(x, transpose=transpose)
+    _check_split(x)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"tf32_split_cuda runs on CUDA (or the plain "
+                           f"version on CPU), got {x.device}")
+    batch = x.shape[0] if x.dim() == 3 else 1
+    rows, cols = x.shape[-2:]
+    inner = rows if transpose else cols
+    ld = -(-inner // 4) * 4
+    shape = x.shape[:-2] + ((cols, ld) if transpose else (rows, ld))
+    hi = torch.empty(shape, dtype=torch.float32, device=x.device)
+    lo = torch.empty_like(hi)
+    rc = _split_launcher()(
+        x.data_ptr(), hi.data_ptr(), lo.data_ptr(), batch, rows, cols,
+        x.stride(0) if x.dim() == 3 else 0, x.stride(-2), ld, int(transpose),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tf32_split kernel launch failed: code {rc} "
+                           f"({tuple(x.shape)}, transpose={transpose})")
+    acc_split_launches += 1
+    return hi, lo
+
+
+_MAPS_FN = None
+
+
+def _maps_encoder():
+    global _MAPS_FN
+    if _MAPS_FN is None:
+        from repro_torch.kernels import build
+        fn = build.load("abft_matmul_acc").abft_acc_plane_maps
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _MAPS_FN = fn
+    return _MAPS_FN
+
+
+class TF32Planes:
+    """The 3xTF32 planes of a batch of A blocks and a batch of B blocks, as
+    kernel #2's fp32 tensor-core route reads them: ``a_hi``, ``a_lo`` [P, m,
+    ldk] as A lies, ``b_hi``, ``b_lo`` [Q, n, ldk] with B transposed, ldk =
+    k rounded up to 4 (the padding 0).  ``at(i, j)`` names the pair one
+    launch multiplies, A's block i by B's block j (0, 0 unless named); on a
+    CUDA device the planes' TMA maps are encoded once for each tile width
+    and shared by every pair."""
+
+    __slots__ = ("a_hi", "a_lo", "b_hi", "b_lo", "k", "i", "j", "_maps")
+
+    def __init__(self, a_hi, a_lo, b_hi, b_lo, k: int, i: int = 0,
+                 j: int = 0, maps: Optional[dict] = None):
+        self.a_hi, self.a_lo, self.b_hi, self.b_lo = a_hi, a_lo, b_hi, b_lo
+        self.k, self.i, self.j = k, i, j
+        self._maps = {} if maps is None else maps
+
+    @property
+    def m(self) -> int:
+        return self.a_hi.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.b_hi.shape[1]
+
+    def at(self, i: int, j: int) -> "TF32Planes":
+        return TF32Planes(self.a_hi, self.a_lo, self.b_hi, self.b_lo, self.k,
+                          i, j, self._maps)
+
+    def maps(self, bn: int):
+        """The four TMA maps for tiles of 128 x ``bn`` (a host buffer the
+        launcher copies into the kernel's parameters), encoded on first
+        use."""
+        buf = self._maps.get(bn)
+        if buf is None:
+            buf = (ctypes.c_ubyte * 512)()
+            rc = _maps_encoder()(
+                self.a_hi.data_ptr(), self.a_lo.data_ptr(),
+                self.b_hi.data_ptr(), self.b_lo.data_ptr(),
+                self.a_hi.shape[0], self.m, self.b_hi.shape[0], self.n,
+                self.k, self.a_hi.shape[2], bn, buf)
+            if rc != 0:
+                raise RuntimeError(f"abft_acc_plane_maps failed: code {rc} "
+                                   f"(m={self.m}, k={self.k}, n={self.n}, "
+                                   f"bn={bn})")
+            self._maps[bn] = buf
+        return buf
+
+
+def tf32_planes(a: torch.Tensor, b: torch.Tensor) -> TF32Planes:
+    """The planes kernel #2's fp32 tensor-core route reads of a [P, m, k]
+    (or [m, k], a batch of one) as it lies and b [Q, k, n] (or [k, n])
+    transposed.  Two launches of the split kernel on a CUDA tensor, its
+    plain version on a CPU one."""
+    a_hi, a_lo = tf32_split_cuda(a)
+    b_hi, b_lo = tf32_split_cuda(b, transpose=True)
+    if a_hi.dim() == 2:
+        a_hi, a_lo = a_hi.unsqueeze(0), a_lo.unsqueeze(0)
+    if b_hi.dim() == 2:
+        b_hi, b_lo = b_hi.unsqueeze(0), b_lo.unsqueeze(0)
+    return TF32Planes(a_hi, a_lo, b_hi, b_lo, a.shape[-1])
+
+
+def _check_planes(planes: TF32Planes, m: int, k: int, n: int,
+                  device) -> None:
+    """The planes of a kernel #2 call's A (m x k) and B (k x n): their
+    shapes hold by construction (``tf32_planes``), so this checks only
+    which product and pair they name."""
+    if not isinstance(planes, TF32Planes):
+        raise ValueError("planes are made by tf32_planes")
+    if (planes.m, planes.k, planes.n) != (m, k, n) \
+            or planes.a_hi.device != device:
+        raise ValueError(f"planes of {planes.m} x {planes.k} x {planes.n} "
+                         f"on {planes.a_hi.device} for a product of "
+                         f"{m} x {k} x {n} on {device}")
+    if not (0 <= planes.i < planes.a_hi.shape[0]
+            and 0 <= planes.j < planes.b_hi.shape[0]):
+        raise ValueError(f"no pair ({planes.i}, {planes.j}) in planes of "
+                         f"{planes.a_hi.shape[0]} x {planes.b_hi.shape[0]} "
+                         "blocks")
+
+
+# ---------------------------------------------------------------------------
 # Accumulate step with the carried checksum state
 # ---------------------------------------------------------------------------
 
@@ -354,7 +554,8 @@ def _acc_launcher():
         from repro_torch.kernels import build
         fn = build.load("abft_matmul_acc").abft_matmul_acc_launch
         fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 \
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _ACC_FN = fn
     return _ACC_FN
@@ -364,7 +565,7 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
                          bm: int = 128, bn: int = 128, bk: int = KT,
                          verify: bool = True, tol_factor: float = 64.0,
                          eps_c: Optional[float] = None, out_dtype=None,
-                         out=None):
+                         out=None, planes=None):
     """Accumulate step C_out = C_in + A @ B with the carried state.
 
     a: [m, k], b: [k, n] (fp32, bf16 or int8); c_in: [m, n] in the output
@@ -380,10 +581,18 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
     STATS_WIDTH] fp32).  CUDA tensors launch the kernel on the current
     stream, on the tile's route (``route_of(bm, bn, carry=True)``, checked
     against what the launcher ran; ``last_acc_route`` records it with the
-    copy widths); CPU tensors run ``abft_matmul_acc_plain`` (which returns
-    new tensors and copies them into ``out`` when given).
+    copy widths and the mainloop); CPU tensors run ``abft_matmul_acc_plain``
+    (which returns new tensors and copies them into ``out`` when given).
+    fp32 operands on the tensor-core tiles (``reads_planes``) are read from
+    their 3xTF32 planes, ``planes = tf32_planes(a, b)``, or for blocks i
+    and j of batched planes ``tf32_planes(a_blocks, b_blocks).at(i, j)`` (a
+    caller that multiplies one panel many times splits it, and encodes its
+    maps, once); without them the wrapper makes them.  The plain version
+    computes from a and b and takes no planes.
     """
-    global acc_launches, last_acc_route
+    global acc_launches, last_acc_route, acc_wgmma_launches
+    if planes is not None:        # checked once, the same on every device
+        _check_planes(planes, a.shape[0], a.shape[1], b.shape[1], a.device)
     if a.device.type == "cpu":
         res = abft_matmul_acc_plain(
             a, b, c_in, ccol_in, crow_in, wm, wn, bm=bm, bn=bn, bk=bk,
@@ -420,6 +629,13 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
     stats = torch.empty((_cdiv(m, bm), _cdiv(n, bn), STATS_WIDTH),
                         dtype=torch.float32, device=dev)
     eps = float(torch.finfo(torch.float32).eps) if eps_c is None else eps_c
+    route = route_of(bm, bn, carry=True)
+    wgmma = reads_planes(bm, bn, a.dtype)
+    maps, ba, bb = None, 0, 0
+    if wgmma:
+        if planes is None:
+            planes = tf32_planes(a, b)
+        maps, ba, bb = planes.maps(bn), planes.i, planes.j
     fn = _acc_launcher()
     info = (ctypes.c_int * 4)()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -428,7 +644,8 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             stats.data_ptr(), m, k, n, f, bm, bn, _IN_KIND[a.dtype],
             _OUT_KIND[out_dtype], int(bool(verify)),
-            tol_factor * bm * eps, tol_factor * bn * eps, info, stream)
+            tol_factor * bm * eps, tol_factor * bn * eps, maps, ba, bb,
+            info, stream)
     if rc != 0:
         raise RuntimeError(f"abft_matmul_acc kernel launch failed: code {rc} "
                            f"(m={m}, k={k}, n={n}, f={f}, tile=({bm}, {bn}), "
@@ -437,12 +654,15 @@ def abft_matmul_acc_cuda(a, b, c_in, ccol_in, crow_in, wm, wn, *,
     for hook in launch_hooks:
         hook("abft_matmul_acc", (a, b, wm, wn, c_in, ccol_in, crow_in),
              (*out, stats))
-    route = "mma" if info[0] == 1 else "cuda_core"
-    if route != route_of(bm, bn, carry=True):
-        raise RuntimeError(f"abft_matmul_acc ran tile ({bm}, {bn}) on "
-                           f"{route}, planned {route_of(bm, bn, carry=True)}")
-    last_acc_route = dict(route=route, tile=(bm, bn), copy_a=info[1],
-                          copy_b=info[2])
+    ran = "mma" if info[0] == 1 else "cuda_core"
+    mainloop = ("cuda_core", "ring", "wgmma")[info[3]]
+    if ran != route or (mainloop == "wgmma") != wgmma:
+        raise RuntimeError(f"abft_matmul_acc ran tile ({bm}, {bn}) on {ran} "
+                           f"({mainloop}), planned {route}"
+                           + (" (wgmma)" if wgmma else ""))
+    acc_wgmma_launches += wgmma
+    last_acc_route = dict(route=ran, tile=(bm, bn), copy_a=info[1],
+                          copy_b=info[2], mainloop=mainloop)
     return (*out, stats)
 
 

@@ -28,7 +28,7 @@ __all__ = ["build_dir", "nvcc_path", "compile_source", "compile_all", "load",
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # every kernel source of the port, by name (csrc/<name>.cu)
 SOURCES = ("abft_matmul", "abft_matmul_acc", "abft_matmul_grouped",
-           "checksum_encode", "flash_attention")
+           "checksum_encode", "flash_attention", "tf32_split")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

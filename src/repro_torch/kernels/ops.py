@@ -185,12 +185,17 @@ def _cdiv(x: int, y: int) -> int:
 
 def smem_bytes(bm: int, bn: int, bk: int = kmm.KT,
                in_dtype=torch.float32) -> int:
-    """Shared memory of one kernel-#2 CTA.  Tensor-core tiles: the ring
-    of kernel #1's (``oneshot_smem_bytes``, dynamic), which also holds the
+    """Shared memory of one kernel-#2 CTA.  Tensor-core tiles (dynamic):
+    for fp32 operands the TMA ring of the 3xTF32 planes, for bf16 and int8
+    the ring of kernel #1's (``oneshot_smem_bytes``); either also holds the
     prologue's reductions and the staged C tile.  CUDA-core tiles (static):
     the staged A/B slabs (widened to 4-byte fp32 or int32 for every operand
     type) or the epilogue's partial-sum buffer, which reuses the same
     bytes."""
+    if kmm.reads_planes(bm, bn, in_dtype):
+        # abft_wgmma.cuh: 3 stages of 128-byte rows of the four 3xTF32
+        # planes, or the staged C tile, and 1 KB to align them
+        return max(3 * 2 * (bm + bn) * 128, bm * (bn + 4) * 4) + 1024
     if kmm.route_of(bm, bn, carry=True) == "mma":
         return oneshot_smem_bytes(bm, bn, in_dtype)
     loop = bk * (bm + 1 + bn) * 4
@@ -898,7 +903,7 @@ def abft_matmul_acc(a: torch.Tensor, b: torch.Tensor, c_in: torch.Tensor,
                     wm: Optional[torch.Tensor] = None,
                     wn: Optional[torch.Tensor] = None, verify: bool = True,
                     tol_factor: float = 64.0, out_dtype=None,
-                    backend: str = "auto", out=None):
+                    backend: str = "auto", out=None, planes=None):
     """C_out = C_in + A @ B with carried checksum state and fused scrub.
 
     ``state`` is the (ccol, crow) pair from ``acc_state_zeros`` or a prior
@@ -911,7 +916,10 @@ def abft_matmul_acc(a: torch.Tensor, b: torch.Tensor, c_in: torch.Tensor,
     the verify tolerance uses the dtype-aware ``detection_eps`` of the C
     storage dtype.  ``out = (c_out, ccol_out, crow_out)`` names where to
     write, and may be the inputs themselves (the kernel updates in place;
-    the other paths copy their result there).
+    the other paths copy their result there).  ``planes``, fp32 A's and B's
+    3xTF32 planes (``kmm.tf32_planes``), are what the kernel's fp32
+    tensor-core route reads; without them it splits A and B itself, and
+    the other paths compute from A and B.
     Returns (c_out [m, n], new_state, stats [mt, nt, STATS_WIDTH]).
     """
     m, n = c_in.shape
@@ -937,7 +945,7 @@ def abft_matmul_acc(a: torch.Tensor, b: torch.Tensor, c_in: torch.Tensor,
             ccol_in.contiguous(), crow_in.contiguous(),
             wm.float().contiguous(), wn.float().contiguous(), bm=plan.bm,
             bn=plan.bn, bk=plan.bk, verify=verify, tol_factor=tol_factor,
-            eps_c=eps_c, out_dtype=out_dtype, out=out)
+            eps_c=eps_c, out_dtype=out_dtype, out=out, planes=planes)
         return c, (ccol, crow), stats
     c, ccol, crow, stats = _acc_twin(
         a, b, c_in, state, wm, wn, plan.bm, plan.bn, verify=verify,

@@ -687,6 +687,172 @@ def test_tensor_core_route_holds_fp32_level_with_a_large_carried_c_in(stage):
     assert np.all(stats[..., 4] <= stats[..., 6])
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _four(planes):
+    return planes.a_hi, planes.a_lo, planes.b_hi, planes.b_lo
+
+
+# fp32 bit patterns: ties at half a TF32 ulp (up, down, odd, subnormal),
+# the zeros, a subnormal, the largest finite value (hi rounds to inf)
+SPLIT_SPECIALS = np.array([0x3f801000, 0xbf801000, 0x3f803000, 0x00001000, 0,
+                           0x80000000, 0x000116c2, 0x7f7fffff], np.uint32)
+
+
+def test_tf32_split_plain_rounds_like_the_kernels():
+    """The split's plain version gives hi = x rounded to TF32, nearest with
+    ties away from zero, and lo = (x - hi) rounded the same way, bit for
+    bit ``torch_port_helpers.tf32`` (the kernels' tf32_rna): both on the
+    TF32 grid, hi + lo within 2^-21 of a normal x, ties and -0.0 as
+    tf32_rna rounds them."""
+    rs = np.random.RandomState(5)
+    x = (rs.standard_normal((3, 40, 51)) * 1e3).astype(np.float32)
+    x[0, 0, :len(SPLIT_SPECIALS)] = SPLIT_SPECIALS.view(np.float32)
+    t = torch.from_numpy(x)
+    hi, lo = kmm.tf32_split_plain(t)
+    assert hi.shape == lo.shape == (3, 40, 52)        # rows padded to 4
+    assert not hi[..., 51:].any() and not lo[..., 51:].any()
+    hi, lo = hi[..., :51], lo[..., :51]
+    assert torch.equal(_bits(hi), _bits(tf32(t)))
+    assert torch.equal(_bits(lo), _bits(tf32(t - tf32(t))))
+    assert not (_bits(hi) & 0x1fff).any() and not (_bits(lo) & 0x1fff).any()
+    # (the largest values round to inf, as on the card)
+    normal = (t.abs() >= torch.finfo(torch.float32).tiny) & hi.isfinite()
+    assert int((~hi.isfinite()).sum()) == 1
+    err = (hi.double() + lo.double() - t.double()).abs()
+    assert bool((err <= 2.0 ** -21 * t.double().abs())[normal].all())
+    # ties round away from zero; -0.0 keeps its sign in hi, lo is +0.0
+    got = [(int(h), int(l)) for h, l in zip(_bits(hi)[0, 0, :6].numpy()
+                                            .view(np.uint32),
+                                            _bits(lo)[0, 0, :6].numpy()
+                                            .view(np.uint32))]
+    assert [h for h, _ in got[:4]] == [0x3f802000, 0xbf802000, 0x3f804000,
+                                       0x00002000]
+    assert got[5] == (0x80000000, 0)
+
+
+def test_tf32_planes_write_b_transposed():
+    """``tf32_planes(a, b)``: A's planes as A lies, [P, m, ldk]; B's
+    written transposed, [Q, n, ldk], ldk = k rounded up to 4 with the
+    padding 0; a strided batch (a SUMMA panel's column of blocks) gives
+    what its contiguous copy gives; 2-D operands a batch of one; two split
+    calls a pair on the CPU."""
+    rs = np.random.RandomState(6)
+    a_blk = torch.from_numpy(rs.standard_normal((2, 3, 24, 37))
+                             .astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal((2, 37, 30)).astype(np.float32))
+    calls = kmm.acc_split_plain_calls
+    planes = kmm.tf32_planes(a_blk[:, 1], b)
+    a_hi, a_lo, b_hi, b_lo = _four(planes)
+    assert kmm.acc_split_plain_calls - calls == 2
+    assert a_hi.shape == (2, 24, 40) and b_hi.shape == b_lo.shape == (2, 30, 40)
+    assert (planes.m, planes.k, planes.n) == (24, 37, 30)
+    one = kmm.tf32_planes(a_blk[0, 1], b[1])
+    assert one.a_hi.shape == (1, 24, 40) and one.b_lo.shape == (1, 30, 40)
+    assert torch.equal(one.a_hi[0], a_hi[0]) and torch.equal(one.b_lo[0],
+                                                             b_lo[1])
+    bt = b.transpose(-1, -2)
+    assert torch.equal(_bits(b_hi[..., :37]), _bits(tf32(bt)))
+    assert torch.equal(_bits(b_lo[..., :37]), _bits(tf32(bt - tf32(bt))))
+    assert not b_hi[..., 37:].any() and not b_lo[..., 37:].any()
+    want = kmm.tf32_split_plain(a_blk[:, 1].contiguous())
+    assert torch.equal(a_hi, want[0]) and torch.equal(a_lo, want[1])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_acc_with_planes_matches_without_on_cpu(rs, backend):
+    """On CPU tensors a call given A's and B's planes, alone or as a pair
+    of a batch, gives what it gives without them (the plain paths compute
+    from A and B); planes of another product, or a pair the batch does not
+    hold, raise before anything runs."""
+    m, k, n = 200, 72, 130
+    a, b = _flip_setup(rs, m, k, n)
+    c = (100 * rs.standard_normal((m, n))).astype(np.float32)
+    tp, _ = _plans(m, k, n)
+    st = tuple(x.numpy() for x in ops.tile_checksums(torch.from_numpy(c),
+                                                     ops.kernel_weights(m),
+                                                     ops.kernel_weights(n).T,
+                                                     128, 128))
+    planes = kmm.tf32_planes(torch.from_numpy(a), torch.from_numpy(b))
+    without = _port(a, b, c, st, tp, backend)
+    given = _port(a, b, c, st, tp, backend, planes=planes)
+    for x, y in zip((without[0], *without[1], without[2]),
+                    (given[0], *given[1], given[2])):
+        np.testing.assert_array_equal(x, y)
+    other = torch.from_numpy(rs.standard_normal((2, k, n)).astype(np.float32))
+    pair = kmm.tf32_planes(torch.from_numpy(a)[None], torch.cat(
+        [other[:1], torch.from_numpy(b)[None]])).at(0, 1)
+    given = _port(a, b, c, st, tp, backend, planes=pair)
+    for x, y in zip((without[0], *without[1], without[2]),
+                    (given[0], *given[1], given[2])):
+        np.testing.assert_array_equal(x, y)
+    for bad in (kmm.tf32_planes(torch.from_numpy(a[:, :-4]),
+                                torch.from_numpy(b[:-4])),
+                pair.at(1, 1), pair.at(0, 2)):
+        with pytest.raises(ValueError):
+            _port(a, b, c, st, tp, "cuda", planes=bad)
+
+
+def test_summa_splits_its_planes_after_a_fault(monkeypatch):
+    """On kernel #2's fp32 tensor-core route the SUMMA splits each step's
+    panels once, at that step: a process lost after step 1 is rebuilt
+    before its blocks are split, so the planes of steps 1 and 2 hold the
+    rebuilt A and B blocks (not their erased zeros, not their old bits)
+    and every step's planes are the split of its panels as they stand."""
+    from repro_torch import core
+    from repro_torch.core.summa import _local_summa, _to_blocks
+    grid, f, mb, kb = 3, 1, 40, 24
+    rs = np.random.RandomState(7)
+    spec = core.make_spec(f, grid - f, grid - f)
+    a = torch.from_numpy(rs.standard_normal(((grid - f) * mb, grid * kb))
+                         .astype(np.float32))
+    b = torch.from_numpy(rs.standard_normal((grid * kb, (grid - f) * mb))
+                         .astype(np.float32))
+    a_enc, b_enc = core.encode_operands(a, b, spec)
+    a_blk, b_blk = _to_blocks(a_enc, grid), _to_blocks(b_enc, grid)
+    # the process that is lost holds blocks its checksums disagree with: the
+    # rebuild gives the encoded values back, so its old data is told apart
+    a_blk[1, 2] += 1.0
+    b_blk[1, 2] += 1.0
+    a_old, b_old = a_blk.clone(), b_blk.clone()
+    plan = ops.BlockPlan(m=mb, k=kb, n=mb, bm=128, bn=128, bk=64, pm=128,
+                         pk=64, pn=128, cost_bytes=0, route="mma")
+    made = []
+    split = kmm.tf32_planes
+
+    def keep(x, y):
+        planes = split(x, y)
+        made.append(tuple(p.clone() for p in _four(planes)))
+        return planes
+    monkeypatch.setattr(kmm, "tf32_planes", keep)
+    lost = core.FailureEvent(step=1, row=1, col=2)
+    _local_summa(a_blk, b_blk, grid=grid, spec=spec, failure=lost,
+                 bitflip=None, preferred_dtype=torch.float32, plan=plan)
+    assert len(made) == grid
+    for k, planes in enumerate(made):
+        want = _four(split(a_blk[:, k], b_blk[k]))
+        for got, w in zip(planes, want):
+            assert torch.equal(_bits(got), _bits(w))
+    # A's lost block is split at step 2, B's at step 1: rebuilt to their
+    # encoded values, so neither zero nor the old data
+    for (hi, lo), old, enc in (
+            ((made[2][0][1], made[2][1][1]), a_old[1, 2],
+             a_enc[mb:2 * mb, 2 * kb:]),
+            ((made[1][2][2], made[1][3][2]), b_old[1, 2].T,
+             b_enc[kb:2 * kb, 2 * mb:].T)):
+        back = (hi + lo)[:, :kb]
+        assert torch.allclose(back, enc, atol=1e-5)
+        assert float((back - old).abs().min()) > 0.5
+    # a plan off the tensor-core route splits nothing
+    made.clear()
+    _local_summa(a_old.clone(), b_old.clone(), grid=grid, spec=spec,
+                 failure=None, bitflip=None, preferred_dtype=torch.float32,
+                 plan=ops.pick_blocks(mb, kb, mb, carry=True))
+    assert made == []
+
+
 def test_kernel_digest_follows_included_headers(tmp_path, monkeypatch):
     """An edited header under csrc/ changes the library name, so the
     kernel is rebuilt; an unrelated header does not."""
@@ -704,11 +870,13 @@ def test_kernel_digest_follows_included_headers(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edit\n')
     assert build.source_digest("k") not in (d0, d1)
     # the real sources: both kernels include the shared tile header and the
-    # tensor-core helpers with the shared ring mainloop
+    # tensor-core helpers with the shared ring mainloop, kernel #2 also its
+    # fp32 route's wgmma mainloop, and the split the TF32 rounding
     monkeypatch.undo()
-    for name, headers in (("abft_matmul", {"abft_tile.cuh", "abft_mma.cuh"}),
-                          ("abft_matmul_acc", {"abft_tile.cuh",
-                                               "abft_mma.cuh"})):
+    tiles = {"abft_tile.cuh", "abft_mma.cuh"}
+    for name, headers in (("abft_matmul", tiles),
+                          ("abft_matmul_acc", tiles | {"abft_wgmma.cuh"}),
+                          ("tf32_split", tiles)):
         seen = set()
         build._local_includes((build.CSRC / f"{name}.cu").resolve(), seen)
         assert {p.name for p in seen} == {f"{name}.cu", *headers}

@@ -5,10 +5,15 @@ Each run is a fresh process in one checkout that builds
 ``abft_matmul.cu`` and ``abft_matmul_acc.cu``, then times eager calls with
 the 50 MB L2 flushed (``chip_smoke.time_ms``):
 
-  * kernel #2, the SUMMA step C_out = C_in + A @ B at 3072^3 on its
-    planned tile (fp32, bf16, int8), C_in and the state from a first call,
-    with ``torch.addmm`` on the same inputs as the yardstick (fp32 also
-    with verify off);
+  * kernel #2, the SUMMA step C_out = C_in + A @ B at 3000^3 (the
+    benchmark's blocks, fp32) and 3072^3 on its planned tile (fp32, bf16,
+    int8), C_in and the state from a first call, with ``torch.addmm`` on
+    the same inputs as the yardstick (fp32 also with verify off); where a
+    checkout splits fp32 operands into 3xTF32 planes (``tf32_planes``),
+    the kernel is timed on planes split once and the split beside it, and
+    each fp32 row records the mainloop that ran and the split's launches;
+    fp32 also in place and back to back, as the SUMMA launches it (device
+    time of 10 launches between two events, no flush);
   * kernel #1 at the SUMMA step's shape (the same product without the
     prologue);
   * both at k = 32, one ring stage: a tile's fixed cost (prologue,
@@ -45,7 +50,8 @@ sys.path.insert(0, ".")
 torch.backends.cuda.matmul.allow_tf32 = False
 from repro_torch.kernels import build
 if sys.argv[1] == "build":
-    build.compile_all(("abft_matmul", "abft_matmul_acc"))
+    build.compile_all([s for s in ("abft_matmul", "abft_matmul_acc",
+                                   "tf32_split") if s in build.SOURCES])
     # ptxas on the tensor-core kernels: registers and spills
     lines = []
     for entry in build.BUILD_LOG.values():
@@ -78,12 +84,25 @@ def err(x, ref, exact):
     ok = cs.within(x, ref, float(ref.abs().max()))
     return float((x - ref).abs().max()) if ok else float("inf")
 
-for m, k, n, name in ((3072, 3072, 3072, "float32"),
+def back_to_back_ms(fn, n=10):
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+for m, k, n, name in ((3000, 3000, 3000, "float32"),
+                      (3072, 3072, 3072, "float32"),
                       (3072, 3072, 3072, "bfloat16"),
                       (3072, 3072, 3072, "int8"), (3072, 32, 3072, "float32")):
     dt = getattr(torch, name)
-    plan = ops.pick_blocks(m, k, n, in_dtype=dt, out_bytes=4, carry=True,
-                           require_exact=True)
+    pk = dict(in_dtype=dt, out_bytes=4, carry=True)
+    plan = (ops.pick_blocks(m, k, n, require_exact=True, **pk)
+            or ops.pick_blocks(m, k, n, **pk))
     kw = dict(bm=plan.bm, bn=plan.bn, eps_c=ops.detection_eps(torch.float32))
     wm = ops.kernel_weights(m, device="cuda")
     wn = ops.kernel_weights(n, device="cuda").T.contiguous()
@@ -97,15 +116,29 @@ for m, k, n, name in ((3072, 3072, 3072, "float32"),
     got = kmm.abft_matmul_acc_cuda(a, b, c1, ccol1, crow1, wm, wn, **kw)
     want = kmm.abft_matmul_acc_plain(a, b, c1, ccol1, crow1, wm, wn, **kw)
     row = dict(tile=[plan.bm, plan.bn], route=plan.route,
+               mainloop=kmm.last_acc_route.get(
+                   "mainloop", "ring" if plan.route == "mma" else "cuda_core"),
                err=err(got[0], want[0], dt == torch.int8),
                clean_residual=float(got[3][..., 4:6].abs().max()))
+    split = hasattr(kmm, "tf32_planes") and row["mainloop"] == "wgmma"
+    if split:
+        s0 = kmm.acc_split_launches
+        kw["planes"] = kmm.tf32_planes(a, b)
+        row["split_launches"] = kmm.acc_split_launches - s0
+        row["split_ms"] = cs.time_ms(torch, lambda: kmm.tf32_planes(a, b),
+                                     reps, flush)
     row["ms"] = cs.time_ms(torch, lambda: kmm.abft_matmul_acc_cuda(
         a, b, c1, ccol1, crow1, wm, wn, **kw), reps, flush)
+    if dt == torch.float32 and k > 32:
+        ins = (c1.clone(), ccol1.clone(), crow1.clone())
+        row["in_place_back_to_back_ms"] = back_to_back_ms(
+            lambda: kmm.abft_matmul_acc_cuda(a, b, *ins, wm, wn, out=ins,
+                                             **kw))
     if dt != torch.int8:
         c1l = c1.to(dt)
         row["addmm_ms"] = cs.time_ms(torch, lambda: torch.addmm(c1l, a, b),
                                      reps, flush)
-    if k == 3072 and dt == torch.float32:
+    if k > 32 and dt == torch.float32:
         # the same step with verify off: what the prologue's checks cost
         row["noverify_ms"] = cs.time_ms(
             torch, lambda: kmm.abft_matmul_acc_cuda(
