@@ -35,9 +35,6 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.hlo_accounting import Accountant, account
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.train.step import StepOptions
-from torch_port_helpers import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 M = 128
 

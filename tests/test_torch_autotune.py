@@ -22,9 +22,6 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import autotune as at
 from repro_torch.kernels import ops
-from torch_port_helpers import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 M = K = N = 256
 CPU = torch.device("cpu")

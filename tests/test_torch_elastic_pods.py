@@ -46,16 +46,13 @@ from repro_torch.train.step import StepOptions, build_train_step, state_shapes
 from repro_torch.tree import tree_leaves
 from test_torch_train import (ADAMW, ARCH, SHAPE, _batch, _jax_state,
                               _jax_step, _state_close)
-from torch_port_helpers import one_torch_thread, to_np  # noqa: F401
+from torch_port_helpers import to_np
 
 POD = ("pod", "data", "model")
 
 
 def jsmoke():
     return jsmoke_config(ARCH)
-
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(autouse=True)

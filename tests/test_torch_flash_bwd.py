@@ -19,9 +19,7 @@ import torch
 
 from repro.models import attention as jattn
 from repro_torch.models import attention as tattn
-from torch_port_helpers import assert_close, one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_port_helpers import assert_close
 
 RTOL = 1e-4
 

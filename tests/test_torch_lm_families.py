@@ -23,9 +23,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.abft_gemm import ABFTConfig as TCfg
 from repro_torch.models import transformer as ttf
 from repro_torch.tree import stack_layers, tree_leaves, tree_unflatten
-from torch_port_helpers import assert_close, one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_port_helpers import assert_close
 
 ARCHS = list_configs()
 ABFT = {"off": (None, None),

@@ -11,9 +11,7 @@ import torch
 
 from repro.models import moe as jmoe
 from repro_torch.models import moe as tmoe
-from torch_port_helpers import one_torch_thread, to_np  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_port_helpers import to_np
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

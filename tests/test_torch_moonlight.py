@@ -1,7 +1,7 @@
 """Moonlight-16B-A3B in the port against its plain float32 reference
-(``tests/ref_moonlight.py``), at the config's smoke size on seeded random
-weights: a dense layer and two MoE layers of 8 experts top-2, a small
-latent attention whose value dim differs from its query/key dim.
+(``portbench/reference/moonlight.py``), at the config's smoke size on
+seeded random weights: a dense layer and two MoE layers of 8 experts top-2,
+a small latent attention whose value dim differs from its query/key dim.
 
 Held: the forward logits, the loss and every parameter's gradient; one
 train step's update of every tensor, the selection bias's included;
@@ -12,16 +12,14 @@ element in each row located and repaired; Qwen3-30B-A3B's smoke MoE output
 bit for bit as before the dropless path came; the registry and the shapes
 at the published widths."""
 import dataclasses
-import filecmp
 import math
-import pathlib
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-import ref_moonlight as ref
+from portbench.reference import moonlight as ref
 from repro.configs import list_configs as jlist
 from repro_torch import obs
 from repro_torch.configs import base as cbase
@@ -36,9 +34,6 @@ from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import (StepOptions, build_train_step,
                                     init_state, state_shapes)
 from repro_torch.tree import tree_leaves_with_path, tree_map
-from torch_port_helpers import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ARCH = "moonlight-16b-a3b"
 CFG = cbase.smoke_config(ARCH)
@@ -407,9 +402,3 @@ def test_published_widths_count_16b_and_the_cut_2_557b():
     cut = dataclasses.replace(cut_layers(full, 5), vocab_size=32768)
     assert abs(tf.param_count(state_shapes(cut)["params"]) - 2.557e9) < 1e6
     assert abs(tf.active_param_count(cut) - 482.5e6) < 0.1e6
-
-
-def test_the_two_copies_of_the_reference_are_one():
-    here = pathlib.Path(__file__).resolve().parent
-    assert filecmp.cmp(here / "ref_moonlight.py", here.parent / "portbench"
-                       / "reference" / "moonlight.py", shallow=False)

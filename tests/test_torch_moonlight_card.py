@@ -10,7 +10,7 @@ import contextlib
 import pytest
 import torch
 
-import ref_moonlight as ref
+from portbench.reference import moonlight as ref
 from repro_torch.configs.base import get_config
 from repro_torch.core.abft_gemm import ABFTConfig
 from repro_torch.kernels import abft_matmul as kmm

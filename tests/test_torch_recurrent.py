@@ -15,9 +15,7 @@ from repro.models import mamba as jmb
 from repro.models import xlstm as jxl
 from repro_torch.models import mamba as tmb
 from repro_torch.models import xlstm as txl
-from torch_port_helpers import one_torch_thread, to_np  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_port_helpers import to_np
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CHUNKS = [4, 8, 32]

@@ -26,9 +26,6 @@ from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.convert import params_from_jax
 from repro_torch.models import transformer as ttf
 from repro_torch.serve.engine import PagedServeEngine, Request, ServeEngine
-from torch_port_helpers import one_torch_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RECURRENT = ["xlstm-350m", "jamba-1.5-large-398b"]
 PROMPT_LENS = (5, 11, 13)

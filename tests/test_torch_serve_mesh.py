@@ -28,11 +28,9 @@ from repro_torch.launch import serve as tserve
 from repro_torch.serve.engine import (PagedServeEngine, Request,
                                       ServeEngine)
 from repro_torch.tree import tree_leaves_with_path
-from torch_port_helpers import one_torch_thread  # noqa: F401
 
 ARCH = "qwen2-0.5b"
 SLOTS, MAX_LEN, N_REQ, PLEN, GEN = 4, 48, 4, 8, 5
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -59,9 +59,7 @@ from repro_torch.train.step import (StepOptions, build_prefill_step,
                                     build_serve_step, build_train_step,
                                     make_inputs, state_shapes, state_specs)
 from repro_torch.tree import tree_leaves, tree_leaves_with_path
-from torch_port_helpers import one_torch_thread, to_np  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_port_helpers import to_np
 
 ARCH = "qwen2-0.5b"
 SHAPE = ShapeConfig("t", 32, 8, "train")

@@ -52,10 +52,7 @@ from repro_torch.train.step import StepOptions, build_train_step, \
     init_state
 from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map, \
     tree_unflatten
-from torch_port_helpers import (assert_close, one_torch_thread,  # noqa: F401
-                                to_np)
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
+from torch_port_helpers import assert_close, to_np
 
 ARCH = "qwen2-0.5b"
 SHAPE = ShapeConfig("t", 32, 8, "train")

@@ -2,24 +2,7 @@
 reference: the same numpy inputs go to both packages, and the outputs come
 back as numpy arrays."""
 import numpy as np
-import pytest
 import torch
-
-@pytest.fixture
-def one_torch_thread():
-    """Run a test's torch ops on one intra-op thread.  The port's CPU tests
-    are many small ops; beside other test workers on a loaded host, each
-    op's thread-pool barrier waits for descheduled threads and costs far
-    more than the op (a smoke Jamba train run: 2.2 s on one thread against
-    65 s on eight, with eight busy processes beside it).  Test modules use
-    it with ``pytestmark = pytest.mark.usefixtures("one_torch_thread")``."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
 
 # fp32 sums run in another order in the two frameworks, so agreement is to
 # a few fp32 ulps of the largest term, not bit for bit
