@@ -571,7 +571,9 @@ def phase_moonlight_step(torch, record):
     32768 of 163840 ids, remat off), on one sequence of 8192 tokens: a warm
     step, then one step with the kernels' counts set to 0 just before it.
     Kernel #1g launches 3 times a MoE layer (gate, up, down), neither kernel
-    falls back to its plain version, and no routed row is dropped."""
+    falls back to its plain version, no routed row is dropped, and the
+    chunked attention skips 46.875 % of its query rows x KV chunks
+    (``repro_flash_chunk_rows_total``), forward and backward alike."""
     from repro_torch import obs
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.kernels import abft_matmul as kmm
@@ -596,6 +598,12 @@ def phase_moonlight_step(torch, record):
     _free(torch, "cuda")
     routed = obs.counter("repro_moe_routed_rows_total").total()
     dropped = obs.counter("repro_moe_dropped_rows_total").total()
+    rows = obs.counter("repro_flash_chunk_rows_total")
+
+    def rows_now():
+        return {(k, d): rows.value(kind=k, direction=d)
+                for k in ("computed", "skipped") for d in ("fwd", "bwd")}
+    rows0 = rows_now()
     kmm.reset_counts()
     t0 = time.perf_counter()
     state, metrics = step(state, batch)
@@ -612,10 +620,18 @@ def phase_moonlight_step(torch, record):
         loss=float(metrics["loss"]),
         step_ms=1e3 * (time.perf_counter() - t0),
         peak_gb=_gb(torch, "cuda"))
+    moved = {kd: n - rows0[kd] for kd, n in rows_now().items()}
+    for d in ("fwd", "bwd"):
+        # the chunked attention's query rows x KV chunks that causality
+        # let it skip (46.875 % at 8192 tokens in chunks of 512)
+        row[f"flash_skipped_share_{d}"] = moved[("skipped", d)] / max(
+            1.0, moved[("skipped", d)] + moved[("computed", d)])
     log("moonlight-step", json.dumps(row))
     if (row["grouped_launches"] != 3 * n_moe or row["grouped_plain_calls"]
             or row["kernel1_plain_calls"] or row["dropped_rows"]
             or row["routed_rows"] != 8192 * cfg.top_k * n_moe
+            or row["flash_skipped_share_fwd"] != 0.46875
+            or row["flash_skipped_share_bwd"] != 0.46875
             or not math.isfinite(row["loss"])):
         raise AssertionError(f"Moonlight's train step: {row}")
     record["moonlight_step"] = row

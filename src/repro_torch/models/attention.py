@@ -97,49 +97,141 @@ def _sdpa_dense(q, k, v, *, scale, softcap, mask):
     return torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
 
 
+def _chunk_rows(sq, sk, kc, aligned, *, causal, window):
+    """The work of each KV chunk: ``(c0, n, r0, r1, masked)`` for the chunk's
+    keys ``[c0, c0 + n)``, the query rows ``[r0, r1)`` that see at least one
+    of them, and the spans of those rows where a score can be masked (the
+    rows between the spans see every key of the chunk).
+
+    ``aligned``: the host knows that ``q_pos = p0 + arange(sq)`` and
+    ``k_pos = p0 + arange(sk)`` from one ``p0``, with ``sk >= sq``.  Row i
+    then sees key j iff ``lo <= i - j <= hi``, the band that causality and
+    the two-sided window leave, so each chunk is seen by one contiguous
+    range of rows, and each row sees at least its own key.  Not aligned,
+    every chunk takes every row, masked whole.
+    """
+    chunks = [(c0, min(kc, sk - c0)) for c0 in range(0, sk, kc)]
+    if not aligned:
+        return [(c0, n, 0, sq, ((0, sq),)) for c0, n in chunks]
+    far = sq + sk                        # beyond any difference of positions
+    lo = 0 if causal else (1 - window if window is not None else -far)
+    hi = window - 1 if window is not None else far
+    out = []
+    for c0, n in chunks:
+        r0, r1 = max(0, c0 + lo), min(sq, c0 + n + hi)
+        f0, f1 = max(r0, c0 + n - 1 + lo), min(r1, c0 + hi + 1)  # see all n
+        spans = ((r0, r1),) if f0 >= f1 else ((r0, f0), (f1, r1))
+        out.append((c0, n, r0, r1, tuple((a, b) for a, b in spans if b > a)))
+    return out
+
+
+def _count_rows(rows, sq, direction):
+    """``repro_flash_chunk_rows_total``: the query rows of a call's chunks,
+    computed and skipped, summed over the chunks."""
+    done = sum(max(0, r1 - r0) for _, _, r0, r1, _ in rows)
+    c = obs.counter("repro_flash_chunk_rows_total",
+                    "query rows x KV chunks of the chunked attention, "
+                    "computed or skipped")
+    c.inc(done, kind="computed", direction=direction)
+    c.inc(len(rows) * sq - done, kind="skipped", direction=direction)
+
+
+def _rows_layout(x, g_kv):
+    """fp32 ``x`` [B, S, KV, ...] as a batch of matrices, one a (batch, KV
+    head): ``[B*KV, S*g, D]`` for q [B,S,KV,g,D] (a query's g heads on
+    adjacent rows, so that a range of queries is a range of rows), ``[B*KV,
+    S, D]`` for k and v [B,S,KV,D]."""
+    x = x.float().transpose(1, 2)
+    return x.reshape(x.shape[0] * g_kv, -1, x.shape[-1])
+
+
 def _flash_fwd_impl(q, k, v, q_pos, k_pos, *, scale, softcap, causal,
-                    window, kc):
+                    window, kc, aligned=False):
     """FlashAttention-2 forward: chunked online softmax over K/V.
 
     q: [B,Sq,KV,g,D]; k: [B,Sk,KV,D]; v: [B,Sk,KV,Dv].  Returns o:
     [B,Sq,KV,g,Dv] in q.dtype and the per-row log-sum-exp [B,KV,g,Sq].
+
+    Each chunk updates only the rows that see one of its keys
+    (`_chunk_rows`; ``aligned`` as there).  The softmax state is held for
+    the rows from the current chunk's first such row to its last; a row is
+    finished once no later chunk reaches it; it is updated out of place,
+    so that autograd can differentiate the loop.  The all-chunks loop adds
+    exactly zero to the rows left out (their running max is finite, so
+    ``exp(-1e30 - m)`` is 0 and the correction 1; a row that has seen no
+    key yet has its state wiped by a correction of 0 at its first key),
+    so both give the same o and lse.
     """
     b, sq, g_kv, g, _ = q.shape
     d = v.shape[-1]
-    sk = k.shape[1]
-    kc = min(kc, sk)
-    q32 = q.float()
-    m = torch.full((b, g_kv, g, sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, g_kv, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, g_kv, g, sq, d), dtype=torch.float32,
-                      device=q.device)
-    for c0 in range(0, sk, kc):
+    rows = _chunk_rows(sq, k.shape[1], kc, aligned, causal=causal,
+                       window=window)
+    _count_rows(rows, sq, "fwd")
+    q2, k2, v2 = (_rows_layout(x, g_kv) for x in (q, k, v))
+    nb = q2.shape[0]
+    m = q2.new_full((nb, 0), NEG_INF)
+    l = q2.new_zeros((nb, 0))
+    acc = q2.new_zeros((nb, 0, d))
+    first = last = 0                     # the state's rows: [first, last)
+    o_parts, lse_parts = [], []
+
+    def open_to(r1):                     # rows that have seen no key yet
+        nonlocal m, l, acc, last
+        if r1 > last:
+            new = (r1 - last) * g
+            m = torch.cat([m, m.new_full((nb, new), NEG_INF)], dim=1)
+            l = torch.cat([l, l.new_zeros((nb, new))], dim=1)
+            acc = torch.cat([acc, acc.new_zeros((nb, new, d))], dim=1)
+            last = r1
+
+    def finish_to(r0):                   # rows no later chunk reaches
+        nonlocal m, l, acc, first
+        if r0 > first:
+            done = (r0 - first) * g
+            l_done = torch.clamp(l[:, :done], min=1e-30)
+            o_parts.append(acc[:, :done] / l_done[..., None])
+            lse_parts.append(m[:, :done] + torch.log(l_done))
+            m, l, acc = m[:, done:], l[:, done:], acc[:, done:]
+            first = r0
+
+    for c0, n, r0, r1, masked in rows:
         # a ragged last chunk is just shorter.  (The reference pads it with
         # zero keys at position -1e9, which the causal test qp >= kp lets
         # through, so its chunked path is wrong when sk % kc != 0.)
-        k_c, v_c = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
-        s = _chunk_scores(q32, k_c, q_pos, k_pos[c0:c0 + kc], scale=scale,
+        if r1 <= r0:
+            continue
+        open_to(r1)
+        finish_to(r0)
+        s = _chunk_scores(q2[:, r0 * g:r1 * g], k2[:, c0:c0 + n], q_pos,
+                          k_pos[c0:c0 + n], r0, masked, g, scale=scale,
                           softcap=softcap, causal=causal, window=window)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
-                                                   v_c.float())
+        acc = acc * corr[..., None] + torch.bmm(p, v2[:, c0:c0 + n])
         m = m_new
-    o = (acc / torch.clamp(l, min=1e-30)[..., None]).permute(0, 3, 1, 2, 4)
-    lse = m + torch.log(torch.clamp(l, min=1e-30))
-    return o.to(q.dtype), lse
+    open_to(sq)
+    finish_to(sq)
+    o = torch.cat(o_parts, dim=1).view(b, g_kv, sq, g, d)
+    lse = torch.cat(lse_parts, dim=1).view(b, g_kv, sq, g)
+    return o.transpose(1, 2).to(q.dtype), lse.transpose(2, 3)
 
 
-def _chunk_scores(q32, k_c, q_pos, kp_c, *, scale, softcap, causal,
-                  window):
-    """One KV chunk's masked scores [B,KV,g,Sq,kc] (masked = NEG_INF)."""
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q32, k_c.float()) * scale
+def _chunk_scores(q_rows, k_c, q_pos, kp_c, r0, masked, g, *, scale,
+                  softcap, causal, window):
+    """One KV chunk's scores ``[B*KV, rows*g, n]`` for query rows from
+    ``r0`` on (`_rows_layout`), masked (NEG_INF) in the row spans
+    ``masked`` only: the other rows see every key of the chunk.  The
+    softmax scale is the product's alpha."""
+    s = torch.baddbmm(q_rows.new_zeros(()), q_rows, k_c.transpose(1, 2),
+                      beta=0, alpha=scale)
     s = softcap_fn(s, softcap)
-    msk = _mask(q_pos, kp_c, causal=causal, window=window)
-    return torch.where(msk[None, None, None], s, NEG_INF)
+    for a, b in masked:
+        msk = _mask(q_pos[a:b], kp_c, causal=causal, window=window)
+        s[:, (a - r0) * g:(b - r0) * g].view(
+            s.shape[0], b - a, g, -1).masked_fill_(~msk[:, None], NEG_INF)
+    return s
 
 
 class _Flash(torch.autograd.Function):
@@ -150,55 +242,70 @@ class _Flash(torch.autograd.Function):
     dO``, ``dS = p (dO V^T - delta)`` with ``delta = sum(dO * O)``, the
     softcap's derivative ``1 - (s / cap)^2`` taken only where the score is
     not masked (a masked score is -1e30: its square would overflow and
-    0 * inf give NaN), then ``dQ += dS K``, ``dK = dS^T Q``.  A ragged last
-    chunk is taken as it is, unpadded, as the forward takes it."""
+    0 * inf give NaN), then ``dQ += dS K``, ``dK = dS^T Q`` (the softmax
+    scale as those products' alpha).  A ragged last chunk is taken as it is,
+    unpadded, as the forward takes it.  Each chunk takes the rows the
+    forward took (`_chunk_rows`): on the others p is exactly 0, and so is
+    all they would add."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, scale, softcap, causal, window,
-                kc):
+                kc, aligned):
         o, lse = _flash_fwd_impl(q, k, v, q_pos, k_pos, scale=scale,
                                  softcap=softcap, causal=causal,
-                                 window=window, kc=kc)
+                                 window=window, kc=kc, aligned=aligned)
         ctx.save_for_backward(q, k, v, o, lse, q_pos, k_pos)
-        ctx.static = (scale, softcap, causal, window, min(kc, k.shape[1]))
+        ctx.static = (scale, softcap, causal, window, kc, aligned)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, q_pos, k_pos = ctx.saved_tensors
-        scale, softcap, causal, window, kc = ctx.static
-        q32 = q.float()
-        do32 = do.float().permute(0, 2, 3, 1, 4)            # [B,KV,g,Sq,D]
-        delta = torch.sum(do32 * o.float().permute(0, 2, 3, 1, 4), dim=-1)
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-        dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-        for c0 in range(0, k.shape[1], kc):
-            k_c, v_c = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
-            s = _chunk_scores(q32, k_c, q_pos, k_pos[c0:c0 + kc],
-                              scale=scale, softcap=softcap, causal=causal,
-                              window=window)
-            p = torch.exp(s - lse[..., None])               # [B,KV,g,Sq,kc]
-            dv[:, c0:c0 + kc] = torch.einsum("bhgqk,bhgqd->bkhd", p, do32)
-            dp = torch.einsum("bhgqd,bkhd->bhgqk", do32, v_c.float())
-            ds = p * (dp - delta[..., None])
+        scale, softcap, causal, window, kc, aligned = ctx.static
+        b, sq, g_kv, g, _ = q.shape
+        rows = _chunk_rows(sq, k.shape[1], kc, aligned, causal=causal,
+                           window=window)
+        _count_rows(rows, sq, "bwd")
+        q2, k2, v2, do2 = (_rows_layout(x, g_kv) for x in (q, k, v, do))
+        delta = torch.sum(do.float() * o.float(), dim=-1).transpose(1, 2) \
+            .reshape(do2.shape[:2])
+        lse2 = lse.transpose(2, 3).reshape(delta.shape)
+        dq, dk, dv = (torch.zeros_like(x) for x in (q2, k2, v2))
+        for c0, n, r0, r1, masked in rows:
+            if r1 <= r0:
+                continue
+            rs, ks = slice(r0 * g, r1 * g), slice(c0, c0 + n)
+            s = _chunk_scores(q2[:, rs], k2[:, ks], q_pos, k_pos[ks], r0,
+                              masked, g, scale=scale, softcap=softcap,
+                              causal=causal, window=window)
+            p = torch.exp(s - lse2[:, rs, None])       # [B*KV, rows*g, n]
+            dv[:, ks].baddbmm_(p.transpose(1, 2), do2[:, rs], beta=0)
+            ds = torch.bmm(do2[:, rs], v2[:, ks].transpose(1, 2))
+            ds = ds.sub_(delta[:, rs, None]).mul_(p)
             if softcap:
                 sc = torch.where(s > NEG_INF / 2, s, 0.0)
-                ds = ds * (1.0 - torch.square(sc / softcap))
-            ds = ds * scale
-            dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, k_c.float())
-            dk[:, c0:c0 + kc] = torch.einsum("bhgqk,bqhgd->bkhd", ds, q32)
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                ds = ds.mul_(1.0 - torch.square(sc / softcap))
+            dq[:, rs].baddbmm_(ds, k2[:, ks], alpha=scale)
+            dk[:, ks].baddbmm_(ds.transpose(1, 2), q2[:, rs], beta=0,
+                               alpha=scale)
+
+        def back(x, like):               # [B*KV, S*g, D] -> like's layout
+            return x.view(b, g_kv, like.shape[1], *like.shape[3:]) \
+                .transpose(1, 2).to(like.dtype)
+        return (back(dq, q), back(dk, k), back(dv, v), None, None, None,
                 None, None, None, None, None)
 
 
 def _sdpa_flash(q, k, v, *, scale, softcap, q_pos, k_pos, causal, window,
-                kc: int = 512):
+                kc: int = 512, aligned: bool = False):
     """Chunked online-softmax attention with the FA-2 backward (`_Flash`).
     q: [B,Sq,KV,g,D]; k: [B,Sk,KV,D]; v: [B,Sk,KV,Dv]; q_pos [Sq]; returns
-    o [B,Sq,KV,g,Dv] in q.dtype."""
+    o [B,Sq,KV,g,Dv] in q.dtype.  ``aligned``: the host knows the positions
+    to be ``p0 + arange(Sq)`` and ``p0 + arange(Sk)`` from one ``p0``; each
+    chunk then takes only the query rows that see it (`_chunk_rows`), and
+    otherwise every row."""
     return _Flash.apply(q, k, v, q_pos, k_pos, scale, softcap, causal,
-                        window, kc)
+                        window, kc, aligned)
 
 
 def attn_apply(
@@ -206,7 +313,7 @@ def attn_apply(
     x,
     s: AttnSpec,
     *,
-    positions: torch.Tensor,         # [Sq] or [B, Sq] global positions
+    positions: Optional[torch.Tensor] = None,  # [Sq] or [B, Sq]
     causal: bool = True,
     cache: Optional[dict] = None,    # {"k","v": [B, Smax, n_kv, D], "index"}
     cross_kv: Optional[torch.Tensor] = None,  # [B, Skv, d_model] encoder
@@ -218,8 +325,14 @@ def attn_apply(
        - prefill w/ cache: scalar cache["index"], Sq tokens written there
        - decode: Sq == 1, per-slot [B] cache["index"], one token per slot
        - cross: cross_kv set (no rope, no cache, no mask; the dense path)
+    ``positions`` None is ``arange(Sq)``, built here: the host then knows
+    them, and the chunked path skips the query rows that cannot see a KV
+    chunk.
     """
     b, sq, _ = x.shape
+    aligned = positions is None          # queries and keys from position 0
+    if aligned:
+        positions = torch.arange(sq, device=x.device)
     q = _split_heads(linear_apply(p["wq"], x, abft), s.n_heads, s.head_dim)
     kv_src = cross_kv if cross_kv is not None else x
     k = _split_heads(linear_apply(p["wk"], kv_src, abft), s.n_kv, s.head_dim)
@@ -270,7 +383,7 @@ def attn_apply(
     else:
         o = _sdpa_flash(qh, k, v, scale=scale, softcap=s.softcap,
                         q_pos=positions, k_pos=k_pos, causal=use_causal,
-                        window=window, kc=s.kc)
+                        window=window, kc=s.kc, aligned=aligned)
     o = o.reshape(b, sq, s.n_heads * s.head_dim).to(x.dtype)
     y = linear_apply(p["wo"], o, abft)
     return y, new_cache
@@ -317,12 +430,18 @@ def mla_init(gen: torch.Generator, s: MLASpec, dtype=torch.float32):
     }
 
 
-def mla_apply(p, x, s: MLASpec, *, positions: torch.Tensor, abft=None,
-              layer: Optional[int] = None, flash_threshold: int = 1024):
+def mla_apply(p, x, s: MLASpec, *, positions: Optional[torch.Tensor] = None,
+              abft=None, layer: Optional[int] = None,
+              flash_threshold: int = 1024):
     """Causal latent attention over x [B, S, D] (train and prefill, no
     cache) -> y [B, S, D].  Dense attention up to ``flash_threshold``
-    keys, the chunked FA-2 path (value dim ``v_dim``) beyond."""
+    keys, the chunked FA-2 path (value dim ``v_dim``) beyond; its chunks
+    skip the rows that cannot see them where ``positions`` is None
+    (``arange(S)``, built here)."""
     b, sq, _ = x.shape
+    aligned = positions is None
+    if aligned:
+        positions = torch.arange(sq, device=x.device)
     h, dqk = s.n_heads, s.qk_nope + s.qk_rope
     with obs.span("attn/mla", device=True, layer=layer, tokens=b * sq):
         q = linear_apply(p["wq"], x, abft).reshape(b, sq, h, dqk)
@@ -346,6 +465,7 @@ def mla_apply(p, x, s: MLASpec, *, positions: torch.Tensor, abft=None,
         else:
             o = _sdpa_flash(qh, k, v.contiguous(), scale=scale,
                             softcap=None, q_pos=positions, k_pos=positions,
-                            causal=True, window=None, kc=s.kc)
+                            causal=True, window=None, kc=s.kc,
+                            aligned=aligned)
         o = o.reshape(b, sq, h * s.v_dim).to(x.dtype)
         return linear_apply(p["wo"], o, abft)

@@ -181,7 +181,8 @@ def _block_apply(p, x, cfg: ModelConfig, mixer: str, ffn: str, *,
     construction check; ``inv_ok`` is the AND of every check.  ``layer``
     (the block's index) names the latent attention's and the dropless
     MoE's spans; ``moe_load`` collects the experts the dropless MoE's
-    tokens chose.
+    tokens chose.  ``positions`` None is ``arange(S)``, which the
+    attention layers build themselves (`attention.attn_apply`).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ok = torch.ones((), dtype=torch.bool, device=x.device)
@@ -424,10 +425,9 @@ def _encode_frames(params, frames, cfg: ModelConfig):
     """Whisper encoder over precomputed frame embeddings (conv stub).  As in
     the reference, the encoder's projections run unprotected."""
     x = frames
-    positions = torch.arange(x.shape[1], device=x.device)
     for layer in params["encoder"][0]:
         x = _block_apply(layer, x, cfg, "attn_bidir", "dense",
-                         positions=positions)[0]
+                         positions=None)[0]
     return rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -449,10 +449,9 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, cache=None,
     The tied unembedding reads ``params["embed"]["table_f32"]`` when
     present (an fp32 copy the serving engine caches once) instead of
     casting the table on every call; the numbers are the same.
+    ``positions`` None is ``arange(S)``; the attention layers build it, and
+    their chunked path then skips the rows that cannot see a KV chunk.
     """
-    b, s = tokens.shape
-    if positions is None:
-        positions = torch.arange(s, device=tokens.device)
     if invariants:
         x, ok_embed = embed_apply(params["embed"], tokens, check=True)
     else:

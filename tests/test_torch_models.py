@@ -112,29 +112,33 @@ def test_attention_dense_matches_reference(rs, abft, window):
 
 def test_attention_prefill_chunked_path_matches_reference(rs):
     """Prefill into a cache longer than flash_threshold takes the chunked
-    online-softmax path on both sides (sk = 1536 = 3 chunks of 512)."""
+    online-softmax path on both sides (sk = 1536 = 3 chunks of 512): the
+    port with the positions passed (every chunk over every row) and with
+    none (built from 0, each chunk over the rows that can see it)."""
     sj, st = _spec_pair(kc=512)
     pj = jattn.attn_init(jax.random.PRNGKey(2), sj)
     pt = _tree_to_torch(pj)
     sq, max_len = 40, 1536
     xj, xt = _x(rs, 1, sq, 64)
     cache_j = jattn.make_cache(1, max_len, 2, 16, jnp.float32)
-    cache_t = tattn.make_cache(1, max_len, 2, 16, torch.float32)
     yj, nj = jattn.attn_apply(pj, xj, sj, positions=jnp.arange(sq),
                               cache=cache_j)
-    yt, nt = tattn.attn_apply(pt, xt, st, positions=torch.arange(sq),
-                              cache=cache_t)
-    assert_close(yt, yj)
-    assert_close(nt["k"], nj["k"])
-    assert int(nt["index"]) == int(nj["index"]) == sq
+    for positions in (torch.arange(sq), None):
+        cache_t = tattn.make_cache(1, max_len, 2, 16, torch.float32)
+        yt, nt = tattn.attn_apply(pt, xt, st, positions=positions,
+                                  cache=cache_t)
+        assert_close(yt, yj)
+        assert_close(nt["k"], nj["k"])
+        assert int(nt["index"]) == int(nj["index"]) == sq
 
 
 @pytest.mark.parametrize("sk,kc", [(48, 16), (40, 16), (1100, 512)])
 def test_chunked_softmax_matches_dense(rs, sk, kc):
-    """The port's chunked path equals dense attention, also when the last
-    chunk is ragged (sk % kc != 0).  The reference's chunked path pads that
-    chunk with keys at position -1e9, which its causal test lets through,
-    so it is held here only where sk % kc == 0."""
+    """The port's chunked path, on both routes (every chunk over every row,
+    and each over the rows that see it), equals dense attention, also when
+    the last chunk is ragged (sk % kc != 0).  The reference's chunked path
+    pads that chunk with keys at position -1e9, which its causal test lets
+    through, so it is held here only where sk % kc == 0."""
     b, g_kv, g, d = 1, 2, 2, 8
     q = rs.standard_normal((b, sk, g_kv, g, d)).astype(np.float32)
     k = rs.standard_normal((b, sk, g_kv, d)).astype(np.float32)
@@ -144,17 +148,19 @@ def test_chunked_softmax_matches_dense(rs, sk, kc):
                        window=None)
     dense = jattn._sdpa_dense(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                               scale=d ** -0.5, softcap=None, mask=mask)
-    ot, _ = tattn._flash_fwd_impl(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(pos), torch.from_numpy(pos), scale=d ** -0.5,
-        softcap=None, causal=True, window=None, kc=kc)
-    assert_close(ot, dense)
     if sk % kc == 0:
         oj = jattn._sdpa_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                scale=d ** -0.5, softcap=None,
                                q_pos=jnp.asarray(pos), k_pos=jnp.asarray(pos),
                                causal=True, window=None, kc=kc)
-        assert_close(ot, oj)
+    for aligned in (False, True):
+        ot, _ = tattn._flash_fwd_impl(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(pos), torch.from_numpy(pos), scale=d ** -0.5,
+            softcap=None, causal=True, window=None, kc=kc, aligned=aligned)
+        assert_close(ot, dense)
+        if sk % kc == 0:
+            assert_close(ot, oj)
 
 
 def _lm_pair(seed=0):
@@ -215,3 +221,73 @@ def test_invariants_and_unsupported_kinds(rs):
                                 invariants=True)
     assert bool(okm) and lm.shape == (1, 6, cfg_m.vocab_size)
     assert bool(torch.isfinite(lm).all())
+
+
+def _rows_skipped():
+    return tattn.obs.counter("repro_flash_chunk_rows_total").value(
+        kind="skipped", direction="fwd")
+
+
+def test_forward_over_flash_threshold_matches_reference(rs):
+    """Smoke qwen2 (fp32) at 1536 tokens, 3 chunks of 512 past the
+    1024-key flash threshold: the port's forward, which builds the
+    positions itself and so skips the rows a chunk cannot reach, gives
+    the reference's logits."""
+    cfg_j, cfg_t, pj, pt = _lm_pair(seed=4)
+    toks = rs.randint(0, cfg_j.vocab_size, size=(1, 1536))
+    lj, _, _ = jtf.forward(pj, jnp.asarray(toks), cfg_j)
+    before = _rows_skipped()
+    lt, _, _ = ttf.forward(pt, torch.from_numpy(toks), cfg_t)
+    assert _rows_skipped() > before
+    assert_close(lt, lj)
+
+
+@pytest.mark.parametrize("layer", ["attn", "attn-window-softcap",
+                                   "attn-fresh-cache", "mla", "forward"])
+def test_host_known_positions_skip_rows_unknown_take_every_chunk(rs, layer):
+    """On the chunked path a layer that builds the positions itself
+    (``positions`` None, as `forward` leaves them when its caller gives
+    none) skips the query rows that cannot see a chunk; given the
+    positions (a caller's, or a prefill at a device index) every chunk
+    takes every row.  The outputs agree to fp32 rounding.  Layers: 70
+    tokens over chunks of 16 (flash_threshold 16), a prefill into a fresh
+    cache of 96, and the model at 1040 tokens."""
+    sq = 1040 if layer == "forward" else 70
+    pos = torch.arange(sq)
+    if layer == "forward":
+        cfg = tsmoke("qwen2-0.5b")
+        params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
+        toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (1, sq)))
+
+        def run(known):
+            return ttf.forward(params, toks, cfg,
+                               positions=None if known else pos)[0]
+    elif layer == "mla":
+        spec = tattn.MLASpec(d_model=64, n_heads=2, kv_lora_rank=16,
+                             qk_nope=8, qk_rope=4, v_dim=8, kc=16)
+        p = tattn.mla_init(torch.Generator().manual_seed(0), spec)
+        x = _x(rs, 1, sq, 64)[1]
+
+        def run(known):
+            return tattn.mla_apply(p, x, spec,
+                                   positions=None if known else pos,
+                                   flash_threshold=16)
+    else:
+        kw = dict(window=24, softcap=30.0) if layer == "attn-window-softcap" \
+            else {}
+        sj, spec = _spec_pair(kc=16, **kw)
+        p = _tree_to_torch(jattn.attn_init(jax.random.PRNGKey(3), sj))
+        x = _x(rs, 2, sq, 64)[1]
+
+        def run(known):
+            cache = tattn.make_cache(2, 96, 2, 16, torch.float32) \
+                if layer == "attn-fresh-cache" else None
+            return tattn.attn_apply(p, x, spec,
+                                    positions=None if known else pos,
+                                    cache=cache, flash_threshold=16)[0]
+    before = _rows_skipped()
+    every = run(False)
+    assert _rows_skipped() == before
+    skipping = run(True)
+    assert _rows_skipped() > before
+    assert_close(skipping, every, rtol=2e-6)
